@@ -19,8 +19,22 @@ the final ok line):
    once per window-encode call, Nc == steps // o, the p_c bytes equal the oracle's
    encoding of p_raw on the first 256 sensors and decode to within 1e-3 of the series
    peak, no NaN. Prints ms/step.
+5. codec kernels: the projection encode (K5, both entries) at the codec round trip's
+   full shape (T=4096, N=16384, period 20, H=2), and at H=1, H=4 and a ragged N, against
+   its plain version and a float64 projection (within 1e-6 of the frame peak) and the
+   oracle's float encoder on 256 sensors (2e-6); flat == 3D bit for bit; K6 window by
+   window == K5 bit for bit; dyadic data bit-exact. The synthesis decode (K4, both
+   entries) on the same frames and on five boundary cases, against plain (1e-6 of the
+   peak) and `kwave_tpu.oracle.reconstruct` on 256 sensors (4e-6). Kernel and plain
+   times at the full shape from CUDA events, and wall time per call;
+6. codec round trip: `kwave_tpu_torch.bench` at bench.py's shape (GB/s,
+   actual_bytes_value, ceiling, fraction, the err < 0.02 guard), one encode and one
+   decode launch per round trip; a shorter chain through the 3D entries; the same
+   series encoded window by window through K6, equal to the whole-series frames; and
+   phase 4's float `p_c` decoded by `decoder.reconstruct_frames` (K4) against the oracle.
 Then one JSON line with every kernel's numbers, and as the last line
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``. TF32 is off throughout, so every plain version on the
+card computes in full fp32.
 """
 
 from __future__ import annotations
@@ -37,6 +51,12 @@ ROOT = Path(__file__).resolve().parent
 O_SIZE, N_SENSORS, GRID_N = 16, 16384, 128
 ORACLE_SENSORS = 256
 DECODE_TOL = 1e-3  # of the series peak, as tests/test_torch_driver.py
+
+# the codec round trip's full shape (bench.py)
+CODEC_T, CODEC_N, CODEC_PERIOD, CODEC_H = 4096, 16384, 20.0, 2
+CODEC_TOL = 1e-6  # kernel vs plain and vs a float64 projection, of the peak
+ORACLE_ENC_TOL = 2e-6  # vs the oracle's per-step float accumulate, of the frame peak
+ORACLE_DEC_TOL = 4e-6  # vs oracle.reconstruct, of the series peak
 
 VARIANTS = {
     # LAUNCHES key: (mode40, overlap, the TPU kernel it replaces)
@@ -130,7 +150,7 @@ def _series(steps, n, seed):
     return (x + rng.normal(0, 1e3, (steps, n))).astype(np.float32)
 
 
-def _time_per_window(fn, iters, warmup):
+def _time_per_call(fn, iters, warmup):
     """(device ms, wall ms) per call. The device time is taken with CUDA events while a
     sleep kernel holds the stream, so the host has enqueued every call before the device
     starts them and the events see the launches back to back (host-bound code, such as
@@ -230,8 +250,8 @@ def kernel_phase():
                         raise AssertionError(f"{key} H={h} window {w}: kernel != oracle")
             if h == 1:  # the main path's shape: time it
                 args = (chunk, tabs, planes, *extra, 0, 0, overlap)
-                ms, wall = _time_per_window(lambda: kern(*args), iters=200, warmup=20)
-                plain_ms, plain_wall = _time_per_window(lambda: plain(*args), iters=10,
+                ms, wall = _time_per_call(lambda: kern(*args), iters=200, warmup=20)
+                plain_ms, plain_wall = _time_per_call(lambda: plain(*args), iters=10,
                                                         warmup=2)
         results[key] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
         print(f"[3 kernel] {key}: bit-exact vs plain (H=1,2, parity 0/1, mirror 0/1) and "
@@ -240,6 +260,264 @@ def kernel_phase():
               f"ms; wall per call: kernel {wall:.4f} ms, plain {plain_wall:.4f} ms",
               flush=True)
     return results
+
+
+CODEC_KERNELS = {
+    # LAUNCHES key: (module of the count, the TPU kernel it replaces)
+    "reconstruct_series_flat": ("fastpath", "kwave_tpu/ops/fastpath.py:344"),
+    "reconstruct_series": ("fastpath", "kwave_tpu/ops/fastpath.py:431"),
+    "encode_frames_flat": ("fastpath", "kwave_tpu/ops/fastpath.py:279"),
+    "encode_frames": ("fastpath", "kwave_tpu/ops/fastpath.py:126"),
+    "wfloat_projection": ("encode_window", "kwave_tpu/ops/encode_pallas.py:132"),
+}
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over the peak of want, in float64 on the host."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _require(ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(what)
+
+
+def _codec_tables(basis):
+    """(tab_lo, tab_hi) [o, 2H] for the projection and tab4 [o, 4H] for the synthesis."""
+    import torch
+
+    from kwave_tpu_torch import encoder
+
+    o = basis.o_size
+    t = encoder.make_tables(basis, False, "cuda")
+    tab = torch.cat([t["be_re"], t["be_im"]], dim=1)
+    tab4 = torch.cat([t["be_re"][o:], t["be_im"][o:], t["be_re"][:o], t["be_im"][:o]],
+                     dim=1)
+    return tab[:o].contiguous(), tab[o:].contiguous(), tab4.contiguous()
+
+
+def _oracle_frames(x_host, basis):
+    """The oracle's float overlap frames of x_host [T, n] as [K, 2H, n] float32."""
+    from kwave_tpu import oracle
+
+    frames = oracle.OracleEncoder(basis, x_host.shape[1],
+                                  total_steps=x_host.shape[0]).encode_series(x_host)
+    return np.stack([np.concatenate([fr.T, fi.T]) for fr, fi in frames])
+
+
+def _oracle_reconstruct(frames, basis, n_steps):
+    from kwave_tpu import oracle
+
+    f = frames[:, :, :ORACLE_SENSORS].cpu().numpy()
+    h = basis.harmonics
+    return oracle.reconstruct(np.swapaxes(f[:, :h], 1, 2), np.swapaxes(f[:, h:], 1, 2),
+                              basis, False, n_steps)
+
+
+def codec_kernel_phase():
+    """K5 (both entries), K6 and K4 (both entries) against plain, float64 and oracle."""
+    import torch
+
+    from kwave_tpu.basis import generate_basis
+    from kwave_tpu_torch import bench
+    from kwave_tpu_torch.ops import encode_window as ew
+    from kwave_tpu_torch.ops import fastpath as fp
+
+    results = {}
+    for h, n in ((CODEC_H, CODEC_N), (1, CODEC_N), (4, CODEC_N), (CODEC_H, CODEC_N - 3)):
+        main = (h, n) == (CODEC_H, CODEC_N)
+        basis = generate_basis(CODEC_PERIOD, 1, h, normalize=True)
+        o = basis.o_size
+        lo, hi, tab4 = _codec_tables(basis)
+        x = bench.make_series(CODEC_T, n, CODEC_PERIOD, seed=h + n, device="cuda")
+        # K5: both entries, plain, float64 and the oracle
+        frames = fp.encode_frames_flat(x, lo, hi, o)
+        _require(torch.equal(frames.view(torch.int32),
+                             fp.encode_frames(x, lo, hi, o).view(torch.int32)),
+                 f"H={h} N={n}: encode_frames (3D) != encode_frames_flat")
+        plain = fp.encode_frames_plain(x, lo, hi, o)
+        enc_err = _rel_err(frames, plain)
+        sub = slice(0, ORACLE_SENSORS)
+        f64 = fp.encode_frames_plain(x[:, sub].double(), lo.double(), hi.double(), o)
+        f64_err = _rel_err(frames[..., sub], f64)
+        orc_err = _rel_err(frames[..., sub], torch.from_numpy(
+            _oracle_frames(x[:, sub].cpu().numpy(), basis)))
+        _require(enc_err <= CODEC_TOL and f64_err <= CODEC_TOL
+                 and orc_err <= ORACLE_ENC_TOL,
+                 f"H={h} N={n}: encode off by {enc_err:.3g} (plain), {f64_err:.3g} "
+                 f"(float64), {orc_err:.3g} (oracle) of the peak")
+        # K6 window by window == K5
+        p1 = torch.zeros((2 * h, n), device="cuda")
+        k6_err = 0.0
+        for w in range(frames.shape[0]):
+            chunk = x[w * o:(w + 1) * o]
+            frame, p1_next = ew.encode_window_float(chunk, lo, hi, p1, first_window=w == 0)
+            _require(torch.equal(frame.view(torch.int32), frames[w].view(torch.int32)),
+                     f"H={h} N={n}: K6 window {w} != K5 frame")
+            if w < 3:
+                k6_err = max(k6_err, float((frame - ew.encode_window_float_plain(
+                    chunk, lo, hi, p1, w == 0)[0]).abs().max()))
+            p1 = p1_next
+        # K4: both entries on the frames, plain and the oracle
+        rec = fp.reconstruct_series_flat(frames, tab4, o, CODEC_T)
+        _require(torch.equal(rec.view(torch.int32), fp.reconstruct_series(
+            frames, tab4, o, CODEC_T).view(torch.int32)),
+                 f"H={h} N={n}: reconstruct_series (3D) != reconstruct_series_flat")
+        dec_err = _rel_err(rec, fp.reconstruct_series_plain(frames, tab4, o, CODEC_T))
+        _require(dec_err <= CODEC_TOL, f"H={h} N={n}: decode off plain by {dec_err:.3g}")
+        line = (f"[5 codec] H={h} N={n} T={CODEC_T} o={o}: K5 flat == 3D bit for bit, "
+                f"off plain {enc_err:.2e}, float64 {f64_err:.2e}, oracle {orc_err:.2e} of "
+                f"the peak; K6 x{frames.shape[0]} windows == K5 bit for bit; K4 flat == 3D, "
+                f"off plain {dec_err:.2e}")
+        if main:
+            line += _codec_main_checks(x, frames, rec, basis, lo, hi, tab4, results,
+                                       k6_err)
+        print(line, flush=True)
+    return results
+
+
+def _codec_main_checks(x, frames, rec, basis, lo, hi, tab4, results, k6_err):
+    """At the full shape: K4 against the oracle and on the five boundary cases, dyadic
+    bit-exactness, and the times of every kernel and its plain version."""
+    import torch
+
+    from kwave_tpu_torch.ops import encode_window as ew
+    from kwave_tpu_torch.ops import fastpath as fp
+
+    o = basis.o_size
+    dec_orc = _rel_err(rec[:, :ORACLE_SENSORS],
+                       torch.from_numpy(_oracle_reconstruct(frames, basis, CODEC_T)))
+    _require(dec_orc <= ORACLE_DEC_TOL, f"decode off the oracle by {dec_orc:.3g}")
+    cases = [(12, 12 * o - 7), (12, 5 * o), (4, 6 * o), (1, o), (12, 1)]
+    worst_case = 0.0
+    for k_frames, n_steps in cases:
+        f = frames[:k_frames].contiguous()
+        got = fp.reconstruct_series_flat(f, tab4, o, n_steps)
+        _require(tuple(got.shape) == (n_steps, CODEC_N) and torch.equal(
+            got.view(torch.int32),
+            fp.reconstruct_series(f, tab4, o, n_steps).view(torch.int32)),
+            f"boundary case {k_frames} frames, {n_steps} steps: flat != 3D")
+        e_plain = _rel_err(got, fp.reconstruct_series_plain(f, tab4, o, n_steps))
+        e_orc = _rel_err(got[:, :ORACLE_SENSORS],
+                         torch.from_numpy(_oracle_reconstruct(f, basis, n_steps)))
+        _require(e_plain <= CODEC_TOL and e_orc <= ORACLE_DEC_TOL,
+                 f"boundary case {k_frames} frames, {n_steps} steps: off plain "
+                 f"{e_plain:.3g}, oracle {e_orc:.3g}")
+        worst_case = max(worst_case, e_plain, e_orc)
+    rng = np.random.default_rng(1)
+    xd = torch.from_numpy(rng.integers(-8, 9, (CODEC_T, CODEC_N)).astype(np.float32)).cuda()
+    ld, hd = (torch.from_numpy((rng.integers(-7, 8, tuple(lo.shape)) / 32.0).astype(
+        np.float32)).cuda() for _ in range(2))
+    fd = fp.encode_frames_flat(xd, ld, hd, o)
+    _require(torch.equal(fd.view(torch.int32), fp.encode_frames_plain(xd, ld, hd, o).view(
+        torch.int32)), "dyadic encode: kernel != plain")
+    td = torch.from_numpy((rng.integers(-7, 8, tuple(tab4.shape)) / 32.0).astype(
+        np.float32)).cuda()
+    _require(torch.equal(
+        fp.reconstruct_series_flat(fd, td, o, CODEC_T, normalized=False).view(torch.int32),
+        fp.reconstruct_series_plain(fd, td, o, CODEC_T, normalized=False).view(
+            torch.int32)), "dyadic decode: kernel != plain")
+
+    p1 = torch.zeros_like(frames[0])
+    chunk = x[:o]
+    timed = {  # LAUNCHES key: (kernel call, plain call)
+        "encode_frames_flat": (lambda: fp.encode_frames_flat(x, lo, hi, o),
+                               lambda: fp.encode_frames_plain(x, lo, hi, o)),
+        "encode_frames": (lambda: fp.encode_frames(x, lo, hi, o),
+                          lambda: fp.encode_frames_plain(x, lo, hi, o)),
+        "wfloat_projection": (lambda: ew.encode_window_float(chunk, lo, hi, p1),
+                              lambda: ew.encode_window_float_plain(chunk, lo, hi, p1)),
+        "reconstruct_series_flat": (
+            lambda: fp.reconstruct_series_flat(frames, tab4, o, CODEC_T),
+            lambda: fp.reconstruct_series_plain(frames, tab4, o, CODEC_T)),
+        "reconstruct_series": (lambda: fp.reconstruct_series(frames, tab4, o, CODEC_T),
+                               lambda: fp.reconstruct_series_plain(frames, tab4, o,
+                                                                   CODEC_T)),
+    }
+    errs = {
+        "encode_frames_flat": float((frames - fp.encode_frames_plain(x, lo, hi, o)).abs()
+                                    .max()),
+        "wfloat_projection": k6_err,
+        "reconstruct_series_flat": float(
+            (rec - fp.reconstruct_series_plain(frames, tab4, o, CODEC_T)).abs().max()),
+    }
+    errs["encode_frames"] = errs["encode_frames_flat"]
+    errs["reconstruct_series"] = errs["reconstruct_series_flat"]
+    parts = []
+    for key, (kern, plain) in timed.items():
+        ms, wall = _time_per_call(kern, iters=50, warmup=5)
+        plain_ms, plain_wall = _time_per_call(plain, iters=10, warmup=2)
+        results[key] = dict(max_abs_err=errs[key], ms=ms, plain_ms=plain_ms)
+        parts.append(f"{key} {ms * 1e3:.1f} us (wall {wall * 1e3:.1f} us), plain "
+                     f"{plain_ms * 1e3:.1f} us (wall {plain_wall * 1e3:.1f} us)")
+    return (f"; K4 off oracle {dec_orc:.2e} ({ORACLE_SENSORS} sensors); 5 boundary cases "
+            f"flat == 3D, worst {worst_case:.2e} off plain/oracle; dyadic K5 and K4 == plain "
+            f"bit for bit; device time per call: " + "; ".join(parts))
+
+
+def codec_round_trip_phase(float_out, float_steps):
+    """The codec's entry points at full width with the counts set to 0 first: the bench
+    chain (flat entries), a shorter chain through the 3D entries, the series encoded
+    window by window through K6, and phase 4's float p_c decoded through K4."""
+    import torch
+
+    from kwave_tpu.basis import generate_basis
+    from kwave_tpu_torch import bench, decoder, encoder
+    from kwave_tpu_torch.ops import encode_window as ew
+    from kwave_tpu_torch.ops import fastpath as fp
+
+    ew.reset_launch_counts()
+    fp.reset_launch_counts()
+    res = bench.run(device="cuda")
+    _require(fp.LAUNCHES["encode_frames_flat"] == res["round_trips"] ==
+             fp.LAUNCHES["reconstruct_series_flat"],
+             f"{res['round_trips']} round trips launched {fp.LAUNCHES}")
+    print(f"[6 round trip] T={CODEC_T} N={CODEC_N} H={CODEC_H} period {CODEC_PERIOD:g}: "
+          f"{json.dumps({k: res[k] for k in ('value', 'actual_bytes_value', 'ceiling', 'fraction', 'vs_baseline', 'ms_per_round_trip', 'wall_ms_per_round_trip', 'round_trip_err')})}"
+          f"; {res['round_trips']} round trips, one encode_frames_flat and one "
+          f"reconstruct_series_flat launch each", flush=True)
+    res3 = bench.run(reps_inner=2, reps_outer=1, compute="vpu", device="cuda")
+    _require(fp.LAUNCHES["encode_frames"] == res3["round_trips"] ==
+             fp.LAUNCHES["reconstruct_series"], f"3D entries launched {fp.LAUNCHES}")
+    print(f"[6 round trip] 3D entries (compute=vpu): {res3['round_trips']} round trips, "
+          f"{res3['ms_per_round_trip']:.4f} ms each, guard err "
+          f"{res3['round_trip_err']:.2e}", flush=True)
+
+    basis = generate_basis(CODEC_PERIOD, 1, CODEC_H, normalize=True)
+    o = basis.o_size
+    x = bench.make_series(CODEC_T, CODEC_N, CODEC_PERIOD, seed=0, device="cuda")
+    whole = encoder.encode_series_frames(x, basis)
+    lo, hi, _ = _codec_tables(basis)
+    p1 = torch.zeros((2 * CODEC_H, CODEC_N), device="cuda")
+    for w in range(whole.shape[0]):
+        frame, p1 = ew.encode_window_float(x[w * o:(w + 1) * o], lo, hi, p1,
+                                           first_window=w == 0)
+        _require(torch.equal(frame.view(torch.int32), whole[w].view(torch.int32)),
+                 f"streamed window {w} != whole-series frame")
+    print(f"[6 round trip] the series window by window through encode_window_float: "
+          f"{whole.shape[0]} frames == encode_series_frames bit for bit", flush=True)
+
+    # phase 4's float p_c (H=1, period O_SIZE) decoded on the card
+    rows = float_out["p_c"].data[0]  # [Nc, 2*H*N] interleaved (pH = i*H + ih, re/im)
+    c = np.ascontiguousarray(rows).view(np.float32).reshape(rows.shape[0], N_SENSORS, 1, 2)
+    frames = torch.from_numpy(np.concatenate(
+        [np.swapaxes(c[..., 0], 1, 2), np.swapaxes(c[..., 1], 1, 2)], axis=1)).cuda()
+    pbasis = generate_basis(float(O_SIZE), 1, 1, normalize=True)
+    t = encoder.make_tables(pbasis, False, "cuda")
+    rec = decoder.reconstruct_frames(frames, t["be_re"], t["be_im"], O_SIZE, float_steps)
+    err = _rel_err(rec[:, :ORACLE_SENSORS], torch.from_numpy(
+        _oracle_reconstruct(frames, pbasis, float_steps)))
+    _require(torch.isfinite(rec).all().item() and err <= ORACLE_DEC_TOL,
+             f"p_c decode off the oracle by {err:.3g}")
+    counts = {k: (fp.LAUNCHES if mod == "fastpath" else ew.LAUNCHES)[k]
+              for k, (mod, _) in CODEC_KERNELS.items()}
+    _require(all(v > 0 for v in counts.values()), f"a codec kernel never ran: {counts}")
+    print(f"[6 round trip] phase 4's float p_c ({rows.shape[0]} frames x {N_SENSORS} "
+          f"sensors, {float_steps} steps) through decoder.reconstruct_frames: off "
+          f"oracle.reconstruct {err:.2e} of the peak ({ORACLE_SENSORS} sensors); "
+          f"launches {counts}", flush=True)
+    return counts
 
 
 def _input(nt: int):
@@ -337,6 +615,7 @@ def main_path_phase():
     ]
     _run(runs[0][0], 1, 3)  # warm-up: CUDA context, cuFFT plans (not counted)
     ew.reset_launch_counts()
+    float_run = None
     for flags, windows, tail, variant in runs:
         before = dict(ew.LAUNCHES)
         out, secs, steps = _run(flags, windows, tail)
@@ -354,7 +633,9 @@ def main_path_phase():
               f"{delta[variant]}x; Nc={steps // O_SIZE}; p_c == oracle(p_raw) bytes on "
               f"{ORACLE_SENSORS} sensors, decoded diff {err:.3g} (peak {peak:.3g})",
               flush=True)
-    return dict(ew.LAUNCHES)
+        if flags == ["--p_raw", "--p_c"]:
+            float_run = (out, steps)  # decoded on the card in phase 6
+    return dict(ew.LAUNCHES), float_run
 
 
 def main() -> int:
@@ -368,19 +649,28 @@ def main() -> int:
         print("chip_smoke.py: torch.cuda.is_available() is False; needs an NVIDIA card",
               file=sys.stderr)
         return 2
+    # full fp32 for every plain version: a TF32 matmul would be ~1e-3 off
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
 
     name, smi = device_phase()
+    print(f"[1 device] allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn={torch.backends.cudnn.allow_tf32}, float32_matmul_precision="
+          f"{torch.get_float32_matmul_precision()}", flush=True)
     build_phase()
     kernels = kernel_phase()
-    launches = main_path_phase()
+    launches, float_run = main_path_phase()
+    codec = codec_kernel_phase()
+    codec_launches = codec_round_trip_phase(*float_run)
 
-    print(json.dumps({"kernels": [
-        dict(name=key, route="cuda", source="kwave_tpu_torch/csrc/encode_window.cu",
-             replaces=VARIANTS[key][2], launches=launches[key], **kernels[key])
-        for key in VARIANTS
-    ]}), flush=True)
+    rows = [dict(name=key, route="cuda", source="kwave_tpu_torch/csrc/encode_window.cu",
+                 replaces=VARIANTS[key][2], launches=launches[key], **kernels[key])
+            for key in VARIANTS]
+    rows += [dict(name=key, route="cuda", source="kwave_tpu_torch/csrc/fastpath.cu",
+                  replaces=replaces, launches=codec_launches[key], **codec[key])
+             for key, (_, replaces) in CODEC_KERNELS.items()]
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

@@ -1,4 +1,4 @@
-"""40-bit complex codec as PyTorch integer ops (port of `kwave_tpu.bitpack`).
+"""40-bit and W-bit complex codecs as PyTorch integer ops (port of `kwave_tpu.bitpack`).
 
 Planes are int32 tensors whose bits equal the reference's uint32 planes (``header`` low 8
 bits, ``mr``/``mi`` low 16 bits): torch's uint32 lacks shifts and compares on the CPU, and
@@ -24,8 +24,11 @@ def _shl1(shift: torch.Tensor) -> torch.Tensor:
     return torch.ones_like(shift) << shift
 
 
-def encode40(re: torch.Tensor, im: torch.Tensor, e: int):
-    """Pack fp32 complex (re, im) -> (header, mR, mI) int32 planes (low 8/16/16 bits)."""
+def _fields(re: torch.Tensor, im: torch.Tensor, e: int, m_bits: int):
+    """The reference's shared-exponent quantisation of fp32 complex (re, im) to M-bit
+    mantissas (M incl. the flag bit; CompressHelper.cpp:292-389 at M = 17). Returns
+    (s_r, s_i, e_s, m_r, m_i) with m_* of M bits (saturated on exponent overflow)."""
+    rs0 = 23 - m_bits  # the 40-bit base shift of 6 (CompressHelper.cpp:330) at M = 17
     bits_r = re.to(torch.float32).contiguous().view(_I32)
     bits_i = im.to(torch.float32).contiguous().view(_I32)
     s_r = (bits_r >> 31) & 1
@@ -37,8 +40,8 @@ def encode40(re: torch.Tensor, im: torch.Tensor, e: int):
     m_i = bits_i & 0x007FFFFF
 
     # right-shift counts are uint8 in the reference: mod-256 wraparound at each update
-    rs_r = (6 + torch.clamp(e_is - e_rs, min=0)) & 0xFF
-    rs_i = (6 + torch.clamp(e_rs - e_is, min=0)) & 0xFF
+    rs_r = (rs0 + torch.clamp(e_is - e_rs, min=0)) & 0xFF
+    rs_i = (rs0 + torch.clamp(e_rs - e_is, min=0)) & 0xFF
     neg = e_s < 0
     rs_r = torch.where(neg, (rs_r - e_s) & 0xFF, rs_r)
     rs_i = torch.where(neg, (rs_i - e_s) & 0xFF, rs_i)
@@ -53,15 +56,21 @@ def encode40(re: torch.Tensor, im: torch.Tensor, e: int):
     max_i = torch.full_like(rs_i, 0x7FFFFF) >> rs_i
     m_r = torch.where((m_r > 0) & (m_r != max_r), m_r + 1, m_r)
     m_i = torch.where((m_i > 0) & (m_i != max_i), m_i + 1, m_i)
-    # flag bit, then align to 17 bits
+    # flag bit, then align to M bits
     m_r = (m_r | _shl1(23 - rs_r)) >> 1
     m_i = (m_i | _shl1(23 - rs_i)) >> 1
 
+    sat = (1 << (m_bits - 1)) - 1  # 0xFFFF at M = 17
     over = e_s > 0xF
-    m_r = torch.where(over, 0xFFFF, m_r)
-    m_i = torch.where(over, 0xFFFF, m_i)
+    m_r = torch.where(over, sat, m_r)
+    m_i = torch.where(over, sat, m_i)
     e_s = torch.where(over, 0xF, e_s)
+    return s_r, s_i, e_s, m_r, m_i
 
+
+def encode40(re: torch.Tensor, im: torch.Tensor, e: int):
+    """Pack fp32 complex (re, im) -> (header, mR, mI) int32 planes (low 8/16/16 bits)."""
+    s_r, s_i, e_s, m_r, m_i = _fields(re, im, e, 17)
     header = (
         (s_r << 7)
         | (s_i << 6)
@@ -87,10 +96,8 @@ def _norm(m: torch.Tensor, ex: torch.Tensor):
     return m2, ex2
 
 
-def decode40(header: torch.Tensor, mr: torch.Tensor, mi: torch.Tensor, e: int):
-    """Unpack (header, mR, mI) int32 planes -> fp32 (re, im)."""
-    m_r = (((header & 0x20) << 11) | (mr & 0xFFFF)) << 6
-    m_i = (((header & 0x10) << 12) | (mi & 0xFFFF)) << 6
+def _unfields(header: torch.Tensor, m_r: torch.Tensor, m_i: torch.Tensor, e: int):
+    """Signs and exponent from the header, mantissas aligned to 23 bits -> fp32."""
     s_r = (header >> 7) & 1
     s_i = (header & 0x40) >> 6
     e_base = (header & 0xF) + e
@@ -99,6 +106,53 @@ def decode40(header: torch.Tensor, mr: torch.Tensor, mi: torch.Tensor, e: int):
     bits_r = (s_r << 31) | (e_r << 23) | (m_r & 0x7FFFFF)
     bits_i = (s_i << 31) | (e_i << 23) | (m_i & 0x7FFFFF)
     return bits_r.view(torch.float32), bits_i.view(torch.float32)
+
+
+def decode40(header: torch.Tensor, mr: torch.Tensor, mi: torch.Tensor, e: int):
+    """Unpack (header, mR, mI) int32 planes -> fp32 (re, im)."""
+    m_r = (((header & 0x20) << 11) | (mr & 0xFFFF)) << 6
+    m_i = (((header & 0x10) << 12) | (mi & 0xFFFF)) << 6
+    return _unfields(header, m_r, m_i, e)
+
+
+# ---------------------------------------------------------------------------
+# W-bit complex packing (port of kwave_tpu.bitpack.encode_packed/decode_packed)
+# ---------------------------------------------------------------------------
+#
+# W = 2 sign bits + 2*M mantissa bits + 4 shared-exponent bits, M incl. the flag bit:
+# M=17 is the reference's 40-bit layout (encode40/decode40 above), M=13 -> 32-bit,
+# M=9 -> 24-bit, M=5 -> 16-bit, M=1 -> 8-bit, all with the reference's arithmetic.
+
+SUPPORTED_MANT_BITS = {8: 1, 16: 5, 24: 9, 32: 13, 40: 17}
+
+
+def _mant_bits(total_bits: int) -> int:
+    if total_bits not in SUPPORTED_MANT_BITS:
+        raise ValueError(f"packed width {total_bits!r} is not one of "
+                         f"{sorted(SUPPORTED_MANT_BITS)}")
+    return SUPPORTED_MANT_BITS[total_bits]
+
+
+def encode_packed(re: torch.Tensor, im: torch.Tensor, e: int, total_bits: int = 40):
+    """Pack fp32 complex -> (header, mR, mI) int32 planes at the given field width.
+    header: low byte = [s_r | s_i | mantissa carry bits (40-bit only) | e(4)]; mr/mi:
+    low M bits (M = SUPPORTED_MANT_BITS[total_bits])."""
+    m_bits = _mant_bits(total_bits)
+    if total_bits == 40:
+        return encode40(re, im, e)
+    s_r, s_i, e_s, m_r, m_i = _fields(re, im, e, m_bits)
+    mask = (1 << m_bits) - 1
+    return (s_r << 7) | (s_i << 6) | (e_s & 0xF), m_r & mask, m_i & mask
+
+
+def decode_packed(header: torch.Tensor, mr: torch.Tensor, mi: torch.Tensor, e: int,
+                  total_bits: int = 40):
+    """Unpack W-bit planes -> fp32 (re, im); inverse of `encode_packed`."""
+    m_bits = _mant_bits(total_bits)
+    if total_bits == 40:
+        return decode40(header, mr, mi, e)
+    mask, rs0 = (1 << m_bits) - 1, 23 - m_bits
+    return _unfields(header, (mr & mask) << rs0, (mi & mask) << rs0, e)
 
 
 def pack_words(header: torch.Tensor, mr: torch.Tensor, mi: torch.Tensor) -> torch.Tensor:

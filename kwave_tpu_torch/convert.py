@@ -9,7 +9,9 @@ The functions read the JAX objects' fields by name and convert each through
 - `sim_state_from_jax` / `sim_state_to_numpy`: `SimState` both ways;
 - `sources_from_jax`: `kwave_tpu.solver.Sources` -> `Sources`;
 - `encoder_state_from_jax` / `encoder_state_to_numpy`: encoder state dicts both ways
-  (uint32 planes <-> int32 bit views, device counters <-> host integers).
+  (uint32 planes <-> int32 bit views, device counters <-> host integers);
+- `frames_from_jax` / `frames_to_numpy`: coefficient frames both ways (float ``[K, 2H, N]``
+  or ``[K, H, N]`` frames stay float32; uint32 packed planes <-> int32 bit views).
 """
 
 from __future__ import annotations
@@ -84,6 +86,33 @@ def sources_from_jax(src, device: torch.device | str = "cpu") -> Sources:
     })
 
 
+def _plane_from_jax(a, device) -> torch.Tensor:
+    """A JAX plane -> tensor: uint32 becomes its int32 bit view, float stays float32."""
+    a = np.asarray(a)
+    return _tensor(a.view(np.int32) if a.dtype == np.uint32 else a, device)
+
+
+def _plane_to_numpy(t: torch.Tensor) -> np.ndarray:
+    a = t.detach().cpu().numpy()
+    return a.view(np.uint32) if a.dtype == np.int32 else a
+
+
+def frames_from_jax(frames, device: torch.device | str = "cpu"):
+    """JAX coefficient frames -> port tensors: one array, or a tuple of planes (such as
+    the (hdr, mr, mi) uint32 planes of `encode_series_fast` with ``bits``), which comes
+    back as a tuple."""
+    if isinstance(frames, (tuple, list)):
+        return tuple(_plane_from_jax(f, device) for f in frames)
+    return _plane_from_jax(frames, device)
+
+
+def frames_to_numpy(frames):
+    """Port frames -> the JAX layout as numpy (int32 planes back to uint32)."""
+    if isinstance(frames, (tuple, list)):
+        return tuple(_plane_to_numpy(f) for f in frames)
+    return _plane_to_numpy(frames)
+
+
 def encoder_state_from_jax(state: dict[str, Any],
                            device: torch.device | str = "cpu") -> dict[str, Any]:
     """JAX encoder state -> port state: uint32 planes become int32 bit views, float
@@ -92,11 +121,8 @@ def encoder_state_from_jax(state: dict[str, Any],
     for k, v in state.items():
         if k in _ENCODER_COUNTERS:
             out[k] = int(np.asarray(v))
-            continue
-        a = np.asarray(v)
-        if a.dtype == np.uint32:
-            a = a.view(np.int32)
-        out[k] = _tensor(a, device)
+        else:
+            out[k] = _plane_from_jax(v, device)
     return out
 
 
@@ -105,9 +131,5 @@ def encoder_state_to_numpy(state: dict[str, Any]) -> dict[str, Any]:
     counters as int32 scalars."""
     out: dict[str, Any] = {}
     for k, v in state.items():
-        if k in _ENCODER_COUNTERS:
-            out[k] = np.int32(v)
-            continue
-        a = v.detach().cpu().numpy()
-        out[k] = a.view(np.uint32) if a.dtype == np.int32 else a
+        out[k] = np.int32(v) if k in _ENCODER_COUNTERS else _plane_to_numpy(v)
     return out

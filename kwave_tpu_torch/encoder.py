@@ -1,5 +1,5 @@
-"""Streaming frame encoder for compressed output streams, exact path (port of
-`kwave_tpu.encoder`'s reference-exact formulation).
+"""Frame encoder for compressed output streams (port of `kwave_tpu.encoder`): the
+reference-exact streaming path, and the fast whole-series windowed projection.
 
 Reproduces the reference's per-step fp32 complex MAC order (and, in 40-bit mode, the
 per-step decode -> add -> encode requantization) bit for bit
@@ -13,17 +13,24 @@ State is a dict: the ``[H, N]`` accumulator planes as tensors (int32 bit views o
 reference's uint32 planes in 40-bit mode) and the ``sampled_step``/``compressed_step``
 counters as host integers, so the per-window parity and mirror never wait on the device.
 Tables are time-major ``[2o, H]``; the window op takes them stacked ``[2o, 4H]``.
+
+The fast path (`encode_series_frames`, `encode_series_fast`) is fp32-accurate, not
+bit-identical: the whole series goes through one launch of the projection kernel
+(`kwave_tpu_torch.ops.fastpath`; its plain einsum on the CPU), and the packed widths
+quantise each finished frame once (`bitpack.encode_packed`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from kwave_tpu.basis import MAX_EXP_P, MAX_EXP_U, CompressionBasis
-from kwave_tpu_torch.ops import encode_window
+from kwave_tpu_torch import bitpack
+from kwave_tpu_torch.ops import encode_window, fastpath
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,7 +61,8 @@ def make_tables(basis: CompressionBasis, shifted: bool,
     n = 2 * basis.o_size
 
     def t(a):
-        return torch.tensor(a[:, :n].T.copy(), dtype=torch.float32, device=device)
+        # non_blocking: PyTorch's blocking upload would wait for the stream to drain
+        return torch.from_numpy(a[:, :n].T.astype(np.float32)).to(device, non_blocking=True)
 
     return {"be_re": t(be_re), "be_im": t(be_im), "be1_re": t(be1_re), "be1_im": t(be1_im)}
 
@@ -152,3 +160,88 @@ def emit_partial(state, cfg: EncoderConfig):
     """Force-emit the current buffer (the reference's tiny-record lastStep edge,
     IndexOutputStream.cpp:455-456: fires when the whole record fits inside one overlap)."""
     return _emit(state, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Fast path: whole-series windowed projection
+# ---------------------------------------------------------------------------
+
+
+def encode_series_frames(series, basis: CompressionBasis, shifted=False,
+                         precision: str = "highest", compute: str = "flat"):
+    """Packed-frame fast encode: frames ``[T // o, 2H, N]`` with rows ``[:H]`` = re,
+    ``[H:]`` = im, on the series' device. Every ``compute`` value takes the one fp32
+    kernel ("flat" its flat entry, the others its 3D entry); a ``precision`` other than
+    "highest" is refused."""
+    fastpath.check_precision(precision)
+    series = torch.as_tensor(series, dtype=torch.float32)
+    o, h = basis.o_size, basis.harmonics
+    if series.shape[0] < o:  # no whole window
+        return series.new_zeros((0, 2 * h, series.shape[1]))
+    tables = make_tables(basis, shifted, series.device)
+    tab = torch.cat([tables["be_re"], tables["be_im"]], dim=1)  # [2o, 2H]
+    if compute == "flat":
+        return fastpath.encode_frames_flat(series, tab[:o], tab[o:], o)
+    return fastpath.encode_frames(series, tab[:o], tab[o:], o, compute=compute)
+
+
+def encode_series_fast(series, basis: CompressionBasis, shifted=False, mode40=False,
+                       overlap=True, precision: str = "highest",
+                       bits: Optional[int] = None, compute: str = "flat"):
+    """Fast windowed-projection encoder (fp32-accurate, not bit-identical).
+
+    Float mode returns (re, im) ``[Nc, H, N]``; packed modes quantise each frame once and
+    return int32 planes (the bits of the JAX package's uint32 planes). ``bits`` selects
+    the packed width (8/16/24/32/40, `bitpack.SUPPORTED_MANT_BITS`); ``mode40`` is the
+    bits=40 shorthand. No-overlap mode projects each window on the summed half-tables
+    bE + bE_1 (one einsum, as the JAX package leaves it to XLA)."""
+    if bits is None and mode40:
+        bits = 40
+    series = torch.as_tensor(series, dtype=torch.float32)
+    o, h = basis.o_size, basis.harmonics
+    if overlap:
+        frames = encode_series_frames(series, basis, shifted, precision, compute)
+        f_re, f_im = frames[:, :h], frames[:, h:]
+    else:
+        fastpath.check_precision(precision)
+        tables = make_tables(basis, shifted, series.device)
+        tab_re = tables["be_re"][:o] + tables["be1_re"][:o]
+        tab_im = tables["be_im"][:o] + tables["be1_im"][:o]
+        n_frames = series.shape[0] // o
+        chunks = series[: n_frames * o].reshape(n_frames, o, -1)
+        f_re = torch.einsum("kun,uh->khn", chunks, tab_re)
+        f_im = torch.einsum("kun,uh->khn", chunks, tab_im)
+    if bits is None:
+        return f_re, f_im
+    return bitpack.encode_packed(f_re, f_im, MAX_EXP_U if shifted else MAX_EXP_P, bits)
+
+
+# ---------------------------------------------------------------------------
+# Host-edge layout: device [.., H, N] -> reference sensor-major flat buffers
+# ---------------------------------------------------------------------------
+
+
+def _numpy(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def frames_to_flat_float(f_re, f_im) -> np.ndarray:
+    """[C?, H, N] complex planes -> reference float buffer layout [..., N*H*2]
+    (pH = i*H + ih, interleaved re/im; IndexOutputStream.cpp:438-443)."""
+    stacked = np.stack([_numpy(f_re), _numpy(f_im)], axis=-1)  # [..., H, N, 2]
+    moved = np.moveaxis(stacked, -3, -2)  # [..., N, H, 2]
+    return moved.reshape(*moved.shape[:-3], -1)
+
+
+def frames_to_flat_40b(hdr, mr, mi) -> np.ndarray:
+    """[C?, H, N] 40-bit planes -> packed 5-byte AoS stream in pH = i*H + ih order."""
+    from kwave_tpu import oracle
+
+    h, r, i = (np.moveaxis(_numpy(a), -2, -1) for a in (hdr, mr, mi))  # [..., N, H]
+    lead = h.shape[:-2]
+    flat = oracle.soa_to_bytes(
+        h.reshape(*lead, -1).astype(np.uint8),
+        r.reshape(*lead, -1).astype(np.uint16),
+        i.reshape(*lead, -1).astype(np.uint16),
+    )
+    return flat.reshape(*lead, -1) if lead else flat

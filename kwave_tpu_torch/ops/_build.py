@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by ``nvcc`` into one shared library with a plain C
-interface, loaded with ``ctypes`` (no PyTorch headers: the build takes seconds, not
+Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` (all at once) and linked into
+one shared library with a plain C interface, loaded with ``ctypes`` (no PyTorch headers: the build takes seconds, not
 minutes). The library goes to ``build/kwave_tpu_torch/`` at the repository root, named by
 a hash of the sources and flags, so an unchanged tree reuses it and a changed one
 rebuilds. Nothing here runs at import time: the first launch on a CUDA tensor builds.
@@ -24,17 +24,23 @@ BUILD_DIR = PKG_DIR.parent / "build" / "kwave_tpu_torch"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures of csrc/encode_window.cu (pointers and the stream as void*)
+# C signatures of csrc/*.cu (pointers and the stream as void*)
 SIGNATURES = {
+    # encode_window.cu
     # chunk, tabs, 6 planes in, 6 planes out; steps, o, H, N, e, parity, mirror, overlap
     "kw_encode_window_40b": [_P] * 14 + [_I] * 8 + [_P],
     # chunk, tabs, 4 planes in, 4 planes out; steps, o, H, N, parity, mirror, overlap
     "kw_encode_window_float": [_P] * 10 + [_I] * 7 + [_P],
+    # fastpath.cu
+    # series, tab, p1_in, frames, p1_out; K, o, H, N, first_window
+    "kw_project_frames": [_P] * 5 + [_I] * 5 + [_P],
+    # frames, tab, x; k_total, o, H, N, n_steps
+    "kw_synth_series": [_P] * 3 + [_I] * 5 + [_P],
 }
 
 
@@ -60,26 +66,33 @@ def library_path() -> Path:
     return BUILD_DIR / f"libkwave_tpu_torch_{digest.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; wait for every one, then raise on the first that
+    failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    results = [p.communicate() for p in procs]
+    for cmd, proc, (_, err) in zip(cmds, procs, results):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+
+
 def build() -> Path:
-    """Compile the sources unless a library for exactly these sources exists."""
+    """Compile the sources unless a library for exactly these sources exists: one nvcc
+    per source, all started together, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a temporary name and rename, so a cut build never leaves a half file
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-            )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    nvcc = _nvcc()
+    # build under a temporary name and rename, so a cut build never leaves a half file
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{src.stem}.o") for src in _sources()]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                  for obj, src in zip(objs, _sources())])
+        lib = str(Path(tmp) / out.name)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)
     return out
 
 

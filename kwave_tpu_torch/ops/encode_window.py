@@ -10,6 +10,11 @@ Replaces the TPU window kernels of ``kwave_tpu/ops/encode_pallas.py``:
 - `encode_window_float_exact`: ``_wfloat_exact_kernel`` and
   ``_wfloat_exact_noov_kernel``, entry ``encode_window_float_exact``: the same loop as an
   fp32 MAC of two complex accumulators (one aliased accumulator without overlap).
+- `encode_window_float`: ``_float_kernel``, entry ``encode_window_float``: one window of
+  the fast windowed projection (not bit-identical to the reference's MAC order), with
+  the first-half projection P1 carried from window to window. It is served by the
+  projection kernel of `kwave_tpu_torch.ops.fastpath` in its one-window mode, so window
+  by window it gives the whole-series encode's frames bit for bit.
 
 The kernels are CUDA C++ for sm_90a in ``kwave_tpu_torch/csrc/encode_window.cu``: one
 thread per (harmonic, sensor), the accumulator planes in registers for the whole window,
@@ -36,6 +41,7 @@ from __future__ import annotations
 import torch
 
 from kwave_tpu_torch import bitpack
+from kwave_tpu_torch.ops import fastpath
 
 # Launches of each kernel variant by its wrapper (not by the plain versions).
 LAUNCHES = {
@@ -43,6 +49,7 @@ LAUNCHES = {
     "w40_no_overlap": 0,
     "wfloat_overlap": 0,
     "wfloat_no_overlap": 0,
+    "wfloat_projection": 0,
 }
 
 # Largest window the kernels take: the table slice (steps x 4 floats) must fit the
@@ -219,3 +226,32 @@ def encode_window_float_exact(chunk, tabs, planes, parity: int, mirror: int,
     _raise_on(err, "encode_window_float_exact")
     LAUNCHES["wfloat_overlap" if overlap else "wfloat_no_overlap"] += 1
     return outs
+
+
+def encode_window_float_plain(chunk, tab_lo, tab_hi, p1_prev, first_window: bool = False):
+    h2 = tab_lo.shape[1]
+    p = fastpath.project_windows_plain(chunk[None], torch.cat([tab_lo, tab_hi], dim=1))[0]
+    p1, p2 = p[:h2], p[h2:]
+    # frame = P1_prev + P2; the first window uses its own P1 (mirror identity)
+    return (p1 if first_window else p1_prev) + p2, p1
+
+
+def encode_window_float(chunk, tab_lo, tab_hi, p1_prev, first_window: bool = False):
+    """One window of the fast projection: chunk [o, N], tab_lo/tab_hi [o, 2H], p1_prev
+    [2H, N] (ignored when ``first_window``). Returns (frame [2H, N], p1 [2H, N]); pass
+    p1 as p1_prev of the next window. Rows [:H] = re, [H:] = im."""
+    o, h2 = tab_lo.shape
+    if chunk.ndim != 2 or chunk.shape[0] != o or tuple(tab_hi.shape) != (o, h2) or h2 % 2 \
+            or tuple(p1_prev.shape) != (h2, chunk.shape[1]):
+        raise ValueError(f"expected chunk [o, N], tab_lo/tab_hi [o, 2H], p1_prev [2H, N]; "
+                         f"got {tuple(chunk.shape)}, {tuple(tab_lo.shape)}, "
+                         f"{tuple(tab_hi.shape)}, {tuple(p1_prev.shape)}")
+    dev = fastpath.check_tensors((chunk, tab_lo, tab_hi, p1_prev), h2 // 2, o)
+    if dev.type == "cpu":
+        return encode_window_float_plain(chunk, tab_lo, tab_hi, p1_prev, first_window)
+    tab4 = torch.cat([tab_lo, tab_hi], dim=1).contiguous()
+    frames, p1 = fastpath.launch_projection(
+        chunk.contiguous(), tab4, o, 1, p1_prev=None if first_window else
+        p1_prev.contiguous(), first_window=first_window, want_p1=True)
+    LAUNCHES["wfloat_projection"] += 1
+    return frames[0], p1

@@ -234,14 +234,6 @@ def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def frames_to_flat_float(f_re, f_im) -> np.ndarray:
-    """[C?, H, N] complex planes -> the reference float buffer layout [..., N*H*2]
-    (pH = i*H + ih, interleaved re/im; IndexOutputStream.cpp:438-443)."""
-    stacked = np.stack([_host(f_re), _host(f_im)], axis=-1)  # [..., H, N, 2]
-    moved = np.moveaxis(stacked, -3, -2)  # [..., N, H, 2]
-    return moved.reshape(*moved.shape[:-3], -1)
-
-
 # ---------------------------------------------------------------------------
 # Host-side writer
 # ---------------------------------------------------------------------------
@@ -384,7 +376,7 @@ class StreamWriter:
                     ds[0, self.rows[name], :] = row
                     self.rows[name] += 1
                 else:
-                    row = frames_to_flat_float(*data)
+                    row = encoder.frames_to_flat_float(*data)
                     if name in self.groups:
                         self._write_cuboid_rows(ds, row.reshape(1, -1), self.rows[name],
                                                 2 * self.basis.harmonics)

@@ -92,3 +92,43 @@ def test_frame_wire_bytes_rejects_a_short_payload():
     words = torch.zeros(5, dtype=torch.int32)  # 20 bytes = 4 coefficients
     with pytest.raises(ValueError, match="expects"):
         bitpack.frame_wire_bytes(words, 8)
+
+
+@pytest.mark.parametrize("total_bits", [8, 16, 24, 32, 40])
+@pytest.mark.parametrize("e", [MAX_EXP_P, MAX_EXP_U])
+def test_encode_decode_packed_bit_exact(total_bits, e):
+    """The W-bit codec (8/16/24/32, and 40 delegating to encode40/decode40) against
+    kwave_tpu.bitpack bit for bit, both ways."""
+    re = _rand_pressures(4096, 5)
+    im = _rand_pressures(4096, 6)
+    planes = bitpack.encode_packed(torch.from_numpy(re), torch.from_numpy(im), e,
+                                   total_bits)
+    jplanes = jbitpack.encode_packed(re, im, e, total_bits)
+    for mine, theirs in zip(planes, jplanes):
+        assert mine.dtype == torch.int32
+        np.testing.assert_array_equal(mine.numpy().view(np.uint32), np.asarray(theirs))
+    dec = bitpack.decode_packed(*planes, e, total_bits)
+    jdec = jbitpack.decode_packed(*jplanes, e, total_bits)
+    for mine, theirs in zip(dec, jdec):
+        np.testing.assert_array_equal(mine.numpy().view(np.uint32),
+                                      np.asarray(theirs).view(np.uint32))
+
+
+@pytest.mark.parametrize("total_bits", [8, 16, 24, 32])
+def test_decode_packed_of_random_fields_bit_exact(total_bits):
+    """Every field value, including ones no encode produces, unpacks as in JAX."""
+    m = bitpack.SUPPORTED_MANT_BITS[total_bits]
+    rng = np.random.default_rng(total_bits)
+    h = rng.integers(0, 256, 8192).astype(np.uint32)
+    mr, mi = (rng.integers(0, 1 << m, 8192).astype(np.uint32) for _ in range(2))
+    mine = bitpack.decode_packed(*(torch.from_numpy(a.view(np.int32)) for a in (h, mr, mi)),
+                                 MAX_EXP_P, total_bits)
+    theirs = jbitpack.decode_packed(h, mr, mi, MAX_EXP_P, total_bits)
+    for a, b in zip(mine, theirs):
+        np.testing.assert_array_equal(a.numpy().view(np.uint32),
+                                      np.asarray(b).view(np.uint32))
+
+
+def test_packed_width_refused():
+    with pytest.raises(ValueError, match="12"):
+        bitpack.encode_packed(torch.zeros(2), torch.zeros(2), MAX_EXP_P, 12)

@@ -22,7 +22,7 @@ from kwave_tpu import oracle
 from kwave_tpu.basis import generate_basis
 from kwave_tpu.io import input_file as jin
 from kwave_tpu.solver import Grid, Medium
-from kwave_tpu_torch import bitpack, cli, streams
+from kwave_tpu_torch import bitpack, cli, encoder, streams
 from kwave_tpu_torch.io import input_file as tin
 from kwave_tpu_torch.params import UNPORTED
 from kwave_tpu_torch.streams import StreamSpec
@@ -153,7 +153,7 @@ def test_process_chunk_fed_the_jax_series_writes_the_same_bytes(outputs, run):
         if mode40:
             rows.append(bitpack.frame_wire_bytes(em["p_c"], N_SENSORS))
         else:
-            rows.append(streams.frames_to_flat_float(*em["p_c"]).view(np.uint8))
+            rows.append(encoder.frames_to_flat_float(*em["p_c"]).view(np.uint8))
     mine = np.stack(rows)
     theirs = np.ascontiguousarray(jax_rows).view(np.uint8)[:, : mine.shape[1]]
     frames_o = oracle.OracleEncoder(basis, N_SENSORS, mode40=mode40, overlap=overlap,

@@ -1,15 +1,19 @@
 """kwave_tpu_torch.encoder (exact path) against the NumPy oracle (real data, bit for bit)
 and kwave_tpu.encoder (dyadic data, bit for bit): encode_chunk windows, a trailing
-partial window through accumulate_chunk, and the tiny-record emit_partial."""
+partial window through accumulate_chunk, and the tiny-record emit_partial. The fast path
+(encode_series_frames, encode_series_fast with every packed width) against
+kwave_tpu.encoder: dyadic data bit for bit, real data within rtol 1e-6 / atol 1e-2 at
+amplitude 1e5 (tests/test_fastpath_ops.py's bound)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from kwave_tpu import bitpack as jbitpack
 from kwave_tpu import encoder as jenc
 from kwave_tpu import oracle
-from kwave_tpu.basis import generate_basis
+from kwave_tpu.basis import MAX_EXP_P, generate_basis
 from kwave_tpu_torch import convert, encoder
 from torch_helpers import bits, dyadic_basis, dyadic_series, real_series
 
@@ -137,3 +141,102 @@ def test_encode_chunk_rejects_misaligned_or_wrong_length_windows():
     st = encoder.accumulate_chunk(st, torch.zeros((2, 3)), cfg, tables)
     with pytest.raises(ValueError, match="multiple of oSize"):
         encoder.encode_chunk(st, torch.zeros((4, 3)), cfg, tables)
+
+
+# ---------------------------------------------------------------------------
+# Fast path: whole-series windowed projection
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("compute", ["flat", "vpu"])
+def test_encode_series_frames_matches_jax(monkeypatch, use_pallas, compute):
+    """Real data at amplitude 1e5 within rtol 1e-6 / atol 1e-2 of both JAX paths (its
+    einsum and, with USE_PALLAS, its kernels in interpret mode); a record shorter than
+    one window gives no frames."""
+    monkeypatch.setattr(jenc, "USE_PALLAS", use_pallas)
+    basis = generate_basis(20.0, 1, 2, normalize=True)
+    o = basis.o_size
+    x = real_series(7 * o + 4, N, 20.0, seed=12)
+    mine = encoder.encode_series_frames(torch.from_numpy(x), basis, compute=compute)
+    theirs = jenc.encode_series_frames(jnp.asarray(x), basis,
+                                       compute="flat" if compute == "flat" else "vpu")
+    assert mine.shape == (7, 4, N)
+    np.testing.assert_allclose(mine.numpy(), np.asarray(theirs), rtol=1e-6, atol=1e-2)
+    short = encoder.encode_series_frames(torch.from_numpy(x[: o - 1]), basis)
+    assert short.shape == (0, 4, N)
+
+
+@pytest.mark.parametrize("bits_", [None, 8, 16, 24, 32, 40])
+@pytest.mark.parametrize("overlap", [True, False])
+def test_encode_series_fast_bit_exact_on_dyadic_data(overlap, bits_):
+    """Float frames are bit-exact on dyadic data, so every packed width is too."""
+    basis = dyadic_basis(o=8, harmonics=2)
+    for shifted in (False, True):
+        x = dyadic_series(6 * 8 + 5, N, seed=4, scale=64.0)
+        mine = encoder.encode_series_fast(torch.from_numpy(x), basis, shifted,
+                                          overlap=overlap, bits=bits_)
+        theirs = jenc.encode_series_fast(jnp.asarray(x), basis, shifted, overlap=overlap,
+                                         bits=bits_)
+        assert len(mine) == len(theirs) == (2 if bits_ is None else 3)
+        for a, b in zip(mine, theirs):
+            np.testing.assert_array_equal(bits(a), bits(np.asarray(b)))
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+def test_encode_series_fast_matches_jax_on_real_data(overlap):
+    basis = generate_basis(16.0, 1, 3, normalize=True)
+    x = real_series(6 * basis.o_size + 3, N, 16.0, seed=13)
+    mine = encoder.encode_series_fast(torch.from_numpy(x), basis, overlap=overlap)
+    theirs = jenc.encode_series_fast(jnp.asarray(x), basis, overlap=overlap)
+    for a, b in zip(mine, theirs):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6, atol=1e-2)
+    mine40 = encoder.encode_series_fast(torch.from_numpy(x), basis, overlap=overlap,
+                                        mode40=True)
+    # the same float frames pack to the same 40-bit words
+    from_mine = jbitpack.encode40(mine[0].numpy(), mine[1].numpy(), MAX_EXP_P)
+    for a, b in zip(mine40, from_mine):
+        np.testing.assert_array_equal(bits(a), bits(np.asarray(b)))
+
+
+def test_encode_series_fast_refuses_other_precisions():
+    basis = dyadic_basis(o=4, harmonics=1)
+    with pytest.raises(ValueError, match="split3"):
+        encoder.encode_series_fast(torch.zeros((8, 3)), basis, precision="split3")
+    with pytest.raises(ValueError, match="default"):
+        encoder.encode_series_fast(torch.zeros((8, 3)), basis, overlap=False,
+                                   precision="default")
+
+
+def test_frames_to_flat_match_jax():
+    rng = np.random.default_rng(14)
+    f_re, f_im = (rng.standard_normal((3, 2, 11)).astype(np.float32) for _ in range(2))
+    np.testing.assert_array_equal(
+        encoder.frames_to_flat_float(torch.from_numpy(f_re), torch.from_numpy(f_im)),
+        jenc.frames_to_flat_float(f_re, f_im))
+    planes = [rng.integers(0, hi, (3, 2, 11)).astype(np.uint32)
+              for hi in (256, 65536, 65536)]
+    mine = encoder.frames_to_flat_40b(*(torch.from_numpy(p.view(np.int32)) for p in planes))
+    np.testing.assert_array_equal(mine, jenc.frames_to_flat_40b(*planes))
+    np.testing.assert_array_equal(
+        encoder.frames_to_flat_40b(*(torch.from_numpy(p[0].view(np.int32))
+                                     for p in planes)),
+        jenc.frames_to_flat_40b(*(p[0] for p in planes)))
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_frames_convert_from_and_to_jax(packed):
+    basis = dyadic_basis(o=4, harmonics=2)
+    x = jnp.asarray(dyadic_series(5 * 4, 9, seed=2, scale=64.0))
+    if packed:
+        theirs = jenc.encode_series_fast(x, basis, bits=24)
+        mine = convert.frames_from_jax(theirs)
+        assert isinstance(mine, tuple) and all(a.dtype == torch.int32 for a in mine)
+    else:
+        theirs = jenc.encode_series_frames(x, basis)
+        mine = convert.frames_from_jax(theirs)
+        assert mine.dtype == torch.float32
+    back = convert.frames_to_numpy(mine)
+    for a, b in zip(back if packed else (back,), theirs if packed else (theirs,)):
+        assert a.dtype == np.asarray(b).dtype
+        np.testing.assert_array_equal(bits(a), bits(np.asarray(b)))

@@ -29,3 +29,16 @@ def test_every_module_imports_without_jax():
     assert proc.returncode == 0, proc.stderr
     # scaffold, codec, kernels, encoder, sampling, streams, solver, io, utils, driver, cli
     assert int(proc.stdout.strip()) >= 20
+
+
+def test_codec_modules_import_without_jax():
+    """The codec slice's modules are among those walked, and import with jax blocked."""
+    script = _SCRIPT.replace("print(len(names))", "print(' '.join(names))")
+    proc = subprocess.run(
+        [sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    names = set(proc.stdout.split())
+    assert {"kwave_tpu_torch.decoder", "kwave_tpu_torch.ops.fastpath",
+            "kwave_tpu_torch.bench", "kwave_tpu_torch.examples.end_to_end"} <= names
