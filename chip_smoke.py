@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of kwave_tpu_torch on one NVIDIA card: builds the CUDA kernels from the
 sources in this checkout, holds each against its plain PyTorch version and the NumPy
-oracle, then drives the port's main path at 128^3 with 16384 index sensors.
+oracle, then drives the port's paths: the simulation at 128^3 with 16384 index sensors,
+the codec round trip, the whole-record exact encode, and the 256^3 simulation with the
+fused z stage.
 
     python3 chip_smoke.py
 
@@ -10,7 +12,7 @@ the final ok line):
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: nvcc builds csrc/*.cu into build/kwave_tpu_torch/ (timed);
 3. kernel parity: the four window-encode variants at o=16, H=1 and 2, N=16384, bit for
-   bit against their plain versions on the card and against kwave_tpu.oracle on the
+   bit against their plain versions on the card and against kwave_tpu_torch.oracle on the
    first 256 sensors; kernel and plain time per window from CUDA events;
 4. main path: `driver.run_simulation` on a 128^3 heterogeneous absorbing medium with a
    p0 source, period 16, a few windows plus a tail, as ``--p_raw --p_c --40-bit_complex``
@@ -25,20 +27,36 @@ the final ok line):
    oracle's float encoder on 256 sensors (2e-6); flat == 3D bit for bit; K6 window by
    window == K5 bit for bit; dyadic data bit-exact. The synthesis decode (K4, both
    entries) on the same frames and on five boundary cases, against plain (1e-6 of the
-   peak) and `kwave_tpu.oracle.reconstruct` on 256 sensors (4e-6). Kernel and plain
+   peak) and `kwave_tpu_torch.oracle.reconstruct` on 256 sensors (4e-6). Kernel and plain
    times at the full shape from CUDA events, and wall time per call;
 6. codec round trip: `kwave_tpu_torch.bench` at bench.py's shape (GB/s,
    actual_bytes_value, ceiling, fraction, the err < 0.02 guard), one encode and one
    decode launch per round trip; a shorter chain through the 3D entries; the same
    series encoded window by window through K6, equal to the whole-series frames; and
    phase 4's float `p_c` decoded by `decoder.reconstruct_frames` (K4) against the oracle.
-Then one JSON line with every kernel's numbers, and as the last line
+7. whole-record exact encode (path A): bench.py's record uncut (T=4096 and a 7-step tail,
+   N=16384, period 20, H=2), all four variants. The two entries of
+   `ops.encode_series` bit for bit against their plain versions, the K1/K2 window loop
+   and the oracle on 256 sensors; then `encoder.encode_series_exact` with the counts set
+   to 0 first (one whole-record launch, one partial-window launch), its frames through
+   `frames_to_flat_*` equal to the oracle's bytes, its final state equal to the
+   oracle's, and the float frames decoded through K4 against `oracle.reconstruct`.
+8. fused z stage (path B): the K7 kernel at [256, 256, 129] with one op and with three
+   against `apply_plain` and a float64 FFT (2e-6 of the peak), timed beside the unfused
+   library route ``ifft(fft(s, 0) * op, 0)``; then `run_simulation` at 256^3, 16384
+   sensors, ``--p_raw --p_c --40-bit_complex``, 2 windows and a 5-step tail, once with
+   compact operators alone and once with ``fuse_z``: p_raw of the two within 1e-4 of the
+   peak, each run's p_c bytes equal to the oracle's encoding of its own p_raw, ms/step
+   of both, and the device time by kernel of one profiled window of each.
+Then one JSON line with every kernel's numbers (its time beside its bound: the larger of
+its bytes over 3.35 TB/s and its fp32 operations over 67 TFLOP/s), and as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off throughout, so every plain version on the
 card computes in full fp32.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -57,6 +75,28 @@ CODEC_T, CODEC_N, CODEC_PERIOD, CODEC_H = 4096, 16384, 20.0, 2
 CODEC_TOL = 1e-6  # kernel vs plain and vs a float64 projection, of the peak
 ORACLE_ENC_TOL = 2e-6  # vs the oracle's per-step float accumulate, of the frame peak
 ORACLE_DEC_TOL = 4e-6  # vs oracle.reconstruct, of the series peak
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+FP32_FLOP_PER_S = 67e12  # fp32 outside the tensor cores
+
+SERIES_TAIL = 7  # path A: steps after the last whole window
+BIG_N = 256  # path B's grid
+ZFUSE_TOL = 2e-6  # K7 vs plain and vs a float64 FFT, of the peak
+FUSED_RUN_TOL = 1e-4  # p_raw of the fused run vs the compact-only run, of the peak
+
+
+def _bound(n_bytes: float, flops: float) -> dict:
+    """The least time the card could take: every input byte read once and every output
+    byte written once at the HBM rate, or the fp32 operations at the peak rate."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / FP32_FLOP_PER_S * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
 
 VARIANTS = {
     # LAUNCHES key: (mode40, overlap, the TPU kernel it replaces)
@@ -185,8 +225,8 @@ def kernel_phase():
     """All four variants at the main path's shapes, against plain and oracle."""
     import torch
 
-    from kwave_tpu import oracle
-    from kwave_tpu.basis import MAX_EXP_P, generate_basis
+    from kwave_tpu_torch import oracle
+    from kwave_tpu_torch.basis import MAX_EXP_P, generate_basis
     from kwave_tpu_torch import bitpack, encoder
     from kwave_tpu_torch.ops import encode_window as ew
 
@@ -253,7 +293,12 @@ def kernel_phase():
                 ms, wall = _time_per_call(lambda: kern(*args), iters=200, warmup=20)
                 plain_ms, plain_wall = _time_per_call(lambda: plain(*args), iters=10,
                                                         warmup=2)
-        results[key] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+                # the chunk and the table in, each plane in and out; 4 products and 4
+                # sums per sensor and step (the 40-bit pack/unpack is integer work)
+                bound = _bound(_nbytes(chunk, tabs, *planes, *planes),
+                               8.0 * O_SIZE * N_SENSORS)
+        results[key] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, **bound,
+                            library_ms=None)
         print(f"[3 kernel] {key}: bit-exact vs plain (H=1,2, parity 0/1, mirror 0/1) and "
               f"vs oracle ({ORACLE_SENSORS} sensors, 3 windows); per window at o={O_SIZE} "
               f"H=1 N={N_SENSORS}, device time: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
@@ -299,7 +344,7 @@ def _codec_tables(basis):
 
 def _oracle_frames(x_host, basis):
     """The oracle's float overlap frames of x_host [T, n] as [K, 2H, n] float32."""
-    from kwave_tpu import oracle
+    from kwave_tpu_torch import oracle
 
     frames = oracle.OracleEncoder(basis, x_host.shape[1],
                                   total_steps=x_host.shape[0]).encode_series(x_host)
@@ -307,7 +352,7 @@ def _oracle_frames(x_host, basis):
 
 
 def _oracle_reconstruct(frames, basis, n_steps):
-    from kwave_tpu import oracle
+    from kwave_tpu_torch import oracle
 
     f = frames[:, :, :ORACLE_SENSORS].cpu().numpy()
     h = basis.harmonics
@@ -319,7 +364,7 @@ def codec_kernel_phase():
     """K5 (both entries), K6 and K4 (both entries) against plain, float64 and oracle."""
     import torch
 
-    from kwave_tpu.basis import generate_basis
+    from kwave_tpu_torch.basis import generate_basis
     from kwave_tpu_torch import bench
     from kwave_tpu_torch.ops import encode_window as ew
     from kwave_tpu_torch.ops import fastpath as fp
@@ -444,11 +489,25 @@ def _codec_main_checks(x, frames, rec, basis, lo, hi, tab4, results, k6_err):
     }
     errs["encode_frames"] = errs["encode_frames_flat"]
     errs["reconstruct_series"] = errs["reconstruct_series_flat"]
+    # series or frames in, the other out, the table; 2 flop per sample, window half and
+    # coefficient component
+    flops = 2.0 * CODEC_T * CODEC_N * 2 * (2 * CODEC_H)
+    bounds = {
+        "encode_frames_flat": _bound(_nbytes(x, lo, hi, frames), flops),
+        "reconstruct_series_flat": _bound(_nbytes(frames, tab4, rec), flops),
+        "wfloat_projection": _bound(_nbytes(chunk, lo, hi, p1, p1, p1),
+                                    flops / (CODEC_T // o)),
+    }
+    bounds["encode_frames"] = bounds["encode_frames_flat"]
+    bounds["reconstruct_series"] = bounds["reconstruct_series_flat"]
     parts = []
     for key, (kern, plain) in timed.items():
         ms, wall = _time_per_call(kern, iters=50, warmup=5)
         plain_ms, plain_wall = _time_per_call(plain, iters=10, warmup=2)
-        results[key] = dict(max_abs_err=errs[key], ms=ms, plain_ms=plain_ms)
+        # no single PyTorch call computes a kernel's function (the projection is an
+        # einsum plus a shifted add, the synthesis two einsums and an overlap-add)
+        results[key] = dict(max_abs_err=errs[key], ms=ms, plain_ms=plain_ms, **bounds[key],
+                            library_ms=None)
         parts.append(f"{key} {ms * 1e3:.1f} us (wall {wall * 1e3:.1f} us), plain "
                      f"{plain_ms * 1e3:.1f} us (wall {plain_wall * 1e3:.1f} us)")
     return (f"; K4 off oracle {dec_orc:.2e} ({ORACLE_SENSORS} sensors); 5 boundary cases "
@@ -462,7 +521,7 @@ def codec_round_trip_phase(float_out, float_steps):
     window by window through K6, and phase 4's float p_c decoded through K4."""
     import torch
 
-    from kwave_tpu.basis import generate_basis
+    from kwave_tpu_torch.basis import generate_basis
     from kwave_tpu_torch import bench, decoder, encoder
     from kwave_tpu_torch.ops import encode_window as ew
     from kwave_tpu_torch.ops import fastpath as fp
@@ -520,13 +579,342 @@ def codec_round_trip_phase(float_out, float_steps):
     return counts
 
 
-def _input(nt: int):
-    """128^3 heterogeneous absorbing medium, p0 at the centre, 16384 random index
-    sensors (the setup of tools/bench_driver_40bit.py), from seed 7."""
+SERIES_KERNELS = {
+    # LAUNCHES key of ops.encode_series: (mode40, overlap, the TPU kernel it replaces)
+    "series40_overlap": (True, True, "kwave_tpu/ops/encode_pallas.py:450"),
+    "series40_no_overlap": (True, False, "kwave_tpu/ops/encode_pallas.py:450"),
+    "seriesf_overlap": (False, True, "kwave_tpu/ops/encode_pallas.py:554"),
+    "seriesf_no_overlap": (False, False, "kwave_tpu/ops/encode_pallas.py:554"),
+}
+ZFUSE_KERNELS = ("zfuse_1op", "zfuse_3op")  # LAUNCHES keys of ops.zfuse on path B
+
+
+def _bits_equal(a, b) -> bool:
+    import torch
+
+    return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def _event_ms(fn):
+    """(result, device ms) of one call, by CUDA events (for calls too long to repeat)."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _decode40(planes):
+    from kwave_tpu_torch import bitpack
+    from kwave_tpu_torch.basis import MAX_EXP_P
+
+    return bitpack.decode40(*planes, MAX_EXP_P)
+
+
+def series_phase():
+    """Path A: the whole-record exact encode at bench.py's shape, four variants."""
+    import torch
+
+    from kwave_tpu_torch import bench, decoder, encoder, oracle
+    from kwave_tpu_torch.basis import MAX_EXP_P, generate_basis
+    from kwave_tpu_torch.ops import encode_series as es
+    from kwave_tpu_torch.ops import encode_window as ew
+
+    basis = generate_basis(CODEC_PERIOD, 1, CODEC_H, normalize=True)
+    o, k_total = basis.o_size, CODEC_T // basis.o_size
+    x = bench.make_series(CODEC_T + SERIES_TAIL, CODEC_N, CODEC_PERIOD, seed=3,
+                          device="cuda")
+    sub = np.ascontiguousarray(x[:, :ORACLE_SENSORS].cpu().numpy())
+    tabs = _tables(basis)
+    tables = encoder.make_tables(basis, False, "cuda")
+    results, launches = {}, {}
+    for key, (mode40, overlap, _) in SERIES_KERNELS.items():
+        head = x[:CODEC_T]
+        if mode40:
+            kern = functools.partial(es.encode_series_40b, head, tabs, MAX_EXP_P, o, overlap)
+            plain = functools.partial(es.encode_series_40b_plain, head, tabs, MAX_EXP_P, o,
+                                      overlap)
+        else:
+            kern = functools.partial(es.encode_series_float_exact, head, tabs, o, overlap)
+            plain = functools.partial(es.encode_series_float_exact_plain, head, tabs, o,
+                                      overlap)
+        # (a) the entry against its plain version (one run of it, timed) ...
+        frames, state = kern()
+        (pf, ps), plain_ms = _event_ms(plain)
+        _require(all(_bits_equal(a, b) for a, b in zip(frames + state, pf + ps)),
+                 f"{key}: kernel != plain")
+        worst = 0.0
+        if mode40:
+            for k in (0, 3):
+                got = _decode40((frames + state)[k:k + 3])
+                want = _decode40((pf + ps)[k:k + 3])
+                worst = max(worst, *(float((a - b).abs().max()) for a, b in zip(got, want)))
+        else:
+            worst = max(float((a - b).abs().max()) for a, b in zip(frames + state, pf + ps))
+        del pf, ps
+        # ... and against the K1/K2 window loop on the card
+        cfg = encoder.EncoderConfig.for_stream(basis, False, mode40, overlap)
+        st = encoder.init_state(cfg, CODEC_N, "cuda")
+        for k in range(k_total):
+            st, fr = encoder.encode_chunk(st, x[k * o:(k + 1) * o], cfg, tables)
+            _require(all(_bits_equal(a, b[k]) for a, b in zip(fr, frames)),
+                     f"{key}: frame {k} != the window loop's")
+        keys = [n for n in st if n not in ("sampled_step", "compressed_step")]
+        _require(all(_bits_equal(st[n], p) for n, p in zip(keys, state)),
+                 f"{key}: final state != the window loop's")
+        if not overlap:
+            _require(not any(bool(p.any()) for p in state[len(keys):]),
+                     f"{key}: the second set of state planes is not zero")
+        # (b) the path, counts at 0: encode_series_exact -> frames_to_flat -> bytes
+        es.reset_launch_counts()
+        ew.reset_launch_counts()
+        frames, st = encoder.encode_series_exact(x, basis, mode40=mode40, overlap=overlap)
+        torch.cuda.synchronize()
+        window_key = ("w40" if mode40 else "wfloat") + key[key.index("_"):]
+        want = {**{n: int(n == key) for n in es.LAUNCHES},
+                **{n: int(n == window_key) for n in ew.LAUNCHES}}
+        _require({**es.LAUNCHES, **ew.LAUNCHES} == want,
+                 f"{key}: launches {es.LAUNCHES} {ew.LAUNCHES}, expected {want}")
+        launches[key] = es.LAUNCHES[key]
+        enc = oracle.OracleEncoder(basis, ORACLE_SENSORS, mode40=mode40, overlap=overlap,
+                                   total_steps=sub.shape[0])
+        frames_o = enc.encode_series(sub)
+        k_path = (CODEC_T + SERIES_TAIL) // o  # the longer record may hold a window more
+        _require(len(frames_o) == k_path == frames[0].shape[0]
+                 and st["sampled_step"] == CODEC_T + SERIES_TAIL
+                 and st["compressed_step"] == k_path, f"{key}: frame or step count")
+        cut = tuple(f[:, :, :ORACLE_SENSORS] for f in frames)
+        if mode40:
+            mine = encoder.frames_to_flat_40b(*cut)
+            theirs = np.stack([oracle.soa_to_bytes(*fr) for fr in frames_o])
+        else:
+            mine = encoder.frames_to_flat_float(*cut).view(np.uint8)
+            theirs = np.stack([np.stack(fr, -1).reshape(-1) for fr in frames_o]).view(np.uint8)
+        _require(np.array_equal(mine, theirs), f"{key}: frame bytes != the oracle's")
+        for n in keys:  # the live accumulators after the trailing steps
+            got = st[n][:, :ORACLE_SENSORS].T.contiguous().cpu().numpy().view(np.uint32)
+            ref = getattr(enc, n)
+            ref = ref.astype(np.uint32) if mode40 else np.ascontiguousarray(ref).view(
+                np.uint32)
+            _require(np.array_equal(got, ref), f"{key}: state plane {n} != the oracle's")
+        line = (f"[7 series] {key}: N={CODEC_N} H={CODEC_H} o={o}: T={CODEC_T}, {k_total} "
+                f"frames and final state == plain, == the window loop; "
+                f"encode_series_exact at T={CODEC_T}+{SERIES_TAIL}: {k_path} frames' bytes "
+                f"and the state after the {(CODEC_T + SERIES_TAIL) % o}-step tail == oracle "
+                f"({ORACLE_SENSORS} sensors), one whole-record launch and one "
+                f"partial-window launch")
+        if key == "seriesf_overlap":  # the float frames through the decode kernel
+            packed = torch.cat(frames, dim=1).contiguous()  # [K, 2H, N]
+            n_rec = k_path * o
+            rec = decoder.reconstruct_frames(packed, tables["be_re"], tables["be_im"], o,
+                                             n_rec)
+            err = _rel_err(rec[:, :ORACLE_SENSORS],
+                           torch.from_numpy(_oracle_reconstruct(packed, basis, n_rec)))
+            _require(torch.isfinite(rec).all().item() and err <= ORACLE_DEC_TOL,
+                     f"{key}: decoded frames off oracle.reconstruct by {err:.3g}")
+            line += f"; decoded through K4 off oracle.reconstruct {err:.2e} of the peak"
+        ms, wall = _time_per_call(kern, iters=20, warmup=2)
+        # the K*o steps read and the table in; the frames and all state planes out
+        f0, s0 = kern()
+        flops = 8.0 * k_total * o * CODEC_N * CODEC_H
+        results[key] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                            **_bound(_nbytes(x[:k_total * o], tabs, *f0, *s0), flops),
+                            library_ms=None)
+        del f0, s0, frames, st
+        print(line + f"; device time per call: kernel {ms:.4f} ms (wall {wall:.4f} ms), "
+              f"plain {plain_ms:.1f} ms (one call); bound "
+              f"{results[key]['bound_ms']:.4f} ms by {results[key]['bound_by']}", flush=True)
+    return results, launches
+
+
+def _zfuse_cases(ops, n_ops):
+    """(specs, dds, use_kappa) of the shapes the fused step launches: the three pressure
+    gradients off one forward; one velocity gradient; one absorbing nabla."""
+    from kwave_tpu_torch.ops import zfuse
+
+    if n_ops == 3:
+        return [(tuple(zfuse.OpSpec("grad", axis=a) for a in (2, 1, 0)),
+                 (ops.ddx_pos, ops.ddy_pos, ops.ddz_pos), True)]
+    return [((zfuse.OpSpec("grad", axis=0),), (ops.ddz_neg,), True),
+            ((zfuse.OpSpec("nabla", power=ops.alpha_power - 2.0),), (), False)]
+
+
+def zfuse_kernel_phase(ops):
+    """K7 at the 256^3 spectrum against plain and a float64 FFT, and its times."""
+    import torch
+
+    from kwave_tpu_torch.ops import zfuse
+
+    n = BIG_N
+    plan = zfuse.make_plan((n, n, n), ops.k2_z, ops.k2_y, ops.k2_x, ops.c_ref_dt_2, "cuda")
+    rng = np.random.default_rng(11)
+    s = torch.fft.rfft2(torch.from_numpy(
+        rng.standard_normal((n, n, n)).astype(np.float32)).cuda()).contiguous()
+    f64 = torch.fft.fft(s.to(torch.complex128), dim=0)
+    results = {}
+    for key in ZFUSE_KERNELS:
+        n_ops = int(key[6])
+        worst, worst_rel = 0.0, 0.0
+        for specs, dds, use_kappa in _zfuse_cases(ops, n_ops):
+            outs = zfuse.apply(plan, s, specs, dds, use_kappa=use_kappa)
+            torch.cuda.synchronize()
+            plain = zfuse.apply_plain(plan, s, specs, dds, use_kappa=use_kappa)
+            dd_i = 0
+            for spec, got, want in zip(specs, outs, plain):
+                dd = None
+                if spec.kind == "grad":
+                    dd, dd_i = dds[dd_i], dd_i + 1
+                op = zfuse.full_operator(plan, spec, dd, use_kappa)
+                ref = torch.fft.ifft(f64 * op, dim=0)
+                peak = float(ref.abs().max())
+                e_plain = float((got - want).abs().max())
+                e_ref = float((got - ref).abs().max())
+                _require(torch.isfinite(torch.view_as_real(got)).all().item()
+                         and e_plain <= ZFUSE_TOL * peak and e_ref <= ZFUSE_TOL * peak,
+                         f"{key} {spec}: off plain {e_plain / peak:.3g}, float64 "
+                         f"{e_ref / peak:.3g} of the peak")
+                worst = max(worst, e_plain)
+                worst_rel = max(worst_rel, e_plain / peak, e_ref / peak)
+            del outs, plain
+        specs, dds, use_kappa = _zfuse_cases(ops, n_ops)[0]
+        opfull = [zfuse.full_operator(plan, sp, dd, use_kappa).to(torch.complex64)
+                  for sp, dd in zip(specs, dds)]
+
+        def library():
+            f = torch.fft.fft(s, dim=0)
+            return [torch.fft.ifft(f * op, dim=0) for op in opfull]
+
+        ms, wall = _time_per_call(
+            functools.partial(zfuse.apply, plan, s, specs, dds, use_kappa=use_kappa),
+            iters=10, warmup=2)
+        plain_ms, _ = _time_per_call(
+            functools.partial(zfuse.apply_plain, plan, s, specs, dds, use_kappa=use_kappa),
+            iters=5, warmup=1)
+        lib_ms, _ = _time_per_call(library, iters=10, warmup=2)
+        # the spectrum and the vectors in, one spectrum per op out; operations as an FFT
+        # would need them (5 n log2 n per transform and column, 8 per pointwise product),
+        # since the bound is the least the card could take, not the dense DFT's count
+        cols = plan.ny * plan.nxr
+        flops = (1 + n_ops) * 5.0 * n * np.log2(n) * cols + n_ops * 8.0 * n * cols
+        dense = (1 + n_ops) * 8.0 * n * n * cols
+        bound = _bound(_nbytes(s, plan.k2z, plan.k2y, plan.k2x, *dds)
+                       + n_ops * _nbytes(s), flops)
+        results[key] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, **bound,
+                            library_ms=lib_ms)
+        print(f"[8 zfuse] {key}: spectrum [{n}, {plan.ny}, {plan.nxr}], off plain and "
+              f"float64 at most {worst_rel:.2e} of the peak; device time per call: kernel "
+              f"{ms:.4f} ms (wall {wall:.4f} ms, {dense / ms / 1e9:.2f} TFLOP/s of its "
+              f"dense DFT), plain {plain_ms:.4f} ms, library ifft(fft*op) {lib_ms:.4f} ms; "
+              f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}", flush=True)
+        del opfull
+    return results
+
+
+SETUP_COPIES = "host-to-device copies"  # the operators' upload: set-up, not the step
+
+# kernel-name fragment -> what the kernel is, for the profile line (first match wins)
+KERNEL_GROUPS = (("zfuse_kernel", "K7 zfuse"), ("fft", "cuFFT"), ("w40_window", "K1a encode"),
+                 ("elementwise", "elementwise"), ("index", "gather/scatter"),
+                 ("HtoD", SETUP_COPIES), ("DtoH", "device-to-host copies"),
+                 ("copy", "device copies"), ("Memcpy", "device copies"),
+                 ("Memset", "memset"))
+
+
+def _profile_window(data, flags, **run_fields):
+    """Device time by kind of kernel over one profiled window of `run_simulation` (16
+    steps): (device ms per step, [(kind, share), ...], ms of host-to-device copies, which
+    are the run's set-up and are left out of both). Only kernel events count: the operator
+    events above them carry the same time again."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    short = dataclasses.replace(data, grid=dataclasses.replace(data.grid, nt=O_SIZE))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _run(flags, 1, 0, data=short, **run_fields)
+    groups: dict[str, float] = {}
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        t = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        kind = next((g for frag, g in KERNEL_GROUPS if frag in e.key), "other")
+        groups[kind] = groups.get(kind, 0.0) + t
+    setup_ms = groups.pop(SETUP_COPIES, 0.0) / 1e3
+    total = sum(groups.values())
+    _require(total > 0, "the profiler saw no device time")
+    top = sorted(groups.items(), key=lambda r: -r[1])
+    return total / 1e3 / O_SIZE, [(k, t / total) for k, t in top], setup_ms
+
+
+def fused_phase():
+    """Path B: the 256^3 runs, compact operators alone and with the fused z stage."""
+    import torch
+
+    from kwave_tpu_torch.ops import encode_window as ew
+    from kwave_tpu_torch.ops import zfuse
+    from kwave_tpu_torch.solver import make_operators
+
+    flags = ["--p_raw", "--p_c", "--40-bit_complex"]
+    windows, tail = 2, 5
+    t0 = time.perf_counter()
+    data = _input(windows * O_SIZE + tail, BIG_N)
+    ops = make_operators(data.grid, data.medium, data.pml_size, data.pml_alpha,
+                         absorbing=True, device="cuda", compact=True)
+    print(f"[8 fused] {BIG_N}^3 input and compact operators built in "
+          f"{time.perf_counter() - t0:.1f} s (host float64)", flush=True)
+    kernels = zfuse_kernel_phase(ops)
+    del ops
+    torch.cuda.empty_cache()
+
+    outs, ms_step, launches = {}, {}, {}
+    for name, fields in (("compact", dict(compact_operators=True)),
+                         ("fused", dict(compact_operators=True, fuse_z=True))):
+        zfuse.reset_launch_counts()
+        ew.reset_launch_counts()
+        out, secs, steps = _run(flags, windows, tail, data=data, **fields)
+        launches[name] = dict(zfuse.LAUNCHES)
+        _require(ew.LAUNCHES["w40_overlap"] == windows + 1,
+                 f"{name}: window-encode launches {ew.LAUNCHES}")
+        err, peak = _check_run(out, flags, steps)
+        outs[name] = out["p"].data[0]
+        ms_step[name] = float(out.attrs["simulation_phase_execution_time"]) / steps * 1e3
+        print(f"[8 fused] {name}: {BIG_N}^3, {N_SENSORS} sensors, {steps} steps "
+              f"({windows} windows + {tail}-step tail), {ms_step[name]:.3f} ms/step in the "
+              f"simulation phase, {secs / steps * 1e3:.3f} ms/step end to end; zfuse "
+              f"launches {launches[name]}; p_c == oracle(p_raw) bytes on {ORACLE_SENSORS} "
+              f"sensors, decoded diff {err:.3g} (peak {peak:.3g})", flush=True)
+    steps = windows * O_SIZE + tail
+    # the p0 peel is one three-op call; every later step one three-op and five one-op
+    want = {"zfuse_1op": 5 * (steps - 1), "zfuse_2op": 0, "zfuse_3op": steps}
+    _require(launches["fused"] == want and not any(launches["compact"].values()),
+             f"zfuse launches {launches}, expected {want} and none without fuse_z")
+    diff = float(np.abs(outs["fused"] - outs["compact"]).max())
+    peak = float(np.abs(outs["compact"]).max())
+    _require(np.isfinite(outs["fused"]).all() and diff <= FUSED_RUN_TOL * peak,
+             f"p_raw of the fused run off the compact run by {diff / peak:.3g} of the peak")
+    print(f"[8 fused] p_raw fused vs compact-only: max diff {diff / peak:.2e} of the peak "
+          f"({peak:.4g}); ms/step fused {ms_step['fused']:.3f}, unfused "
+          f"{ms_step['compact']:.3f}", flush=True)
+    for name, fields in (("compact", dict(compact_operators=True)),
+                         ("fused", dict(compact_operators=True, fuse_z=True))):
+        dev_ms, top, setup_ms = _profile_window(data, flags, **fields)
+        print(f"[8 profile] {name}: {dev_ms:.3f} ms of kernel time per step over one "
+              f"window; " + "; ".join(f"{k} {share:.1%}" for k, share in top)
+              + f"; set-up uploads {setup_ms:.1f} ms, left out", flush=True)
+    return kernels, launches["fused"]
+
+
+
+def _input(nt: int, n: int = GRID_N):
+    """n^3 heterogeneous absorbing medium (128^3 unless told), p0 at the centre, 16384
+    random index sensors (the setup of tools/bench_driver_40bit.py), from seed 7."""
     from kwave_tpu_torch.io.input_file import InputData
     from kwave_tpu_torch.solver import Grid, Medium
 
-    n = GRID_N
     dx = 1e-4
     grid = Grid(nx=n, ny=n, nz=n, dx=dx, dy=dx, dz=dx, dt=0.3 * dx / 1600.0, nt=nt)
     rng = np.random.default_rng(7)
@@ -541,7 +929,11 @@ def _input(nt: int):
                      p0=p0)
 
 
-def _run(flags: list[str], windows: int, tail: int):
+def _run(flags: list[str], windows: int, tail: int, data=None, **run_fields):
+    """One `run_simulation` through the CLI's parser into an in-memory group;
+    ``run_fields`` sets RunConfig fields that have no flag (compact_operators, fuse_z)."""
+    import dataclasses
+
     import torch
 
     from kwave_tpu_torch import params
@@ -549,8 +941,9 @@ def _run(flags: list[str], windows: int, tail: int):
 
     args = params.build_parser().parse_args(["-i", "-", "-o", "-", "--period",
                                              str(O_SIZE), *flags])
-    data = _input(windows * O_SIZE + tail)
-    run = params.args_to_run_config(args, dt=data.grid.dt)
+    data = data if data is not None else _input(windows * O_SIZE + tail)
+    run = dataclasses.replace(params.args_to_run_config(args, dt=data.grid.dt),
+                              **run_fields)
     out = MemGroup()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -561,8 +954,8 @@ def _run(flags: list[str], windows: int, tail: int):
 
 def _check_run(out, flags, steps):
     """Nc, no NaN, and the p_c bytes against the oracle's encoding of p_raw."""
-    from kwave_tpu import oracle
-    from kwave_tpu.basis import generate_basis
+    from kwave_tpu_torch import oracle
+    from kwave_tpu_torch.basis import generate_basis
 
     mode40, overlap = "--40-bit_complex" in flags, "--no_overlap" not in flags
     p = out["p"].data[0]
@@ -663,6 +1056,8 @@ def main() -> int:
     launches, float_run = main_path_phase()
     codec = codec_kernel_phase()
     codec_launches = codec_round_trip_phase(*float_run)
+    series, series_launches = series_phase()
+    fused, fused_launches = fused_phase()
 
     rows = [dict(name=key, route="cuda", source="kwave_tpu_torch/csrc/encode_window.cu",
                  replaces=VARIANTS[key][2], launches=launches[key], **kernels[key])
@@ -670,6 +1065,14 @@ def main() -> int:
     rows += [dict(name=key, route="cuda", source="kwave_tpu_torch/csrc/fastpath.cu",
                   replaces=replaces, launches=codec_launches[key], **codec[key])
              for key, (_, replaces) in CODEC_KERNELS.items()]
+    rows += [dict(name=key, route="cuda", source="kwave_tpu_torch/csrc/encode_series.cu",
+                  replaces=replaces, launches=series_launches[key], **series[key])
+             for key, (_, _, replaces) in SERIES_KERNELS.items()]
+    rows += [dict(name=key, route="cuda", source="kwave_tpu_torch/csrc/zfuse.cu",
+                  replaces="kwave_tpu/ops/zfuse.py:113", launches=fused_launches[key],
+                  **fused[key]) for key in ZFUSE_KERNELS]
+    _require(all(r["launches"] > 0 for r in rows),
+             f"a kernel was never launched on its path: {rows}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),

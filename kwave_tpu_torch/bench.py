@@ -22,7 +22,7 @@ signals, and one round trip is held to a relative error below 0.02 first. On CUD
 time comes from CUDA events around the chains; TF32 is off, so the matmul-based plain
 versions elsewhere stay fp32.
 
-``vs_baseline`` is over `kwave_tpu.oracle`'s float encode (the reference's per-step CPU
+``vs_baseline`` is over `kwave_tpu_torch.oracle`'s float encode (the reference's per-step CPU
 accumulate loop in NumPy, as tools/measure_oracle.py times it), timed in the same run on
 this host's CPU on the first 1024 steps x 8192 sensors of the same series: a CPU figure.
 """
@@ -37,8 +37,8 @@ import time
 import numpy as np
 import torch
 
-from kwave_tpu.basis import generate_basis
 from kwave_tpu_torch import decoder, encoder
+from kwave_tpu_torch.basis import generate_basis
 
 PERIOD = 20.0
 HARMONICS = 2
@@ -85,8 +85,8 @@ def _elapsed_s(fn, device: torch.device, calls: int) -> tuple[float, float]:
 
 
 def oracle_gbps(series: torch.Tensor, basis) -> float:
-    """`kwave_tpu.oracle` float encode throughput on this host's CPU, on a slice."""
-    from kwave_tpu.oracle import OracleEncoder
+    """`kwave_tpu_torch.oracle` float encode throughput on this host's CPU, on a slice."""
+    from kwave_tpu_torch.oracle import OracleEncoder
 
     x = series[:ORACLE_STEPS, :ORACLE_SENSORS].cpu().numpy()
     enc = OracleEncoder(basis, n_sensors=x.shape[1], total_steps=x.shape[0])

@@ -8,7 +8,7 @@ zeros, so the decode normalise reads the MSB index from the exponent of an exact
 int -> float32 conversion (as `kwave_tpu.ops.encode_pallas._msb_index`).
 
 Semantics are op-for-op those of the reference codec (CompressHelper.cpp:224-389); the
-tests hold this module bit-for-bit against `kwave_tpu.oracle.encode40/decode40`.
+tests hold this module bit-for-bit against `kwave_tpu_torch.oracle.encode40/decode40`.
 """
 
 from __future__ import annotations

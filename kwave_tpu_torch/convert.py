@@ -38,16 +38,12 @@ def _tensor(a, device, dtype=None) -> Optional[torch.Tensor]:
 
 
 def operators_from_jax(ops, device: torch.device | str = "cpu") -> Operators:
-    """JAX `Operators` (numpy or jax leaves) -> this port's `Operators` on ``device``.
-    Compact-mode operators (``kappa is None``) are not carried: the port always holds
-    the full arrays."""
-    if ops.kappa is None:
-        raise ValueError("compact operators are not supported by the port; build the "
-                         "JAX operators with compact=False")
+    """JAX `Operators` (numpy or jax leaves) -> this port's `Operators` on ``device``,
+    full or compact (``kappa is None``, with the k^2 vectors, c0 and alpha2 instead)."""
     out = {}
     for f in dataclasses.fields(Operators):
         v = getattr(ops, f.name)
-        if f.name == "dt":
+        if f.name in ("dt", "c_ref_dt_2", "alpha_power"):
             out[f.name] = float(v)
         elif v is None:
             out[f.name] = None

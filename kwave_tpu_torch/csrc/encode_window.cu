@@ -24,76 +24,16 @@
 // (a few dozen integer ops per 40-bit decode/encode) is far below the card's integer
 // rate. The design therefore moves each byte once and keeps everything else on chip.
 //
-// Bit-exactness: every fp32 product and sum is an explicit __fmul_rn/__fadd_rn, so nvcc
-// cannot contract a + t*x into an FMA (the reference semantics round the product first);
-// the order of operations follows the reference loop (IndexOutputStream.cpp:411-448).
+// Bit-exactness: the per-step arithmetic lives in encode_step.cuh (explicit
+// round-to-nearest products and sums, no FMA contraction), shared with the whole-record
+// kernels of encode_series.cu.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "encode_step.cuh"
+
 namespace {
-
-// kwave_tpu.bitpack.encode40 (CompressHelper.cpp:292-389).
-__device__ __forceinline__ void encode40(float re, float im, int e, uint32_t& hdr,
-                                         uint32_t& mr, uint32_t& mi) {
-  const uint32_t br = __float_as_uint(re);
-  const uint32_t bi = __float_as_uint(im);
-  const uint32_t s_r = br >> 31;
-  const uint32_t s_i = bi >> 31;
-  const int e_rs = (int)((br >> 23) & 0xFF) - e;
-  const int e_is = (int)((bi >> 23) & 0xFF) - e;
-  int e_s = max(e_rs, e_is);
-  uint32_t m_r = br & 0x007FFFFFu;
-  uint32_t m_i = bi & 0x007FFFFFu;
-  // right-shift counts are uint8 in the reference: mod-256 wraparound at each update
-  int rs_r = (6 + max(e_is - e_rs, 0)) & 0xFF;
-  int rs_i = (6 + max(e_rs - e_is, 0)) & 0xFF;
-  if (e_s < 0) {
-    rs_r = (rs_r - e_s) & 0xFF;
-    rs_i = (rs_i - e_s) & 0xFF;
-    e_s = 0;
-  }
-  rs_r = min(rs_r, 23);
-  rs_i = min(rs_i, 23);
-  m_r >>= rs_r;
-  m_i >>= rs_i;
-  // round up unless at the truncated-field maximum (CompressHelper.cpp:353-367)
-  if (m_r > 0u && m_r != (0x7FFFFFu >> rs_r)) m_r += 1u;
-  if (m_i > 0u && m_i != (0x7FFFFFu >> rs_i)) m_i += 1u;
-  // flag bit, then align to 17 bits
-  m_r = (m_r | (1u << (23 - rs_r))) >> 1;
-  m_i = (m_i | (1u << (23 - rs_i))) >> 1;
-  if (e_s > 0xF) {  // exponent overflow saturates
-    m_r = 0xFFFFu;
-    m_i = 0xFFFFu;
-    e_s = 0xF;
-  }
-  hdr = (s_r << 7) | (s_i << 6) | ((m_r & 0x10000u) >> 11) | ((m_i & 0x10000u) >> 12) |
-        ((uint32_t)e_s & 0xFu);
-  mr = m_r & 0xFFFFu;
-  mi = m_i & 0xFFFFu;
-}
-
-// Normalise a decoded mantissa (<= 23 bits): a zero mantissa stays zero with exponent 0.
-__device__ __forceinline__ uint32_t norm_bits(uint32_t s, uint32_t m, int e_base) {
-  if (m == 0u) return s << 31;
-  const int idx = 31 - __clz(m);  // MSB index
-  const uint32_t m2 = m << (23 - idx);
-  const int ex = e_base - (22 - idx);
-  return (s << 31) | ((uint32_t)ex << 23) | (m2 & 0x7FFFFFu);
-}
-
-// kwave_tpu.bitpack.decode40 (CompressHelper.cpp:224-284).
-__device__ __forceinline__ void decode40(uint32_t hdr, uint32_t mr, uint32_t mi, int e,
-                                         float& re, float& im) {
-  const uint32_t m_r = (((hdr & 0x20u) << 11) | (mr & 0xFFFFu)) << 6;
-  const uint32_t m_i = (((hdr & 0x10u) << 12) | (mi & 0xFFFFu)) << 6;
-  const uint32_t s_r = (hdr >> 7) & 1u;
-  const uint32_t s_i = (hdr & 0x40u) >> 6;
-  const int e_base = (int)(hdr & 0xFu) + e;
-  re = __uint_as_float(norm_bits(s_r, m_r, e_base));
-  im = __uint_as_float(norm_bits(s_i, m_i, e_base));
-}
 
 // Stage this block's harmonic columns of the parity half: tab[u*4 + k], k = t1r,t1i,t2r,t2i.
 __device__ __forceinline__ void load_table(float* tab, const float* __restrict__ tabs,
@@ -137,24 +77,11 @@ __global__ void w40_window(const float* __restrict__ chunk, const float* __restr
     const float x = chunk[(size_t)u * N + n];
     const float t1r = tab[4 * u + 0], t1i = tab[4 * u + 1];
     const float t2r = tab[4 * u + 2], t2i = tab[4 * u + 3];
-    decode40(h1, r1, i1, e, c1r, c1i);
-    if (OVERLAP) {
-      decode40(h2, r2, i2, e, c2r, c2i);
-      c1r = __fadd_rn(c1r, __fmul_rn(t1r, x));
-      c1i = __fadd_rn(c1i, __fmul_rn(t1i, x));
-      c2r = __fadd_rn(c2r, __fmul_rn(t2r, x));
-      c2i = __fadd_rn(c2i, __fmul_rn(t2i, x));
-      encode40(c2r, c2i, e, h2, r2, i2);
-    } else {
-      // cc += (bE*x + bE_1*x): both products rounded, summed, then one accumulate
-      c1r = __fadd_rn(c1r, __fadd_rn(__fmul_rn(t1r, x), __fmul_rn(t2r, x)));
-      c1i = __fadd_rn(c1i, __fadd_rn(__fmul_rn(t1i, x), __fmul_rn(t2i, x)));
-    }
-    encode40(c1r, c1i, e, h1, r1, i1);
+    step40<OVERLAP>(x, t1r, t1i, t2r, t2i, e, h1, r1, i1, h2, r2, i2, c1r, c1i, c2r, c2i);
   }
   if (OVERLAP && mirror) {
     // first frame: buf2 = encode(c2 + c1) at the saving step (IndexOutputStream.cpp:429-435)
-    encode40(__fadd_rn(c2r, c1r), __fadd_rn(c2i, c1i), e, h2, r2, i2);
+    mirror40(c1r, c1i, c2r, c2i, e, h2, r2, i2);
   }
   h1_out[p] = h1;
   r1_out[p] = r1;
@@ -192,16 +119,7 @@ __global__ void wfloat_window(const float* __restrict__ chunk, const float* __re
     const float x = chunk[(size_t)u * N + n];
     const float t1r = tab[4 * u + 0], t1i = tab[4 * u + 1];
     const float t2r = tab[4 * u + 2], t2i = tab[4 * u + 3];
-    a1r = __fadd_rn(a1r, __fmul_rn(t1r, x));
-    a1i = __fadd_rn(a1i, __fmul_rn(t1i, x));
-    if (OVERLAP) {
-      a2r = __fadd_rn(a2r, __fmul_rn(t2r, x));
-      a2i = __fadd_rn(a2i, __fmul_rn(t2i, x));
-    } else {
-      // aliased buffer: two sequential adds into the same accumulator
-      a1r = __fadd_rn(a1r, __fmul_rn(t2r, x));
-      a1i = __fadd_rn(a1i, __fmul_rn(t2i, x));
-    }
+    stepf<OVERLAP>(x, t1r, t1i, t2r, t2i, a1r, a1i, a2r, a2i);
   }
   a1r_out[p] = a1r;
   a1i_out[p] = a1i;

@@ -24,8 +24,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from kwave_tpu.basis import MAX_EXP_P, MAX_EXP_U, CompressionBasis
 from kwave_tpu_torch import bitpack
+from kwave_tpu_torch.basis import MAX_EXP_P, MAX_EXP_U, CompressionBasis
 from kwave_tpu_torch.encoder import make_tables
 from kwave_tpu_torch.ops import fastpath
 
@@ -41,7 +41,7 @@ def decode_40bit_rows(rows, harmonics: int, max_exp: int):
     ``rows`` is the float32-viewed ``[n_frames, mSize]`` content of a 40-bit ``*_c``
     dataset (``mSize = ceil(N*1.25)*H`` floats per frame, IndexOutputStream.cpp:91-93);
     returns numpy fp32 ``(re, im)`` of shape ``[n_frames, N, H]``."""
-    from kwave_tpu.oracle import bytes_to_soa
+    from kwave_tpu_torch.oracle import bytes_to_soa
 
     rows = np.ascontiguousarray(rows)
     n_pts = int(rows.shape[1] / (1.25 * harmonics))

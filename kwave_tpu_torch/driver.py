@@ -25,8 +25,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from kwave_tpu.basis import CompressionBasis, find_period, generate_basis
 from kwave_tpu_torch import encoder, streams
+from kwave_tpu_torch.basis import CompressionBasis, find_period, generate_basis
 from kwave_tpu_torch.io.input_file import InputData
 from kwave_tpu_torch.io.output_file import create_output_file
 from kwave_tpu_torch.sampling import sample_index
@@ -59,6 +59,14 @@ class RunConfig:
     progress_interval: int = 5  # -r flag: progress print interval in percent
     benchmark_steps: Optional[int] = None  # --benchmark: Nt truncation, recorded in attrs
     data_load_seconds: float = 0.0  # input-file read time measured by the CLI
+    # Rebuild the radially symmetric spectral operators and the c0-derived media fields on
+    # the device instead of holding full 3D arrays (make_operators(compact=True)).
+    # None = auto: grids of 192^3 points and more.
+    compact_operators: Optional[bool] = None
+    # Fused z stage (ops.zfuse): every spectral multiply of the step as x/y transforms
+    # around one kernel that does z-DFT, operator and z-IDFT. None = off: the kernel's
+    # dense DFT is slower than the unfused FFT route. Needs 3D compact operators.
+    fuse_z: Optional[bool] = None
 
 
 def detect_period(data: InputData, run: RunConfig) -> Optional[float]:
@@ -135,6 +143,7 @@ class _Run:
     mask: torch.Tensor
     wanted: list[str]
     whole_domain: list[StreamSpec]
+    spectral_multi: Optional[Any] = None  # the fused z-stage pipeline, when fuse_z is on
 
 
 def _run_window(r: _Run, sim_state: SimState, stream_states, t0: int, steps: int,
@@ -147,9 +156,9 @@ def _run_window(r: _Run, sim_state: SimState, stream_states, t0: int, steps: int
     stream_states = dict(stream_states)
     for i in range(steps):
         if peel_p0 and i == 0:
-            sim_state = add_initial_pressure(sim_state, r.ops, r.src.p0)
+            sim_state = add_initial_pressure(sim_state, r.ops, r.src.p0, r.spectral_multi)
         else:
-            sim_state = step(sim_state, t0 + i, r.ops, r.src, r.cfg)
+            sim_state = step(sim_state, t0 + i, r.ops, r.src, r.cfg, r.spectral_multi)
         for w, v in _gather_sources(sim_state, r.ops, r.mask, r.wanted).items():
             rows[w].append(v)
         # whole-domain extrema fold every sampled step's state (cudaSampleAll)
@@ -206,6 +215,9 @@ def run_simulation(data: InputData, run: RunConfig, output,
     need_additive = (data.p_source_mode == 2 and data.p_source_flag) or (
         data.u_source_mode == 2 and data.u_source_flag_any()
     )
+    compact = run.compact_operators
+    if compact is None:
+        compact = grid.n_elements >= 192**3
     ops = make_operators(
         grid, medium, data.pml_size, data.pml_alpha,
         absorbing=data.absorbing,
@@ -213,7 +225,18 @@ def run_simulation(data: InputData, run: RunConfig, output,
         need_shift=streams.needs_shifted_velocity(specs),
         nonuniform=data.nonuniform_maps if data.nonuniform else None,
         device=device,
+        compact=bool(compact),
     )
+    spectral_multi = None
+    if run.fuse_z:
+        if compact and is3d:
+            from kwave_tpu_torch.ops import zfuse
+
+            spectral_multi = zfuse.make_pipeline(grid.shape, ops.k2_z, ops.k2_y, ops.k2_x,
+                                                 ops.c_ref_dt_2, device)
+            Logger.log(Logger.ADVANCED, "  zfuse enabled (fused z-stage spectral multiply)")
+        else:
+            Logger.log(Logger.BASIC, "WARNING: fuse_z needs 3D compact operators; ignored")
     cfg = SolverConfig(
         nonlinear=data.nonlinear,
         absorbing=data.absorbing,
@@ -269,6 +292,7 @@ def run_simulation(data: InputData, run: RunConfig, output,
         ops=ops, src=src, cfg=cfg, mask=mask,
         wanted=streams.needed_sources(specs),
         whole_domain=[s for s in specs if s.op in ("max_all", "min_all")],
+        spectral_multi=spectral_multi,
     )
     sim_state = init_state(grid, device)
     stream_states = streams.init_stream_states(specs, n_sensors, grid.n_elements, basis,
@@ -300,10 +324,10 @@ def run_simulation(data: InputData, run: RunConfig, output,
         for t in range(run.sampling_start):
             t_it = _time.time()
             if peel_pending:  # t == 0
-                sim_state = add_initial_pressure(sim_state, ops, src.p0)
+                sim_state = add_initial_pressure(sim_state, ops, src.p0, spectral_multi)
                 peel_pending = False
             else:
-                sim_state = step(sim_state, t, ops, src, cfg)
+                sim_state = step(sim_state, t, ops, src, cfg, spectral_multi)
             timers.add_iteration(_time.time() - t_it, sampled=False)
         t = run.sampling_start
 

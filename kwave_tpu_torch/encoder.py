@@ -7,7 +7,9 @@ per-step decode -> add -> encode requantization) bit for bit
 of oSize sampled steps goes through one launch of the window-encode op
 (`kwave_tpu_torch.ops.encode_window`: a CUDA kernel on the card, its plain version on the
 CPU) and emits exactly one frame; a trailing partial window accumulates through the same
-op without emitting.
+op without emitting. A recorded series goes through `encode_series_exact`: all its whole
+windows in one launch of the whole-record op (`kwave_tpu_torch.ops.encode_series`), then
+the trailing steps through the window op.
 
 State is a dict: the ``[H, N]`` accumulator planes as tensors (int32 bit views of the
 reference's uint32 planes in 40-bit mode) and the ``sampled_step``/``compressed_step``
@@ -28,9 +30,9 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from kwave_tpu.basis import MAX_EXP_P, MAX_EXP_U, CompressionBasis
 from kwave_tpu_torch import bitpack
-from kwave_tpu_torch.ops import encode_window, fastpath
+from kwave_tpu_torch.basis import MAX_EXP_P, MAX_EXP_U, CompressionBasis
+from kwave_tpu_torch.ops import encode_series, encode_window, fastpath
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,16 +92,10 @@ def init_state(cfg: EncoderConfig, n_sensors: int,
     return state
 
 
-def _accumulate(state, x_chunk: torch.Tensor, cfg: EncoderConfig, tabs: torch.Tensor,
-                mirror: bool) -> dict[str, Any]:
-    """Run the window op over ``x_chunk[steps, N]`` starting at a window boundary."""
-    o = cfg.o_size
-    if state["sampled_step"] % o:
-        raise ValueError(
-            f"window must start at a multiple of oSize={o}; "
-            f"sampled_step={state['sampled_step']}"
-        )
-    parity = (state["sampled_step"] // o) % 2
+def _window_op(state, x_chunk: torch.Tensor, cfg: EncoderConfig, tabs: torch.Tensor,
+               parity: int, mirror: bool) -> dict[str, Any]:
+    """One launch of the window op over ``x_chunk[steps, N]`` on table rows
+    ``parity*o + u`` of ``tabs``; advances ``sampled_step``."""
     keys = _plane_keys(cfg)
     planes = tuple(state[k] for k in keys)
     x = x_chunk.to(torch.float32).contiguous()
@@ -114,6 +110,18 @@ def _accumulate(state, x_chunk: torch.Tensor, cfg: EncoderConfig, tabs: torch.Te
     out = dict(state, **dict(zip(keys, new)))
     out["sampled_step"] = state["sampled_step"] + x.shape[0]
     return out
+
+
+def _accumulate(state, x_chunk: torch.Tensor, cfg: EncoderConfig, tabs: torch.Tensor,
+                mirror: bool) -> dict[str, Any]:
+    """Run the window op over ``x_chunk[steps, N]`` starting at a window boundary."""
+    o = cfg.o_size
+    if state["sampled_step"] % o:
+        raise ValueError(
+            f"window must start at a multiple of oSize={o}; "
+            f"sampled_step={state['sampled_step']}"
+        )
+    return _window_op(state, x_chunk, cfg, tabs, (state["sampled_step"] // o) % 2, mirror)
 
 
 def _emit(state, cfg: EncoderConfig):
@@ -160,6 +168,78 @@ def emit_partial(state, cfg: EncoderConfig):
     """Force-emit the current buffer (the reference's tiny-record lastStep edge,
     IndexOutputStream.cpp:455-456: fires when the whole record fits inside one overlap)."""
     return _emit(state, cfg)
+
+
+def encode_steps(state, x_steps: torch.Tensor, cfg: EncoderConfig, tables):
+    """Process ``x_steps[S, N]`` one step at a time from any ``sampled_step`` (the
+    unaligned lead-in after a resume, or trailing steps that cross a saving boundary).
+    Each step is a one-step window of the window op on its own table row; the mirror
+    fires only at the saving step of the very first frame. Returns (state, frames): the
+    list of frames emitted on the way (at most ceil(S / o))."""
+    o = cfg.o_size
+    tabs = stacked_tables(tables)
+    frames = []
+    for s in range(x_steps.shape[0]):
+        sl = state["sampled_step"] % (2 * o)
+        saving = (sl + 1) % o == 0
+        mirror = state["compressed_step"] == 0 and saving and cfg.overlap
+        # a [2, 4H] table whose window (o = 1, parity 0) is the one row sl
+        row = tabs[sl:sl + 1].expand(2, -1).contiguous()
+        state = _window_op(state, x_steps[s:s + 1], cfg, row, 0, mirror)
+        if saving:
+            state, frame = _emit(state, cfg)
+            frames.append(frame)
+    return state, frames
+
+
+def encode_series_exact(series, basis: CompressionBasis, shifted=False, mode40=False,
+                        overlap=True, total_steps=None):
+    """Encode ``series[T, N]`` with reference-exact semantics, on the series' device.
+    Returns (frames, state).
+
+    frames: float mode (re, im) each ``[Nc, H, N]``; 40-bit mode (hdr, mr, mi) int32 planes
+    of the same shape. ``Nc = T // oSize`` (or 1 for tiny records ``T <= oSize``, per the
+    lastStep rule). All whole windows go through one launch of the whole-record op; the
+    trailing ``T % oSize`` steps accumulate into the state through the window op."""
+    series = torch.as_tensor(series, dtype=torch.float32)
+    t_total, n = series.shape
+    cfg = EncoderConfig.for_stream(basis, shifted, mode40, overlap)
+    tables = make_tables(basis, shifted, series.device)
+    state = init_state(cfg, n, series.device)
+    o = cfg.o_size
+    total = total_steps if total_steps is not None else t_total
+
+    if total <= o:
+        # Tiny record: accumulate everything, then the lastStep flush emits one partial
+        # frame (IndexOutputStream.cpp:455-456)
+        if t_total >= o:  # the record is exactly one window: the saving boundary emits
+            state, frame = encode_chunk(state, series[:o], cfg, tables)
+        else:
+            state = accumulate_chunk(state, series, cfg, tables)
+            state, frame = _emit(state, cfg)
+        return tuple(f[None] for f in frame), state
+
+    n_chunks = t_total // o
+    keys = _plane_keys(cfg)
+    if n_chunks >= 1:
+        tabs = stacked_tables(tables)
+        x = series.contiguous()
+        if mode40:
+            frames, planes = encode_series.encode_series_40b(x, tabs, cfg.e_const, o,
+                                                             overlap=cfg.overlap)
+        else:
+            frames, planes = encode_series.encode_series_float_exact(x, tabs, o,
+                                                                     overlap=cfg.overlap)
+        state.update(zip(keys, planes))  # without overlap: the first set only
+        state["sampled_step"] = n_chunks * o
+        state["compressed_step"] = n_chunks
+    else:  # fewer steps than one window of a longer record: no frame yet
+        frames = tuple(state[k].new_zeros((0, cfg.harmonics, n))
+                       for k in keys[: 3 if mode40 else 2])
+    # trailing partial window: accumulates, emits nothing
+    if t_total - n_chunks * o:
+        state = accumulate_chunk(state, series[n_chunks * o:], cfg, tables)
+    return frames, state
 
 
 # ---------------------------------------------------------------------------
@@ -235,7 +315,7 @@ def frames_to_flat_float(f_re, f_im) -> np.ndarray:
 
 def frames_to_flat_40b(hdr, mr, mi) -> np.ndarray:
     """[C?, H, N] 40-bit planes -> packed 5-byte AoS stream in pH = i*H + ih order."""
-    from kwave_tpu import oracle
+    from kwave_tpu_torch import oracle
 
     h, r, i = (np.moveaxis(_numpy(a), -2, -1) for a in (hdr, mr, mi))  # [..., N, H]
     lead = h.shape[:-2]

@@ -18,8 +18,8 @@ import tempfile
 import numpy as np
 import torch
 
-from kwave_tpu.basis import generate_basis
 from kwave_tpu_torch import decoder
+from kwave_tpu_torch.basis import generate_basis
 from kwave_tpu_torch.driver import RunConfig, run_simulation
 from kwave_tpu_torch.io.input_file import InputData, read_input_file, write_input_file
 from kwave_tpu_torch.solver import Grid, Medium

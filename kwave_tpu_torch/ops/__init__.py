@@ -5,6 +5,9 @@
 - `encode_window_float`: one window of the fast projection with a carried P1,
   served by the projection kernel of `fastpath`.
 - `fastpath`: the whole-series projection encode and the overlap-add decode.
+- `encode_series`: the whole-record reference-exact encodes (float and 40-bit), every
+  window of a record in one launch.
+- `zfuse`: the solver's fused z stage (z-DFT, operator built in the kernel, z-IDFT).
 
 Importing this package builds nothing: the kernels are compiled by `_build` at their
 first launch on a CUDA tensor."""

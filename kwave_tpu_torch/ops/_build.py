@@ -36,11 +36,20 @@ SIGNATURES = {
     "kw_encode_window_40b": [_P] * 14 + [_I] * 8 + [_P],
     # chunk, tabs, 4 planes in, 4 planes out; steps, o, H, N, parity, mirror, overlap
     "kw_encode_window_float": [_P] * 10 + [_I] * 7 + [_P],
+    # encode_series.cu
+    # series, tabs, 3 frame planes, 6 state planes; K, o, H, N, e, overlap
+    "kw_encode_series_40b": [_P] * 11 + [_I] * 6 + [_P],
+    # series, tabs, 2 frame planes, 4 state planes; K, o, H, N, overlap
+    "kw_encode_series_float": [_P] * 8 + [_I] * 5 + [_P],
     # fastpath.cu
     # series, tab, p1_in, frames, p1_out; K, o, H, N, first_window
     "kw_project_frames": [_P] * 5 + [_I] * 5 + [_P],
     # frames, tab, x; k_total, o, H, N, n_steps
     "kw_synth_series": [_P] * 3 + [_I] * 5 + [_P],
+    # zfuse.cu
+    # spectrum, roots, k2z, k2y, k2x, 3 dd vectors, 3 outputs; nz, ny, nxr, n_ops, 3 kinds,
+    # 3 axes; 3 powers, c_ref_dt_2; use_kappa
+    "kw_zfuse": [_P] * 11 + [_I] * 10 + [ctypes.c_float] * 4 + [_I] + [_P],
 }
 
 
@@ -60,7 +69,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC_DIR.glob("*.cu*")):  # the sources and the headers they share
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libkwave_tpu_torch_{digest.hexdigest()[:16]}.so"

@@ -67,7 +67,7 @@ class Operators:
     """Precomputed operator set: float32 tensors, complex64 for the spectral per-axis
     operators (i*k*exp(+-i*k*d/2) and the half-cell shifts)."""
 
-    kappa: torch.Tensor  # [*, nxR]
+    kappa: Optional[torch.Tensor]  # [*, nxR]; None in compact mode
     ddx_pos: torch.Tensor  # [nxR] complex64
     ddx_neg: torch.Tensor
     ddy_pos: torch.Tensor  # [ny]
@@ -84,7 +84,7 @@ class Operators:
     dt_rho0_sgy: torch.Tensor
     dt_rho0_sgz: Optional[torch.Tensor]
     rho0: torch.Tensor  # scalar or full
-    c2: torch.Tensor  # scalar or full
+    c2: Optional[torch.Tensor]  # scalar or full; None in compact mode
     bona: Optional[torch.Tensor]
     absorb_nabla1: Optional[torch.Tensor]  # [*, nxR]
     absorb_nabla2: Optional[torch.Tensor]
@@ -99,7 +99,17 @@ class Operators:
     dxudxn: Optional[torch.Tensor] = None
     dyudyn: Optional[torch.Tensor] = None
     dzudzn: Optional[torch.Tensor] = None
+    # compact mode (make_operators(compact=True)): kappa, source_kappa, absorb_nabla1/2,
+    # c2 and absorb_tau/eta stay None, and the step rebuilds them from these per-axis
+    # squared-wavenumber vectors and c0 (step._kappa and the accessors beside it)
+    k2_x: Optional[torch.Tensor] = None  # [nxR] kx^2 (rfft-reduced)
+    k2_y: Optional[torch.Tensor] = None  # [ny]
+    k2_z: Optional[torch.Tensor] = None  # [nz] (3D only)
+    c0: Optional[torch.Tensor] = None  # scalar or full
+    alpha2: Optional[torch.Tensor] = None  # 2*alpha_coeff*alpha_np (tau/eta prefactor)
     dt: float = 0.0
+    c_ref_dt_2: float = 0.0
+    alpha_power: float = 1.5
 
 
 def _k_components(n: int, d: float) -> np.ndarray:
@@ -218,19 +228,39 @@ def make_operators(
     need_shift: bool = False,
     nonuniform: Optional[dict] = None,
     device: torch.device | str = "cpu",
+    compact: bool = False,
 ) -> Operators:
     """Build the full operator set for one simulation (reference preProcessing,
     KSpaceFirstOrderSolver.cpp:784-861): float64 NumPy on the host, then float32 /
-    complex64 tensors on ``device``."""
+    complex64 tensors on ``device``.
+
+    ``compact=True`` leaves the radially symmetric spectral arrays (kappa, source_kappa,
+    absorb_nabla1/2) and the c0-derived media fields (c2, absorb_tau/eta) out: the step
+    rebuilds them on the device from the per-axis k^2 vectors and c0. The results agree
+    to fp32 rounding."""
     c0 = np.asarray(medium.c0, np.float64)
     c_ref = float(medium.c_ref) if medium.c_ref is not None else float(c0.max())
     dim = grid.dim
 
-    kappa = make_kappa(grid, c_ref)
-    nabla1 = nabla2 = tau = eta = None
-    if absorbing:
-        nabla1, nabla2 = make_absorb_nablas(grid, medium.alpha_power)
-        tau, eta = make_tau_eta(medium.alpha_coeff, medium.c0, medium.alpha_power)
+    kappa = nabla1 = nabla2 = tau = eta = None
+    k2_x = k2_y = k2_z = alpha2 = None
+    if compact:
+        k2_x = (_k_components(grid.nx, grid.dx)[: grid.nx // 2 + 1] ** 2).astype(np.float32)
+        k2_y = (_k_components(grid.ny, grid.dy) ** 2).astype(np.float32)
+        if dim == 3:
+            k2_z = (_k_components(grid.nz, grid.dz) ** 2).astype(np.float32)
+        if absorbing:
+            alpha_np = (100.0 * (1.0e-6 / (2.0 * np.pi)) ** medium.alpha_power) / (
+                20.0 * math.log10(math.e)
+            )
+            alpha2 = np.asarray(
+                2.0 * np.asarray(medium.alpha_coeff, np.float64) * alpha_np, np.float32
+            )
+    else:
+        kappa = make_kappa(grid, c_ref)
+        if absorbing:
+            nabla1, nabla2 = make_absorb_nablas(grid, medium.alpha_power)
+            tau, eta = make_tau_eta(medium.alpha_coeff, medium.c0, medium.alpha_power)
 
     ddx_pos, ddx_neg = make_ddk_shift(grid.nx, grid.dx, reduced=True)
     ddy_pos, ddy_neg = make_ddk_shift(grid.ny, grid.dy, reduced=False)
@@ -299,20 +329,25 @@ def make_operators(
         **pml,
         dt_rho0_sgx=dt_rho0_sgx, dt_rho0_sgy=dt_rho0_sgy, dt_rho0_sgz=dt_rho0_sgz,
         rho0=rho0,
-        c2=(c0 * c0).astype(np.float32),
+        c2=None if compact else (c0 * c0).astype(np.float32),
         bona=None if medium.bona is None else np.asarray(medium.bona, np.float32),
         absorb_nabla1=nabla1, absorb_nabla2=nabla2,
         absorb_tau=tau, absorb_eta=eta,
-        source_kappa=make_source_kappa(grid, c_ref) if need_source_kappa else None,
+        source_kappa=(make_source_kappa(grid, c_ref)
+                      if need_source_kappa and not compact else None),
         # each shift is a 1D rfft along its own axis, so all three are rfft-reduced
         shift_x_neg=make_shift_neg(grid.nx, grid.dx, True) if need_shift else None,
         shift_y_neg=make_shift_neg(grid.ny, grid.dy, True) if need_shift else None,
         shift_z_neg=(make_shift_neg(grid.nz, grid.dz, True)
                      if need_shift and dim == 3 else None),
         dxudxn=dxudxn, dyudyn=dyudyn, dzudzn=dzudzn,
+        k2_x=k2_x, k2_y=k2_y, k2_z=k2_z,
+        c0=c0.astype(np.float32) if compact else None, alpha2=alpha2,
     )
     return Operators(
         **{k: None if v is None else torch.as_tensor(np.asarray(v)).to(device)
            for k, v in host.items()},
         dt=float(grid.dt),
+        c_ref_dt_2=float(c_ref * grid.dt / 2.0),
+        alpha_power=float(medium.alpha_power),
     )

@@ -8,8 +8,10 @@ One `step` call reproduces one iteration of the reference main loop
   (lossless|absorbing x linear|nonlinear) -> [t==0: initial pressure source].
 
 The spectral work is ``torch.fft.rfftn``/``irfftn`` over the last ``ndim`` axes (cuFFT on
-the card); the elementwise updates are plain tensor expressions in the JAX package's
-order. Fields are float32 ``[nz, ny, nx]`` (``[ny, nx]`` in 2D), x fastest. The time
+the card), or, when the caller passes a ``spectral_multi`` pipeline
+(`kwave_tpu_torch.ops.zfuse.make_pipeline`), that pipeline for every transform of the
+step: x/y transforms around one kernel that does z-DFT, operator and z-IDFT. The
+elementwise updates are plain tensor expressions in the JAX package's order. Fields are float32 ``[nz, ny, nx]`` (``[ny, nx]`` in 2D), x fastest. The time
 index ``t`` is a host integer, so source gating is a host branch. No tensor is updated in
 place.
 """
@@ -17,10 +19,12 @@ place.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import math
+from typing import Callable, Optional
 
 import torch
 
+from kwave_tpu_torch.ops.zfuse import OpSpec
 from kwave_tpu_torch.solver.operators import Grid, Operators
 
 # Source modes (Parameters.h:73-81).
@@ -113,11 +117,82 @@ def _f32(value: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(value, dtype=torch.float32, device=like.device)
 
 
-def _grad_fields(field: torch.Tensor, ops: Operators, ddx, ddy, ddz, shape):
+# ---------------------------------------------------------------------------
+# Compact-operator accessors: when make_operators(compact=True) left the radially
+# symmetric spectral arrays and the c0-derived media fields as None, rebuild them on the
+# device from the per-axis k^2 vectors (and c0). The host-built arrays
+# (KSpaceFirstOrderSolver.cpp:2404-2652) are taken when present.
+# ---------------------------------------------------------------------------
+
+
+def _k_mag(ops: Operators, ndim: int) -> torch.Tensor:
+    """|k| over the reduced spectral grid from the compact per-axis k^2 vectors."""
+    k2 = _bc(ops.k2_x, 0, ndim) + _bc(ops.k2_y, 1, ndim)
+    if ndim == 3:
+        k2 = k2 + _bc(ops.k2_z, 2, ndim)
+    return torch.sqrt(k2)
+
+
+def _kappa(ops: Operators, ndim: int) -> torch.Tensor:
+    """sinc k-space correction (generateKappa :2404-2452), lazy in compact mode."""
+    if ops.kappa is not None:
+        return ops.kappa
+    arg = ops.c_ref_dt_2 * _k_mag(ops, ndim)
+    one = torch.ones_like(arg)
+    return torch.where(arg == 0, one, torch.sin(arg) / torch.where(arg == 0, one, arg))
+
+
+def _source_kappa_op(ops: Operators, ndim: int) -> torch.Tensor:
+    """cos(c_ref*dt*k/2) (generateSourceKappa :2460-2506), lazy in compact mode."""
+    if ops.source_kappa is not None:
+        return ops.source_kappa
+    return torch.cos(ops.c_ref_dt_2 * _k_mag(ops, ndim))
+
+
+def _absorb_nablas(ops: Operators, ndim: int):
+    """|k|^(y-2), |k|^(y-1) with the k=0 pole zeroed (generateKappaAndNablas
+    :2568-2576), lazy in compact mode."""
+    if ops.absorb_nabla1 is not None:
+        return ops.absorb_nabla1, ops.absorb_nabla2
+    k = _k_mag(ops, ndim)
+    safe = torch.where(k == 0, torch.ones_like(k), k)
+    zero = torch.zeros_like(k)
+    n1 = torch.where(k == 0, zero, safe ** (ops.alpha_power - 2.0))
+    n2 = torch.where(k == 0, zero, safe ** (ops.alpha_power - 1.0))
+    return n1, n2
+
+
+def _c2_op(ops: Operators) -> torch.Tensor:
+    """c^2 (computeC2 :2707-2725): derived from c0 in compact mode."""
+    return ops.c2 if ops.c2 is not None else ops.c0 * ops.c0
+
+
+def _tau_eta_op(ops: Operators):
+    """Power-law absorption tau/eta (generateTauAndEta :2587-2652), lazy from
+    (alpha2 = 2*alpha_coeff*alpha_np, c0) in compact mode."""
+    if ops.absorb_tau is not None:
+        return ops.absorb_tau, ops.absorb_eta
+    ap = float(ops.alpha_power)
+    tau = -ops.alpha2 * ops.c0 ** (ap - 1.0)
+    eta = ops.alpha2 * (ops.c0 ** ap) * _f32(math.tan(math.pi / 2.0 * ap), ops.c0)
+    return tau, eta
+
+
+def _grad_fields(field: torch.Tensor, ops: Operators, ddx, ddy, ddz, shape,
+                 spectral_multi: Optional[Callable] = None):
     """ifftn(dd*_k_shift * kappa * fftn(field)) for each axis: computePressureGradient
-    (SolverCudaKernels.cu:1139-1199) and the shared pattern of the velocity gradient."""
+    (SolverCudaKernels.cu:1139-1199) and the shared pattern of the velocity gradient.
+    With ``spectral_multi`` the three outputs come off one forward transform."""
     ndim = field.ndim
-    fk = _rfftn(field) * ops.kappa
+    if spectral_multi is not None:
+        specs = [OpSpec("grad", axis=ndim - 1), OpSpec("grad", axis=ndim - 2)]
+        dds = [ddx, ddy]
+        if ddz is not None:
+            specs.append(OpSpec("grad", axis=0))
+            dds.append(ddz)
+        outs = spectral_multi(field, tuple(specs), tuple(dds), True)
+        return outs[0], outs[1], (outs[2] if ddz is not None else None)
+    fk = _rfftn(field) * _kappa(ops, ndim)
     gx = _irfftn(fk * _bc(ddx, 0, ndim), shape)
     gy = _irfftn(fk * _bc(ddy, 1, ndim), shape)
     gz = _irfftn(fk * _bc(ddz, 2, ndim), shape) if ddz is not None else None
@@ -152,7 +227,8 @@ def _scale_additive_source(index, value, ops: Operators, shape):
         n *= s
     scaled = torch.zeros(n, dtype=torch.float32, device=value.device)
     scaled[index] = value
-    return _irfftn(_rfftn(scaled.reshape(shape)) * ops.source_kappa, shape)
+    return _irfftn(_rfftn(scaled.reshape(shape)) * _source_kappa_op(ops, len(shape)),
+                   shape)
 
 
 # ---------------------------------------------------------------------------
@@ -160,9 +236,12 @@ def _scale_additive_source(index, value, ops: Operators, shape):
 # ---------------------------------------------------------------------------
 
 
-def step(state: SimState, t: int, ops: Operators, src: Sources,
-         cfg: SolverConfig) -> SimState:
-    """One main-loop iteration (computeMainLoop body, KSpaceFirstOrderSolver.cpp:885-935)."""
+def step(state: SimState, t: int, ops: Operators, src: Sources, cfg: SolverConfig,
+         spectral_multi: Optional[Callable] = None) -> SimState:
+    """One main-loop iteration (computeMainLoop body, KSpaceFirstOrderSolver.cpp:885-935).
+    ``spectral_multi`` (3D only; `kwave_tpu_torch.ops.zfuse.make_pipeline`), when given,
+    takes every spectral multiply of the step: ``(field, op_specs, dd_vectors, use_kappa)
+    -> [real fields]``."""
     is3d = state.uz_sgz is not None
     shape = state.p.shape
     ndim = state.p.ndim
@@ -170,7 +249,7 @@ def step(state: SimState, t: int, ops: Operators, src: Sources,
     # -- velocity update (computeVelocity :2087-2119):
     # u = pml_sg * (pml_sg * u - dt/rho0_sg * ifft(ddk_pos * kappa * fft(p)))
     dpx, dpy, dpz = _grad_fields(state.p, ops, ops.ddx_pos, ops.ddy_pos, ops.ddz_pos,
-                                 shape)
+                                 shape, spectral_multi)
     pml_x_sg = _bc(ops.pml_x_sgx, 0, ndim)
     pml_y_sg = _bc(ops.pml_y_sgy, 1, ndim)
     ux = (state.ux_sgx * pml_x_sg - ops.dt_rho0_sgx * dpx) * pml_x_sg
@@ -202,10 +281,17 @@ def step(state: SimState, t: int, ops: Operators, src: Sources,
         ux = _apply_point_source(ux, src.transducer_index, sig[at], ADDITIVE_NO_CORRECTION)
 
     # -- velocity gradient (computeVelocityGradient :2126-2150)
-    kap = ops.kappa
-    duxdx = _irfftn(_rfftn(ux) * kap * _bc(ops.ddx_neg, 0, ndim), shape)
-    duydy = _irfftn(_rfftn(uy) * kap * _bc(ops.ddy_neg, 1, ndim), shape)
-    duzdz = _irfftn(_rfftn(uz) * kap * _bc(ops.ddz_neg, 2, ndim), shape) if is3d else None
+    if spectral_multi is not None:
+        duxdx = spectral_multi(ux, (OpSpec("grad", axis=ndim - 1),), (ops.ddx_neg,), True)[0]
+        duydy = spectral_multi(uy, (OpSpec("grad", axis=ndim - 2),), (ops.ddy_neg,), True)[0]
+        duzdz = spectral_multi(uz, (OpSpec("grad", axis=0),), (ops.ddz_neg,),
+                               True)[0] if is3d else None
+    else:
+        kap = _kappa(ops, ndim)
+        duxdx = _irfftn(_rfftn(ux) * kap * _bc(ops.ddx_neg, 0, ndim), shape)
+        duydy = _irfftn(_rfftn(uy) * kap * _bc(ops.ddy_neg, 1, ndim), shape)
+        duzdz = _irfftn(_rfftn(uz) * kap * _bc(ops.ddz_neg, 2, ndim),
+                        shape) if is3d else None
     # non-uniform grid: scale gradients by the stretch maps
     if ops.dxudxn is not None:
         duxdx = duxdx * _bc(ops.dxudxn, 0, ndim)
@@ -248,26 +334,35 @@ def step(state: SimState, t: int, ops: Operators, src: Sources,
     # -- pressure update (computePressureNonlinear/Linear :2180-2245)
     rho_sum = rx + ry + rz if is3d else rx + ry
     du_sum = duxdx + duydy + duzdz if is3d else duxdx + duydy
+    c2 = _c2_op(ops)
     if cfg.absorbing:
+        tau, eta = _tau_eta_op(ops)
         vel_grad_sum = ops.rho0 * du_sum
-        tau_term = _irfftn(_rfftn(vel_grad_sum) * ops.absorb_nabla1, shape)
-        eta_term = _irfftn(_rfftn(rho_sum) * ops.absorb_nabla2, shape)
+        if spectral_multi is not None:
+            ap = float(ops.alpha_power)
+            tau_term = spectral_multi(vel_grad_sum, (OpSpec("nabla", power=ap - 2.0),), (),
+                                      False)[0]
+            eta_term = spectral_multi(rho_sum, (OpSpec("nabla", power=ap - 1.0),), (),
+                                      False)[0]
+        else:
+            nabla1, nabla2 = _absorb_nablas(ops, ndim)
+            tau_term = _irfftn(_rfftn(vel_grad_sum) * nabla1, shape)
+            eta_term = _irfftn(_rfftn(rho_sum) * nabla2, shape)
         if cfg.nonlinear:
             nonlin = (ops.bona * rho_sum * rho_sum) / (2.0 * ops.rho0) + rho_sum
-            p = ops.c2 * (nonlin + ops.absorb_tau * tau_term - ops.absorb_eta * eta_term)
+            p = c2 * (nonlin + tau * tau_term - eta * eta_term)
         else:
-            p = ops.c2 * (rho_sum + ops.absorb_tau * tau_term
-                          - ops.absorb_eta * eta_term)
+            p = c2 * (rho_sum + tau * tau_term - eta * eta_term)
     elif cfg.nonlinear:
-        p = ops.c2 * (rho_sum + ops.bona * rho_sum * rho_sum / (2.0 * ops.rho0))
+        p = c2 * (rho_sum + ops.bona * rho_sum * rho_sum / (2.0 * ops.rho0))
     else:
-        p = ops.c2 * rho_sum
+        p = c2 * rho_sum
 
     new = SimState(p=p, ux_sgx=ux, uy_sgy=uy, uz_sgz=uz, rho_x=rx, rho_y=ry, rho_z=rz)
     # -- initial pressure at t==0 (addInitialPressureSource :2359-2400); the driver peels
     # this out of its window loop and passes p0_source_flag=False
     if cfg.p0_source_flag and t == 0:
-        new = add_initial_pressure(new, ops, src.p0)
+        new = add_initial_pressure(new, ops, src.p0, spectral_multi)
     return new
 
 
@@ -292,14 +387,16 @@ def shifted_velocity(state: SimState, ops: Operators):
     return ux, uy, uz
 
 
-def add_initial_pressure(state: SimState, ops: Operators, p0: torch.Tensor) -> SimState:
+def add_initial_pressure(state: SimState, ops: Operators, p0: torch.Tensor,
+                         spectral_multi: Optional[Callable] = None) -> SimState:
     """p = p0; rho_i = p0/(dim*c^2); u_sg = 0.5 * dt/rho0_sg * ifft(ddk_pos*kappa*fft(p0))
     (addInitialPressureSource, KSpaceFirstOrderSolver.cpp:2359-2400). The result does not
     depend on ``state`` beyond its dimensionality."""
     is3d = state.uz_sgz is not None
     shape = p0.shape
-    rho_part = p0 / (_f32(3.0 if is3d else 2.0, p0) * ops.c2)
-    gx, gy, gz = _grad_fields(p0, ops, ops.ddx_pos, ops.ddy_pos, ops.ddz_pos, shape)
+    rho_part = p0 / (_f32(3.0 if is3d else 2.0, p0) * _c2_op(ops))
+    gx, gy, gz = _grad_fields(p0, ops, ops.ddx_pos, ops.ddy_pos, ops.ddz_pos, shape,
+                              spectral_multi)
     half = _f32(0.5, p0)
     return SimState(
         p=p0.clone(),

@@ -21,8 +21,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from kwave_tpu.basis import MAX_EXP_P, MAX_EXP_U, CompressionBasis
 from kwave_tpu_torch import bitpack, encoder, sampling
+from kwave_tpu_torch.basis import MAX_EXP_P, MAX_EXP_U, CompressionBasis
 from kwave_tpu_torch.io import names as dn
 from kwave_tpu_torch.io.output_file import (
     CompressionAttrs,

@@ -4,14 +4,17 @@ This file imports no jax, so it also runs on a GPU machine without JAX; there, f
 repository root:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
+
+(``--noconftest`` because tests/conftest.py imports jax; the ``cuda`` marker it registers
+is then unknown, which pytest only warns about.)
 """
 
 import numpy as np
 import pytest
 import torch
 
-from kwave_tpu import oracle
-from kwave_tpu.basis import MAX_EXP_P, generate_basis
+from kwave_tpu_torch import oracle
+from kwave_tpu_torch.basis import MAX_EXP_P, generate_basis
 from kwave_tpu_torch import bitpack, encoder
 from kwave_tpu_torch.ops import encode_window as ew
 from torch_helpers import bits, real_series, require_cuda, stacked_tables
@@ -155,7 +158,7 @@ def test_projection_kernel_matches_plain(period, h, windows, extra, n):
 def test_synthesis_kernel_matches_plain(k_frames, windows, extra):
     """K4 (both entries) on the decode boundary cases of tests/test_fastpath_ops.py
     (n_steps = windows * o + extra) and a ragged N: against its plain version and
-    kwave_tpu.oracle.reconstruct, flat == 3D bit for bit, dyadic data bit-exact."""
+    kwave_tpu_torch.oracle.reconstruct, flat == 3D bit for bit, dyadic data bit-exact."""
     from kwave_tpu_torch.ops import fastpath
 
     dev = require_cuda()
@@ -212,3 +215,171 @@ def test_codec_round_trip_on_the_card():
     xt = torch.from_numpy(x).to(dev)
     err = float((rec[mid] - xt[mid]).abs().max() / xt.abs().max())
     assert err < 0.05  # the noise term (1% of the amplitude) is not representable
+
+
+# ---------------------------------------------------------------------------
+# Whole-record exact encode (csrc/encode_series.cu): K3a 40-bit, K3b float
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overlap", [True, False])
+@pytest.mark.parametrize("mode40", [True, False])
+def test_series_kernel_matches_plain_window_loop_and_oracle(mode40, overlap):
+    """K3a/K3b on 256 sensors, K odd, even and 1: frames and final state bit-identical to
+    the plain version, to the K1/K2 window loop on the card, and to the oracle."""
+    from kwave_tpu_torch.ops import encode_series as es
+
+    dev = require_cuda()
+    n = 256
+    key = ("series40" if mode40 else "seriesf") + ("_overlap" if overlap else "_no_overlap")
+    for h, windows in ((2, 5), (1, 4), (3, 1)):
+        basis = generate_basis(11.0, 1, h, normalize=True)
+        o = basis.o_size
+        x_host = real_series(windows * o + 3, n, 11.0, seed=h)
+        x = torch.from_numpy(x_host).to(dev)
+        tabs = torch.from_numpy(stacked_tables(basis)).to(dev)
+        before = es.LAUNCHES[key]
+        if mode40:
+            frames, state = es.encode_series_40b(x, tabs, MAX_EXP_P, o, overlap)
+            pf, ps = es.encode_series_40b_plain(x, tabs, MAX_EXP_P, o, overlap)
+        else:
+            frames, state = es.encode_series_float_exact(x, tabs, o, overlap)
+            pf, ps = es.encode_series_float_exact_plain(x, tabs, o, overlap)
+        torch.cuda.synchronize()
+        assert es.LAUNCHES[key] == before + 1
+        for a, b in zip(frames + state, pf + ps):
+            np.testing.assert_array_equal(bits(a), bits(b))
+        cfg = encoder.EncoderConfig.for_stream(basis, False, mode40, overlap)
+        tables = encoder.make_tables(basis, False, dev)
+        st = encoder.init_state(cfg, n, dev)
+        for k in range(windows):
+            st, fr = encoder.encode_chunk(st, x[k * o:(k + 1) * o], cfg, tables)
+            for a, b in zip(fr, frames):
+                np.testing.assert_array_equal(bits(a), bits(b[k]), err_msg=f"window {k}")
+        frames_o = oracle.OracleEncoder(basis, n, mode40=mode40, overlap=overlap,
+                                        total_steps=x_host.shape[0]).encode_series(x_host)
+        assert len(frames_o) == windows
+        for k, fo in enumerate(frames_o):
+            for a, b in zip(frames, fo):
+                np.testing.assert_array_equal(bits(a[k].T.contiguous()),
+                                              bits(b.astype(np.uint32) if mode40 else b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overlap", [True, False])
+@pytest.mark.parametrize("mode40", [True, False])
+def test_encode_series_exact_on_the_card_matches_oracle(mode40, overlap):
+    """encode_series_exact with a trailing remainder (one K3 launch, one K1/K2 partial
+    window), then encode_steps across the next saving boundary, against the oracle."""
+    from kwave_tpu_torch.ops import encode_series as es
+
+    dev = require_cuda()
+    basis = generate_basis(11.0, 1, 2, normalize=True)
+    o = basis.o_size
+    x_host = real_series(5 * o + 1, N, 11.0, seed=8)
+    steps = 4 * o + 3
+    x = torch.from_numpy(x_host).to(dev)
+    es_before, ew_before = dict(es.LAUNCHES), dict(ew.LAUNCHES)
+    frames, st = encoder.encode_series_exact(x[:steps], basis, mode40=mode40,
+                                             overlap=overlap)
+    assert sum(es.LAUNCHES.values()) - sum(es_before.values()) == 1
+    assert sum(ew.LAUNCHES.values()) - sum(ew_before.values()) == 1
+    cfg = encoder.EncoderConfig.for_stream(basis, False, mode40, overlap)
+    st, extra = encoder.encode_steps(st, x[steps:], cfg, encoder.make_tables(basis, False,
+                                                                              dev))
+    frames_o = oracle.OracleEncoder(basis, N, mode40=mode40, overlap=overlap,
+                                    total_steps=x_host.shape[0]).encode_series(x_host)
+    assert len(frames_o) == 5 and len(extra) == 1 and frames[0].shape[0] == 4
+    mine = [tuple(f[k] for f in frames) for k in range(4)] + extra
+    for fr, fo in zip(mine, frames_o):
+        for a, b in zip(fr, fo):
+            np.testing.assert_array_equal(bits(a.T.contiguous()),
+                                          bits(b.astype(np.uint32) if mode40 else b))
+
+
+# ---------------------------------------------------------------------------
+# Fused z stage (csrc/zfuse.cu): K7
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nz,ny,nx", [(32, 16, 256), (100, 12, 260), (256, 8, 256)])
+@pytest.mark.parametrize("n_ops", [1, 3])
+def test_zfuse_kernel_matches_plain_and_float64(nz, ny, nx, n_ops):
+    """K7 at nz = 32, 100 (not a power of two) and 256, nxr = 129 and 131, one op and
+    three: within 2e-6 of the peak of `apply_plain` and of a float64
+    ``ifft(fft(s, 0) * op, 0)`` (a dense fp32 DFT over up to 256 terms; measured on an
+    H100 at most 4e-7), grad with and without kappa, and nabla."""
+    from kwave_tpu_torch.ops import zfuse
+
+    dev = require_cuda()
+    rng = np.random.default_rng(nz + n_ops)
+    nxr = nx // 2 + 1
+    s_host = (rng.standard_normal((nz, ny, nxr))
+              + 1j * rng.standard_normal((nz, ny, nxr))).astype(np.complex64)
+    k2 = [(np.fft.fftfreq(nz) * 2 * np.pi * nz / 1e-2) ** 2,
+          (np.fft.fftfreq(ny) * 2 * np.pi * ny / 1e-2) ** 2,
+          (np.fft.rfftfreq(nx) * 2 * np.pi * nx / 1e-2) ** 2]
+    plan = zfuse.make_plan((nz, ny, nx), *k2, 1e-5, dev)
+    s = torch.from_numpy(s_host).to(dev)
+    k = np.sqrt(k2[0][:, None, None] + k2[1][None, :, None] + k2[2][None, None, :])
+    arg = 1e-5 * k
+    kappa = np.where(arg == 0, 1.0, np.sin(arg) / np.where(arg == 0, 1.0, arg))
+    dd_host = [rng.standard_normal(n) + 1j * rng.standard_normal(n) for n in (nz, ny, nxr)]
+    dds = [torch.from_numpy(d.astype(np.complex64)).to(dev) for d in dd_host]
+    shapes = [(nz, 1, 1), (1, ny, 1), (1, 1, nxr)]
+    if n_ops == 3:
+        cases = [(tuple(zfuse.OpSpec("grad", axis=a) for a in (2, 1, 0)),
+                  (dds[2], dds[1], dds[0]), True,
+                  [kappa * dd_host[a].astype(np.complex64).reshape(shapes[a])
+                   for a in (2, 1, 0)])]
+    else:
+        nab = np.where(k == 0, 0.0, np.where(k == 0, 1.0, k) ** -0.5)
+        cases = [((zfuse.OpSpec("grad", axis=0),), (dds[0],), True,
+                  [kappa * dd_host[0].astype(np.complex64).reshape(shapes[0])]),
+                 ((zfuse.OpSpec("grad", axis=2),), (dds[2],), False,
+                  [dd_host[2].astype(np.complex64).reshape(shapes[2])]),
+                 ((zfuse.OpSpec("nabla", power=-0.5),), (), False, [nab])]
+    for specs, dd, use_kappa, ops64 in cases:
+        before = zfuse.LAUNCHES[f"zfuse_{n_ops}op"]
+        outs = zfuse.apply(plan, s, specs, dd, use_kappa=use_kappa)
+        torch.cuda.synchronize()
+        assert zfuse.LAUNCHES[f"zfuse_{n_ops}op"] == before + 1
+        plain = zfuse.apply_plain(plan, s, specs, dd, use_kappa=use_kappa)
+        f = np.fft.fft(s_host.astype(np.complex128), axis=0)
+        for got, want, op64 in zip(outs, plain, ops64):
+            ref = np.fft.ifft(f * op64, axis=0)
+            peak = float(np.abs(ref).max())
+            assert float((got - want).abs().max()) <= 2e-6 * peak
+            assert float(np.abs(got.cpu().numpy() - ref).max()) <= 2e-6 * peak
+
+
+@pytest.mark.cuda
+def test_fused_step_on_the_card_matches_unfused():
+    """Six heterogeneous absorbing steps at 32^3 through `zfuse.make_pipeline` on the
+    card against the unfused compact step: 2e-4 of the peak, as the CPU test."""
+    from kwave_tpu_torch import solver
+    from kwave_tpu_torch.ops import zfuse
+
+    dev = require_cuda()
+    n = 32
+    grid = solver.Grid(nx=n, ny=n, nz=n, dx=1e-4, dy=1e-4, dz=1e-4, dt=2e-8, nt=8)
+    rng = np.random.default_rng(7)
+    medium = solver.Medium(c0=(1500.0 + 100.0 * rng.random(grid.shape)).astype(np.float32),
+                           rho0=1000.0, alpha_coeff=0.75, alpha_power=1.5)
+    ops = solver.make_operators(grid, medium, (2, 2, 2), (2.0,) * 3, absorbing=True,
+                                device=dev, compact=True)
+    p0 = torch.zeros(grid.shape, device=dev)
+    p0[n // 2, n // 2, n // 2] = 1e5
+    cfg = solver.SolverConfig(absorbing=True)
+    sm = zfuse.make_pipeline(grid.shape, ops.k2_z, ops.k2_y, ops.k2_x, ops.c_ref_dt_2, dev)
+    out = []
+    before = sum(zfuse.LAUNCHES.values())
+    for pipeline in (None, sm):
+        st = solver.add_initial_pressure(solver.init_state(grid, dev), ops, p0, pipeline)
+        for t in range(1, 7):
+            st = solver.step(st, t, ops, solver.Sources(), cfg, pipeline)
+        out.append(st.p)
+    assert sum(zfuse.LAUNCHES.values()) - before == 1 + 6 * 6
+    assert float((out[1] - out[0]).abs().max()) <= 2e-4 * float(out[0].abs().max())

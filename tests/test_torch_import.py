@@ -1,5 +1,5 @@
-"""The port imports torch and never jax: every kwave_tpu_torch module imports with jax
-blocked."""
+"""The port imports torch, never jax and nothing of kwave_tpu: every kwave_tpu_torch
+module, and chip_smoke.py, imports with all three blocked."""
 
 import os
 import subprocess
@@ -8,24 +8,37 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _SCRIPT = """
-import importlib, pkgutil, sys
-sys.modules["jax"] = None  # any `import jax` now raises ImportError
+import importlib, importlib.abc, pkgutil, sys
+
+BLOCKED = ("jax", "jaxlib", "kwave_tpu")
+
+
+class Blocker(importlib.abc.MetaPathFinder):
+    def find_spec(self, fullname, path=None, target=None):
+        if fullname.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked import of {fullname}")
+        return None
+
+
+sys.meta_path.insert(0, Blocker())
 import kwave_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(kwave_tpu_torch.__path__,
                                                "kwave_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
-               if sys.modules[m] is not None)
+import chip_smoke  # import only: main() needs the card
+assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
 print(len(names))
 """
 
 
+def _run(script):
+    return subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+
+
 def test_every_module_imports_without_jax():
-    proc = subprocess.run(
-        [sys.executable, "-c", _SCRIPT], cwd=REPO, capture_output=True, text=True,
-        timeout=120,
-    )
+    proc = _run(_SCRIPT)
     assert proc.returncode == 0, proc.stderr
     # scaffold, codec, kernels, encoder, sampling, streams, solver, io, utils, driver, cli
     assert int(proc.stdout.strip()) >= 20
@@ -33,12 +46,28 @@ def test_every_module_imports_without_jax():
 
 def test_codec_modules_import_without_jax():
     """The codec slice's modules are among those walked, and import with jax blocked."""
-    script = _SCRIPT.replace("print(len(names))", "print(' '.join(names))")
-    proc = subprocess.run(
-        [sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True,
-        timeout=120,
-    )
+    proc = _run(_SCRIPT.replace("print(len(names))", "print(' '.join(names))"))
     assert proc.returncode == 0, proc.stderr
     names = set(proc.stdout.split())
     assert {"kwave_tpu_torch.decoder", "kwave_tpu_torch.ops.fastpath",
             "kwave_tpu_torch.bench", "kwave_tpu_torch.examples.end_to_end"} <= names
+
+
+def test_blocker_blocks_the_jax_package():
+    """The finder the other tests rely on really refuses `kwave_tpu` and `jax`, and the
+    port's own spec modules and the last slice's modules are among those walked."""
+    probe = _SCRIPT.split("import kwave_tpu_torch")[0] + """
+for name in BLOCKED + ("kwave_tpu.basis",):
+    try:
+        importlib.import_module(name)
+    except ImportError:
+        continue
+    raise SystemExit(f"{name} imported although blocked")
+"""
+    proc = _run(probe)
+    assert proc.returncode == 0, proc.stderr + proc.stdout
+    proc = _run(_SCRIPT.replace("print(len(names))", "print(' '.join(names))"))
+    assert proc.returncode == 0, proc.stderr
+    assert {"kwave_tpu_torch.basis", "kwave_tpu_torch.oracle",
+            "kwave_tpu_torch.ops.encode_series", "kwave_tpu_torch.ops.zfuse"} \
+        <= set(proc.stdout.split())

@@ -60,7 +60,7 @@ def test_operators_match_the_jax_package(dim):
     carried = convert.operators_from_jax(_jax_ops(kw, medium, pml))
     for f in dataclasses.fields(mine):
         a, b = getattr(mine, f.name), getattr(carried, f.name)
-        if f.name == "dt" or a is None:
+        if not isinstance(a, torch.Tensor):  # None, or dt and the other host floats
             assert a == b, f.name
             continue
         assert a.dtype == b.dtype, f.name

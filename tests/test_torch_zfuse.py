@@ -1,0 +1,337 @@
+"""The fused z-stage path of the port on the CPU (`ops.zfuse.apply` takes `apply_plain`
+there), the compact operators, and `run_simulation(fuse_z=True)`, against the JAX package.
+
+Tolerances, and why:
+- `apply_plain` against `kwave_tpu.ops.zfuse.apply(interpret=True)`: 3e-5 x max|ref|, the
+  JAX test's own bound (tests/test_zfuse.py): its contraction is a 3-pass bf16 split.
+- `apply_plain` against a float64 numpy ``ifft(fft(s, 0) * op, 0)``: 2e-6 x max|ref|; a
+  dense fp32 DFT over nz <= 32 terms measured 1.7e-7 to 2.2e-7 here (and 4e-6 to 7e-6
+  against the JAX kernel).
+- compact against full operators over 6 steps: 1e-5 x max|p| (the operators agree to fp32
+  rounding: they are built in fp32 on the device instead of float64 on the host; measured
+  1.3e-7).
+- a step with `spectral_multi` against the unfused step: 2e-4 x max, as
+  tests/test_zfuse.py (measured 2.4e-7 over 6 steps: both routes are fp32 throughout).
+- `run_simulation` with `fuse_z=True` against its default run and against the JAX package's
+  `fuse_z=True` run: 1e-4 x max, as tests/test_zfuse.py.
+"""
+
+import dataclasses
+import importlib
+
+import h5py
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kwave_tpu import solver as jsolver
+from kwave_tpu.ops import zfuse as jzfuse
+from kwave_tpu_torch import convert, solver
+from kwave_tpu_torch.ops import zfuse
+
+
+# the module: the package exports the function `step` under the same name
+step_mod = importlib.import_module("kwave_tpu_torch.solver.step")
+
+JAX_TOL, F64_TOL = 3e-5, 2e-6
+
+
+def _case(nz=32, ny=16, nx=16, seed=0):
+    rng = np.random.default_rng(seed)
+    nxr = nx // 2 + 1
+    s = (rng.standard_normal((nz, ny, nxr))
+         + 1j * rng.standard_normal((nz, ny, nxr))).astype(np.complex64)
+    k2z = (np.fft.fftfreq(nz) * 2 * np.pi * nz / 1e-2) ** 2
+    k2y = (np.fft.fftfreq(ny) * 2 * np.pi * ny / 1e-2) ** 2
+    k2x = (np.fft.rfftfreq(nx) * 2 * np.pi * nx / 1e-2) ** 2
+    plan = zfuse.make_plan((nz, ny, nx), k2z, k2y, k2x, 1e-5)
+    jplan = jzfuse.make_plan((nz, ny, nx), k2z, k2y, k2x, c_ref_dt_2=1e-5)
+    return s, (k2z, k2y, k2x), plan, jplan
+
+
+def _kappa_np(k2, c):
+    k = np.sqrt(k2[0][:, None, None] + k2[1][None, :, None] + k2[2][None, None, :])
+    arg = c * k
+    return np.where(arg == 0, 1.0, np.sin(arg) / np.where(arg == 0, 1.0, arg))
+
+
+def _ref64(s, op):
+    return np.fft.ifft(np.fft.fft(s.astype(np.complex128), axis=0) * op, axis=0)
+
+
+def _both(plan, jplan, s, specs, dds, use_kappa=True):
+    mine = zfuse.apply(plan, torch.from_numpy(s), specs,
+                       tuple(torch.from_numpy(d[:, 0] + 1j * d[:, 1]) for d in dds),
+                       use_kappa=use_kappa)
+    theirs = jzfuse.apply(jplan, jnp.asarray(s.real), jnp.asarray(s.imag),
+                          tuple(jzfuse.OpSpec(o.kind, o.axis, o.power) for o in specs),
+                          tuple(dds), use_kappa=use_kappa, interpret=True)
+    return [m.numpy() for m in mine], [np.asarray(r) + 1j * np.asarray(i) for r, i in theirs]
+
+
+def _hold(got, jax_out, ref64):
+    scale = np.abs(ref64).max()
+    assert np.abs(got - jax_out).max() <= JAX_TOL * scale
+    assert np.abs(got - ref64).max() <= F64_TOL * scale
+
+
+def test_grad_ops_all_axes_share_one_forward():
+    s, k2, plan, jplan = _case()
+    nz, ny, nxr = s.shape
+    rng = np.random.default_rng(3)
+    dds = [rng.standard_normal((n, 2)).astype(np.float32) for n in (nz, ny, nxr)]
+    specs = tuple(zfuse.OpSpec("grad", axis=a) for a in (0, 1, 2))
+    before = dict(zfuse.LAUNCHES)
+    mine, theirs = _both(plan, jplan, s, specs, dds)
+    assert zfuse.LAUNCHES == before  # the plain version counts nothing
+    kap = _kappa_np(k2, 1e-5)
+    for got, jout, dd, shp in zip(mine, theirs, dds, [(nz, 1, 1), (1, ny, 1), (1, 1, nxr)]):
+        assert got.dtype == np.complex64
+        _hold(got, jout, _ref64(s, kap * (dd[:, 0] + 1j * dd[:, 1]).reshape(shp)))
+
+
+def test_nabla_ops_and_pole():
+    s, k2, plan, jplan = _case(seed=5)
+    power = -0.5
+    mine, theirs = _both(plan, jplan, s, (zfuse.OpSpec("nabla", power=power),), (),
+                         use_kappa=False)
+    k = np.sqrt(k2[0][:, None, None] + k2[1][None, :, None] + k2[2][None, None, :])
+    op = np.where(k == 0, 0.0, np.where(k == 0, 1.0, k) ** power)
+    _hold(mine[0], theirs[0], _ref64(s, op))
+
+
+def test_partial_x_tail_block():
+    """nxr = 131: no multiple of anything the kernel or the TPU tiles by."""
+    s, k2, plan, jplan = _case(nz=16, ny=8, nx=260, seed=7)
+    dd = np.random.default_rng(8).standard_normal((16, 2)).astype(np.float32)
+    mine, theirs = _both(plan, jplan, s, (zfuse.OpSpec("grad", axis=0),), (dd,))
+    op = _kappa_np(k2, 1e-5) * (dd[:, 0] + 1j * dd[:, 1]).reshape(16, 1, 1)
+    _hold(mine[0], theirs[0], _ref64(s, op))
+
+
+def test_grad_without_kappa_and_nz_not_a_power_of_two():
+    s, k2, plan, _ = _case(nz=25, ny=6, nx=10, seed=9)
+    dd = np.random.default_rng(10).standard_normal((6, 2)).astype(np.float32)
+    ddc = torch.from_numpy(dd[:, 0] + 1j * dd[:, 1])
+    got = zfuse.apply(plan, torch.from_numpy(s), (zfuse.OpSpec("grad", axis=1),), (ddc,),
+                      use_kappa=False)[0].numpy()
+    ref = _ref64(s, (dd[:, 0] + 1j * dd[:, 1]).reshape(1, 6, 1))
+    assert np.abs(got - ref).max() <= F64_TOL * np.abs(ref).max()
+
+
+def test_apply_refuses_bad_arguments():
+    s, _, plan, _ = _case()
+    st = torch.from_numpy(s)
+    g = zfuse.OpSpec("grad", axis=0)
+    with pytest.raises(ValueError, match="complex64"):
+        zfuse.apply(plan, st.to(torch.complex128), (g,), (plan.roots,))
+    with pytest.raises(ValueError, match="dd vectors"):
+        zfuse.apply(plan, st, (g,), ())
+    with pytest.raises(ValueError, match="share one forward"):
+        zfuse.apply(plan, st, (zfuse.OpSpec("nabla"),) * 4, ())
+    with pytest.raises(ValueError, match="axis 0"):
+        zfuse.apply(plan, st, (g,), (plan.roots[:5].contiguous(),))
+    with pytest.raises(ValueError, match="grad .* or nabla"):
+        zfuse.apply(plan, st, (zfuse.OpSpec("curl"),), ())
+
+
+# ---------------------------------------------------------------------------
+# Compact operators, the fused step, the fused run_simulation
+# ---------------------------------------------------------------------------
+
+
+def _setup(n=16, nt=8):
+    kw = dict(nx=n, ny=n, nz=n, dx=1e-4, dy=1e-4, dz=1e-4, dt=2e-8, nt=nt)
+    rng = np.random.default_rng(7)
+    medium = dict(c0=(1500.0 + 100.0 * rng.random((n, n, n))).astype(np.float32),
+                  rho0=1000.0, alpha_coeff=0.75, alpha_power=1.5)
+    p0 = np.zeros((n, n, n), np.float32)
+    p0[n // 2, n // 2, n // 2] = 1e5
+    return kw, medium, p0
+
+
+def _march(ops, p0, n_steps, spectral_multi=None, cfg=None):
+    cfg = cfg or solver.SolverConfig(absorbing=True)
+    grid_like = solver.Grid(nx=p0.shape[2], ny=p0.shape[1], nz=p0.shape[0], dx=1, dy=1,
+                            dz=1, dt=1, nt=1)
+    st = solver.add_initial_pressure(solver.init_state(grid_like), ops,
+                                     torch.from_numpy(p0), spectral_multi)
+    for t in range(1, 1 + n_steps):
+        st = solver.step(st, t, ops, solver.Sources(), cfg, spectral_multi)
+    return st.p.numpy()
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_compact_operators_match_the_jax_package(dim):
+    kw, medium, _ = _setup()
+    if dim == 2:
+        kw.update(nz=1, dz=0.0)
+        medium["c0"] = medium["c0"][0]
+    pml = ((2,) * dim, (2.0,) * dim)
+    mine = solver.make_operators(solver.Grid(**kw), solver.Medium(**medium), *pml,
+                                 absorbing=True, need_source_kappa=True, need_shift=True,
+                                 compact=True)
+    theirs = convert.operators_from_jax(jsolver.make_operators(
+        jsolver.Grid(**kw), jsolver.Medium(**medium), *pml, absorbing=True,
+        need_source_kappa=True, need_shift=True, compact=True))
+    for name in ("kappa", "absorb_nabla1", "absorb_nabla2", "source_kappa", "c2",
+                 "absorb_tau", "absorb_eta"):
+        assert getattr(mine, name) is None, name
+    assert (mine.k2_z is None) == (dim == 2)
+    for f in dataclasses.fields(mine):
+        a, b = getattr(mine, f.name), getattr(theirs, f.name)
+        if not isinstance(a, torch.Tensor):
+            assert a == b, f.name
+            continue
+        assert a.dtype == b.dtype and torch.equal(a, b), f.name
+
+
+def test_lazy_accessors_rebuild_the_full_operators():
+    """Each accessor on compact operators against the host-built array of full
+    operators, to fp32 rounding of the transcendental (1e-6 relative to the peak)."""
+    kw, medium, _ = _setup()
+    args = (solver.Grid(**kw), solver.Medium(**medium), (2, 2, 2), (2.0,) * 3)
+    full = solver.make_operators(*args, absorbing=True, need_source_kappa=True)
+    compact = solver.make_operators(*args, absorbing=True, need_source_kappa=True,
+                                    compact=True)
+    pairs = [(step_mod._kappa(compact, 3), full.kappa),
+             (step_mod._source_kappa_op(compact, 3), full.source_kappa),
+             (step_mod._c2_op(compact), full.c2)]
+    pairs += list(zip(step_mod._absorb_nablas(compact, 3),
+                      (full.absorb_nabla1, full.absorb_nabla2)))
+    pairs += list(zip(step_mod._tau_eta_op(compact), (full.absorb_tau, full.absorb_eta)))
+    for got, want in pairs:
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    assert step_mod._kappa(full, 3) is full.kappa  # host-built arrays win when present
+
+
+def test_compact_step_matches_full_step():
+    kw, medium, p0 = _setup()
+    args = (solver.Grid(**kw), solver.Medium(**medium), (2, 2, 2), (2.0,) * 3)
+    p_full = _march(solver.make_operators(*args, absorbing=True), p0, 6)
+    p_compact = _march(solver.make_operators(*args, absorbing=True, compact=True), p0, 6)
+    assert np.abs(p_compact - p_full).max() <= 1e-5 * np.abs(p_full).max()
+
+
+@pytest.mark.parametrize("nonlinear", [False, True])
+def test_step_with_spectral_multi_matches_unfused(nonlinear):
+    """All 14 transforms of the heterogeneous absorbing step through the fused pipeline
+    (three outputs off one forward for the pressure gradient, the three velocity
+    gradients, the two nabla terms without kappa) against the unfused compact step."""
+    kw, medium, p0 = _setup()
+    if nonlinear:
+        medium["bona"] = 6.0
+    ops = solver.make_operators(solver.Grid(**kw), solver.Medium(**medium), (2, 2, 2),
+                                (2.0,) * 3, absorbing=True, compact=True)
+    calls = []
+    pipeline = zfuse.make_pipeline((16, 16, 16), ops.k2_z, ops.k2_y, ops.k2_x,
+                                   ops.c_ref_dt_2)
+
+    def counted(field, specs, dds, use_kappa=True):
+        calls.append((tuple(s.kind for s in specs), use_kappa))
+        return pipeline(field, specs, dds, use_kappa)
+
+    cfg = solver.SolverConfig(absorbing=True, nonlinear=nonlinear)
+    p_ref = _march(ops, p0, 6, cfg=cfg)
+    p_fused = _march(ops, p0, 6, counted, cfg=cfg)
+    assert np.abs(p_fused - p_ref).max() <= 2e-4 * np.abs(p_ref).max()
+    per_step = [(("grad",) * 3, True)] + [(("grad",), True)] * 3 + [(("nabla",), False)] * 2
+    assert calls == per_step[:1] + per_step * 6  # the p0 peel, then 6 steps
+
+
+def _input(kw, medium, p0, n_sensors=48):
+    from kwave_tpu_torch.io.input_file import InputData
+
+    grid = solver.Grid(**kw)
+    mask = np.sort(np.random.default_rng(1).choice(grid.n_elements, n_sensors,
+                                                   replace=False))
+    return InputData(grid=grid, medium=solver.Medium(**medium), pml_size=(2, 2, 2),
+                     pml_alpha=(2.0,) * 3, sensor_mask_index=mask, p0=p0), mask
+
+
+def test_driver_fuse_z_matches_default_and_jax(tmp_path):
+    """run_simulation with fuse_z on (the tiny configuration of tests/test_zfuse.py)
+    against the port's default run and the JAX package's fuse_z run."""
+    from kwave_tpu.driver import RunConfig as JRunConfig
+    from kwave_tpu.driver import run_simulation as jrun
+    from kwave_tpu.io.input_file import InputData as JInputData
+    from kwave_tpu_torch.driver import RunConfig, run_simulation
+
+    kw, _, p0 = _setup(nt=30)
+    medium = dict(c0=1500.0, rho0=1000.0)
+    data, mask = _input(kw, medium, p0)
+    outs = {}
+    for name, run in (("default", RunConfig(flags=dict(p_raw=True))),
+                      ("compact", RunConfig(flags=dict(p_raw=True), compact_operators=True)),
+                      ("fused", RunConfig(flags=dict(p_raw=True), compact_operators=True,
+                                          fuse_z=True))):
+        path = str(tmp_path / f"{name}.h5")
+        run_simulation(data, run, path, device="cpu")
+        with h5py.File(path) as f:
+            outs[name] = np.asarray(f["p"])
+    jdata = JInputData(grid=jsolver.Grid(**kw), medium=jsolver.Medium(**medium),
+                       pml_size=(2, 2, 2), pml_alpha=(2.0,) * 3, sensor_mask_index=mask,
+                       p0=p0)
+    jpath = str(tmp_path / "jax.h5")
+    jrun(jdata, JRunConfig(flags=dict(p_raw=True), matmul_fft=True, fft_precision="high",
+                           fft_direct_base=16, compact_operators=True, fuse_z=True), jpath)
+    with h5py.File(jpath) as f:
+        outs["jax"] = np.asarray(f["p"])
+    ref = outs["default"]
+    assert ref.shape == (1, 30, 48) or ref.shape[-2:] == (30, 48)
+    for name in ("compact", "fused", "jax"):
+        assert outs[name].shape == ref.shape
+        assert np.abs(outs[name] - ref).max() <= 1e-4 * np.abs(ref).max(), name
+    assert np.abs(outs["fused"] - outs["jax"]).max() <= 1e-4 * np.abs(outs["jax"]).max()
+
+
+def test_driver_fuse_z_without_3d_compact_operators_warns_and_runs_unfused(tmp_path,
+                                                                           monkeypatch):
+    import io
+
+    from kwave_tpu_torch.driver import RunConfig, run_simulation
+    from kwave_tpu_torch.utils.observability import Logger
+
+    log = io.StringIO()
+    monkeypatch.setattr(Logger, "_out", log)  # the logger holds the stream it was born with
+
+    kw, _, p0 = _setup(nt=6)
+    data, _ = _input(kw, dict(c0=1500.0, rho0=1000.0), p0)
+    out = {}
+    for name, run in (("plain", RunConfig(flags=dict(p_raw=True))),
+                      ("asked", RunConfig(flags=dict(p_raw=True), compact_operators=False,
+                                          fuse_z=True))):
+        path = str(tmp_path / f"{name}.h5")
+        run_simulation(data, run, path, device="cpu")
+        with h5py.File(path) as f:
+            out[name] = np.asarray(f["p"])
+    assert log.getvalue().count("fuse_z needs 3D compact operators") == 1
+    np.testing.assert_array_equal(out["asked"], out["plain"])
+
+
+@pytest.mark.parametrize("n,asked,want", [(192, None, True), (191, None, False),
+                                          (192, False, False), (16, True, True)])
+def test_compact_operators_are_automatic_from_192_cubed(monkeypatch, n, asked, want):
+    """The rule of `run_simulation` for `compact_operators=None`, read off the `compact` argument it
+    hands to make_operators (stopped there, so that no full-size grid is built)."""
+    from kwave_tpu_torch import driver
+    from kwave_tpu_torch.io.input_file import InputData
+
+    class Stop(Exception):
+        pass
+
+    def fake_make_operators(*args, compact, **kwargs):
+        raise Stop(compact)
+
+    monkeypatch.setattr(driver, "make_operators", fake_make_operators)
+    grid = solver.Grid(nx=n, ny=n, nz=n, dx=1e-4, dy=1e-4, dz=1e-4, dt=2e-8, nt=4)
+    data = InputData(grid=grid, medium=solver.Medium(c0=1500.0, rho0=1000.0),
+                     pml_size=(2, 2, 2), pml_alpha=(2.0,) * 3,
+                     sensor_mask_index=np.arange(4))
+    run = driver.RunConfig(flags=dict(p_raw=True), compact_operators=asked)
+    with pytest.raises(Stop) as stop:
+        driver.run_simulation(data, run, "unused.h5", device="cpu")
+    assert stop.value.args[0] is want
+    assert driver.RunConfig(flags={}).fuse_z is None

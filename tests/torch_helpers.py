@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from kwave_tpu.basis import CompressionBasis
+from kwave_tpu_torch.basis import CompressionBasis
 
 
 def dyadic_basis(o=8, harmonics=2) -> CompressionBasis:
