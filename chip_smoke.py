@@ -40,16 +40,24 @@ the final ok line):
    and the oracle on 256 sensors; then `encoder.encode_series_exact` with the counts set
    to 0 first (one whole-record launch, one partial-window launch), its frames through
    `frames_to_flat_*` equal to the oracle's bytes, its final state equal to the
-   oracle's, and the float frames decoded through K4 against `oracle.reconstruct`.
+   oracle's, and the float frames decoded through K4 against `oracle.reconstruct`. Then a
+   record of 13 windows (odd, no multiple of the 8 windows a thread) against the unsplit
+   plain version and the window loop, and the same record cut at 3 windows a thread
+   (chunks that start on odd and on even windows), bit for bit.
 8. fused z stage (path B): the K7 kernel at [256, 256, 129] with one op and with three
-   against `apply_plain` and a float64 FFT (2e-6 of the peak), timed beside the unfused
-   library route ``ifft(fft(s, 0) * op, 0)``; then `run_simulation` at 256^3, 16384
+   against a float64 FFT (2e-6 of the peak) and `apply_plain` (4e-6), timed beside the
+   unfused library route ``ifft(fft(s, 0) * op, 0)``, its launches counted as the radix
+   kernel's; small spectra (ny = 8) at nz = 64, 128, 512 (radix kernel) and nz = 100
+   (dense kernel) against the same two; then `run_simulation` at 256^3, 16384
    sensors, ``--p_raw --p_c --40-bit_complex``, 2 windows and a 5-step tail, once with
    compact operators alone and once with ``fuse_z``: p_raw of the two within 1e-4 of the
    peak, each run's p_c bytes equal to the oracle's encoding of its own p_raw, ms/step
    of both, and the device time by kernel of one profiled window of each.
 Then one JSON line with every kernel's numbers (its time beside its bound: the larger of
-its bytes over 3.35 TB/s and its fp32 operations over 67 TFLOP/s), and as the last line
+its bytes over 3.35 TB/s and its fp32 operations over 67 TFLOP/s; for the 40-bit kernels
+also ``issue_ms``, the machine instructions that this run's build spends on their steps,
+counted from its SASS, over the card's instruction rate: a share of the time, no bound),
+and as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off throughout, so every plain version on the
 card computes in full fp32.
 """
@@ -81,17 +89,28 @@ FP32_FLOP_PER_S = 67e12  # fp32 outside the tensor cores
 
 SERIES_TAIL = 7  # path A: steps after the last whole window
 BIG_N = 256  # path B's grid
-ZFUSE_TOL = 2e-6  # K7 vs plain and vs a float64 FFT, of the peak
+ZFUSE_TOL = 2e-6  # K7 vs a float64 FFT, of the peak
+# K7 vs apply_plain: the dense fp32 sum is itself up to 1.3e-6 off float64 at nz = 256, the
+# radix kernel 2e-7, so the two are held to the sum of their bounds
+ZFUSE_PLAIN_TOL = 4e-6
 FUSED_RUN_TOL = 1e-4  # p_raw of the fused run vs the compact-only run, of the peak
+
+
+# Every SM starts at most 4 warp instructions (128 lanes) a clock: 132 SMs at the 1.98 GHz
+# boost clock.
+INSTR_PER_S = 128 * 132 * 1.98e9
+# mangled-name fragments of the kernels whose steps are mostly integer pack/unpack
+ISSUE_KERNELS = {"w40_overlap": "w40_windowILb1EE", "w40_no_overlap": "w40_windowILb0EE",
+                 "series40_overlap": "series40ILb1EE", "series40_no_overlap": "series40ILb0EE"}
 
 
 def _bound(n_bytes: float, flops: float) -> dict:
     """The least time the card could take: every input byte read once and every output
     byte written once at the HBM rate, or the fp32 operations at the peak rate."""
-    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / FP32_FLOP_PER_S * 1e3
-    return dict(bound_ms=max(by_bytes, by_ops),
-                bound_by="bytes" if by_bytes >= by_ops else "operations")
+    terms = {"bytes": n_bytes / HBM_BYTES_PER_S * 1e3,
+             "operations": flops / FP32_FLOP_PER_S * 1e3}
+    by = max(terms, key=terms.get)
+    return dict(bound_ms=terms[by], bound_by=by)
 
 
 def _nbytes(*tensors) -> int:
@@ -174,6 +193,25 @@ def build_phase():
     print(f"[2 build] nvcc sm_90a -> {_build.library_path().name} in {secs:.2f} s",
           flush=True)
     return secs
+
+
+def issue_phase() -> dict:
+    """Machine instructions per sampled step of the 40-bit kernels, from the SASS of the
+    library just built (``cuobjdump`` of the CUDA toolkit). Without the tool the counts,
+    and the rows' ``issue_ms``, are None: they are read beside the times, and gate nothing."""
+    from kwave_tpu_torch.ops import _build, sass_count
+
+    try:
+        loops = sass_count.parse_loops(sass_count.disassemble(_build.library_path()),
+                                       tuple(ISSUE_KERNELS.values()))
+    except (RuntimeError, OSError, subprocess.SubprocessError) as exc:
+        print(f"[2 build] no instruction counts: {exc}", flush=True)
+        return {key: None for key in ISSUE_KERNELS}
+    counts = {key: sass_count.instructions_per_step(loops, fragment)
+              for key, fragment in ISSUE_KERNELS.items()}
+    print(f"[2 build] machine instructions per sampled step (cuobjdump -sass): {counts}",
+          flush=True)
+    return counts
 
 
 def _tables(basis):
@@ -294,11 +332,11 @@ def kernel_phase():
                 plain_ms, plain_wall = _time_per_call(lambda: plain(*args), iters=10,
                                                         warmup=2)
                 # the chunk and the table in, each plane in and out; 4 products and 4
-                # sums per sensor and step (the 40-bit pack/unpack is integer work)
+                # sums per sensor and step; the 40-bit pack/unpack is integer work
                 bound = _bound(_nbytes(chunk, tabs, *planes, *planes),
                                8.0 * O_SIZE * N_SENSORS)
         results[key] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, **bound,
-                            library_ms=None)
+                            library_ms=None, steps=O_SIZE * N_SENSORS)
         print(f"[3 kernel] {key}: bit-exact vs plain (H=1,2, parity 0/1, mirror 0/1) and "
               f"vs oracle ({ORACLE_SENSORS} sensors, 3 windows); per window at o={O_SIZE} "
               f"H=1 N={N_SENSORS}, device time: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
@@ -615,6 +653,47 @@ def _decode40(planes):
     return bitpack.decode40(*planes, MAX_EXP_P)
 
 
+ODD_WINDOWS, ODD_CHUNK = 13, 3  # a record of K odd, and a chunk that makes odd boundaries
+
+
+def _odd_record_check(x, tabs, basis, tables, mode40, overlap) -> str:
+    """The first 13 windows as a record of their own (at 8 windows a thread a chunk of 8
+    and one of 5): frames and final state against the unsplit plain version and the K1/K2
+    window loop, bit for bit; and the same bits from the kernel at 3 windows a thread
+    (chunks that start on odd and on even windows, a last chunk of one window)."""
+    from kwave_tpu_torch import encoder
+    from kwave_tpu_torch.basis import MAX_EXP_P
+    from kwave_tpu_torch.ops import encode_series as es
+
+    o = basis.o_size
+    head = x[:ODD_WINDOWS * o + 1]
+    if mode40:
+        frames, state = es.encode_series_40b(head, tabs, MAX_EXP_P, o, overlap)
+        cut = es._kernel_40b(head, tabs, MAX_EXP_P, o, overlap, chunk_windows=ODD_CHUNK)
+        pf, ps = es.encode_series_40b_plain(head, tabs, MAX_EXP_P, o, overlap)
+    else:
+        frames, state = es.encode_series_float_exact(head, tabs, o, overlap)
+        cut = es._kernel_float(head, tabs, o, overlap, chunk_windows=ODD_CHUNK)
+        pf, ps = es.encode_series_float_exact_plain(head, tabs, o, overlap)
+    what = f"the {ODD_WINDOWS}-window record"
+    _require(frames[0].shape[0] == ODD_WINDOWS
+             and all(_bits_equal(a, b) for a, b in zip(frames + state, pf + ps)),
+             f"{what}: kernel != plain")
+    _require(all(_bits_equal(a, b) for a, b in zip(frames + state, cut[0] + cut[1])),
+             f"{what}: {ODD_CHUNK} windows a thread != {es.chunk_windows_for(ODD_WINDOWS)}")
+    cfg = encoder.EncoderConfig.for_stream(basis, False, mode40, overlap)
+    st = encoder.init_state(cfg, head.shape[1], "cuda")
+    for k in range(ODD_WINDOWS):
+        st, fr = encoder.encode_chunk(st, head[k * o:(k + 1) * o], cfg, tables)
+        _require(all(_bits_equal(a, b[k]) for a, b in zip(fr, frames)),
+                 f"{what}: frame {k} != the window loop's")
+    keys = [n for n in st if n not in ("sampled_step", "compressed_step")]
+    _require(all(_bits_equal(st[n], p) for n, p in zip(keys, state)),
+             f"{what}: final state != the window loop's")
+    return (f"{what} == plain, == the window loop, == itself at {ODD_CHUNK} windows a "
+            f"thread")
+
+
 def series_phase():
     """Path A: the whole-record exact encode at bench.py's shape, four variants."""
     import torch
@@ -717,13 +796,14 @@ def series_phase():
             _require(torch.isfinite(rec).all().item() and err <= ORACLE_DEC_TOL,
                      f"{key}: decoded frames off oracle.reconstruct by {err:.3g}")
             line += f"; decoded through K4 off oracle.reconstruct {err:.2e} of the peak"
+        line += "; " + _odd_record_check(x, tabs, basis, tables, mode40, overlap)
         ms, wall = _time_per_call(kern, iters=20, warmup=2)
         # the K*o steps read and the table in; the frames and all state planes out
         f0, s0 = kern()
         flops = 8.0 * k_total * o * CODEC_N * CODEC_H
         results[key] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                             **_bound(_nbytes(x[:k_total * o], tabs, *f0, *s0), flops),
-                            library_ms=None)
+                            library_ms=None, steps=k_total * o * CODEC_N * CODEC_H)
         del f0, s0, frames, st
         print(line + f"; device time per call: kernel {ms:.4f} ms (wall {wall:.4f} ms), "
               f"plain {plain_ms:.1f} ms (one call); bound "
@@ -756,9 +836,10 @@ def zfuse_kernel_phase(ops):
         rng.standard_normal((n, n, n)).astype(np.float32)).cuda()).contiguous()
     f64 = torch.fft.fft(s.to(torch.complex128), dim=0)
     results = {}
+    zfuse.reset_launch_counts()
     for key in ZFUSE_KERNELS:
         n_ops = int(key[6])
-        worst, worst_rel = 0.0, 0.0
+        worst, worst_plain, worst_ref = 0.0, 0.0, 0.0
         for specs, dds, use_kappa in _zfuse_cases(ops, n_ops):
             outs = zfuse.apply(plan, s, specs, dds, use_kappa=use_kappa)
             torch.cuda.synchronize()
@@ -774,11 +855,12 @@ def zfuse_kernel_phase(ops):
                 e_plain = float((got - want).abs().max())
                 e_ref = float((got - ref).abs().max())
                 _require(torch.isfinite(torch.view_as_real(got)).all().item()
-                         and e_plain <= ZFUSE_TOL * peak and e_ref <= ZFUSE_TOL * peak,
+                         and e_plain <= ZFUSE_PLAIN_TOL * peak and e_ref <= ZFUSE_TOL * peak,
                          f"{key} {spec}: off plain {e_plain / peak:.3g}, float64 "
                          f"{e_ref / peak:.3g} of the peak")
                 worst = max(worst, e_plain)
-                worst_rel = max(worst_rel, e_plain / peak, e_ref / peak)
+                worst_plain = max(worst_plain, e_plain / peak)
+                worst_ref = max(worst_ref, e_ref / peak)
             del outs, plain
         specs, dds, use_kappa = _zfuse_cases(ops, n_ops)[0]
         opfull = [zfuse.full_operator(plan, sp, dd, use_kappa).to(torch.complex64)
@@ -800,24 +882,79 @@ def zfuse_kernel_phase(ops):
         # since the bound is the least the card could take, not the dense DFT's count
         cols = plan.ny * plan.nxr
         flops = (1 + n_ops) * 5.0 * n * np.log2(n) * cols + n_ops * 8.0 * n * cols
-        dense = (1 + n_ops) * 8.0 * n * n * cols
+        moved = (1 + n_ops) * _nbytes(s)
         bound = _bound(_nbytes(s, plan.k2z, plan.k2y, plan.k2x, *dds)
                        + n_ops * _nbytes(s), flops)
         results[key] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, **bound,
                             library_ms=lib_ms)
-        print(f"[8 zfuse] {key}: spectrum [{n}, {plan.ny}, {plan.nxr}], off plain and "
-              f"float64 at most {worst_rel:.2e} of the peak; device time per call: kernel "
-              f"{ms:.4f} ms (wall {wall:.4f} ms, {dense / ms / 1e9:.2f} TFLOP/s of its "
-              f"dense DFT), plain {plain_ms:.4f} ms, library ifft(fft*op) {lib_ms:.4f} ms; "
+        print(f"[8 zfuse] {key}: spectrum [{n}, {plan.ny}, {plan.nxr}], off plain at "
+              f"most {worst_plain:.2e} and float64 {worst_ref:.2e} of the peak; device time "
+              f"per call: kernel "
+              f"{ms:.4f} ms (wall {wall:.4f} ms, {moved / ms / 1e6:.0f} GB/s of the "
+              f"spectra), plain {plain_ms:.4f} ms, library ifft(fft*op) {lib_ms:.4f} ms; "
               f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}", flush=True)
         del opfull
+    _require(zfuse.KERNEL_LAUNCHES["radix"] == sum(zfuse.LAUNCHES.values()) > 0
+             and zfuse.KERNEL_LAUNCHES["dense"] == 0,
+             f"nz={n} did not go through the radix kernel: {zfuse.KERNEL_LAUNCHES}")
+    print(f"[8 zfuse] all {zfuse.KERNEL_LAUNCHES['radix']} launches at nz={n} counted as "
+          f"the radix kernel's, passes {plan.passes}", flush=True)
+    _zfuse_small_spectra()
     return results
+
+
+def _zfuse_small_spectra():
+    """K7 on small spectra [nz, 8, 129]: nz = 64, 128, 512 through the radix kernel (two
+    passes of equal and of unequal radix, three passes), nz = 100 through the dense
+    kernel; one op and three, against a float64 FFT and `apply_plain`."""
+    import torch
+
+    from kwave_tpu_torch.ops import zfuse
+
+    ny, nx = 8, 256
+    rng = np.random.default_rng(13)
+    for nz, kernel in ((64, "radix"), (128, "radix"), (512, "radix"), (100, "dense")):
+        k2 = [(np.fft.fftfreq(m) * 2 * np.pi * m / 1e-2) ** 2 for m in (nz, ny)]
+        k2.append((np.fft.rfftfreq(nx) * 2 * np.pi * nx / 1e-2) ** 2)
+        plan = zfuse.make_plan((nz, ny, nx), *k2, 1e-5, "cuda")
+        sizes = (nz, ny, plan.nxr)
+        s = torch.from_numpy((rng.standard_normal(sizes) + 1j * rng.standard_normal(sizes))
+                             .astype(np.complex64)).cuda()
+        dds = [torch.from_numpy((rng.standard_normal(m) + 1j * rng.standard_normal(m))
+                                .astype(np.complex64)).cuda() for m in sizes]
+        f64 = torch.fft.fft(s.to(torch.complex128), dim=0)
+        cases = [(tuple(zfuse.OpSpec("grad", axis=a) for a in (2, 1, 0)), dds[::-1], True),
+                 ((zfuse.OpSpec("grad", axis=0),), dds[:1], False),
+                 ((zfuse.OpSpec("nabla", power=-0.5),), (), False)]
+        zfuse.reset_launch_counts()
+        worst = 0.0
+        for specs, dd, use_kappa in cases:
+            outs = zfuse.apply(plan, s, specs, dd, use_kappa=use_kappa)
+            torch.cuda.synchronize()
+            plain = zfuse.apply_plain(plan, s, specs, dd, use_kappa=use_kappa)
+            dd_iter = iter(dd)
+            for spec, got, want in zip(specs, outs, plain):
+                op = zfuse.full_operator(plan, spec, next(dd_iter) if spec.kind == "grad"
+                                         else None, use_kappa)
+                ref = torch.fft.ifft(f64 * op, dim=0)
+                peak = float(ref.abs().max())
+                e_plain = float((got - want).abs().max()) / peak
+                e_ref = float((got - ref).abs().max()) / peak
+                _require(e_plain <= ZFUSE_PLAIN_TOL and e_ref <= ZFUSE_TOL,
+                         f"nz={nz} {spec}: off plain {e_plain:.3g}, float64 {e_ref:.3g}")
+                worst = max(worst, e_plain, e_ref)
+        other = "dense" if kernel == "radix" else "radix"
+        _require(zfuse.KERNEL_LAUNCHES == {kernel: len(cases), other: 0},
+                 f"nz={nz}: launches by kernel {zfuse.KERNEL_LAUNCHES}, expected {kernel}")
+        print(f"[8 zfuse] spectrum [{nz}, {ny}, {plan.nxr}]: {len(cases)} launches of the "
+              f"{kernel} kernel (passes {plan.passes}), one op and three, off plain and "
+              f"float64 at most {worst:.2e} of the peak", flush=True)
 
 
 SETUP_COPIES = "host-to-device copies"  # the operators' upload: set-up, not the step
 
 # kernel-name fragment -> what the kernel is, for the profile line (first match wins)
-KERNEL_GROUPS = (("zfuse_kernel", "K7 zfuse"), ("fft", "cuFFT"), ("w40_window", "K1a encode"),
+KERNEL_GROUPS = (("zfuse_", "K7 zfuse"), ("fft", "cuFFT"), ("w40_window", "K1a encode"),
                  ("elementwise", "elementwise"), ("index", "gather/scatter"),
                  ("HtoD", SETUP_COPIES), ("DtoH", "device-to-host copies"),
                  ("copy", "device copies"), ("Memcpy", "device copies"),
@@ -877,6 +1014,7 @@ def fused_phase():
         ew.reset_launch_counts()
         out, secs, steps = _run(flags, windows, tail, data=data, **fields)
         launches[name] = dict(zfuse.LAUNCHES)
+        by_kernel = dict(zfuse.KERNEL_LAUNCHES)  # of the fused run, which comes last
         _require(ew.LAUNCHES["w40_overlap"] == windows + 1,
                  f"{name}: window-encode launches {ew.LAUNCHES}")
         err, peak = _check_run(out, flags, steps)
@@ -885,13 +1023,16 @@ def fused_phase():
         print(f"[8 fused] {name}: {BIG_N}^3, {N_SENSORS} sensors, {steps} steps "
               f"({windows} windows + {tail}-step tail), {ms_step[name]:.3f} ms/step in the "
               f"simulation phase, {secs / steps * 1e3:.3f} ms/step end to end; zfuse "
-              f"launches {launches[name]}; p_c == oracle(p_raw) bytes on {ORACLE_SENSORS} "
-              f"sensors, decoded diff {err:.3g} (peak {peak:.3g})", flush=True)
+              f"launches {launches[name]} {by_kernel}; p_c == oracle(p_raw) bytes on "
+              f"{ORACLE_SENSORS} sensors, decoded diff {err:.3g} (peak {peak:.3g})",
+              flush=True)
     steps = windows * O_SIZE + tail
     # the p0 peel is one three-op call; every later step one three-op and five one-op
     want = {"zfuse_1op": 5 * (steps - 1), "zfuse_2op": 0, "zfuse_3op": steps}
     _require(launches["fused"] == want and not any(launches["compact"].values()),
              f"zfuse launches {launches}, expected {want} and none without fuse_z")
+    _require(by_kernel == {"radix": sum(want.values()), "dense": 0},
+             f"the fused run's launches by kernel: {by_kernel}")
     diff = float(np.abs(outs["fused"] - outs["compact"]).max())
     peak = float(np.abs(outs["compact"]).max())
     _require(np.isfinite(outs["fused"]).all() and diff <= FUSED_RUN_TOL * peak,
@@ -904,7 +1045,9 @@ def fused_phase():
         dev_ms, top, setup_ms = _profile_window(data, flags, **fields)
         print(f"[8 profile] {name}: {dev_ms:.3f} ms of kernel time per step over one "
               f"window; " + "; ".join(f"{k} {share:.1%}" for k, share in top)
-              + f"; set-up uploads {setup_ms:.1f} ms, left out", flush=True)
+              + f"; set-up uploads {setup_ms:.1f} ms, left out; idle share against the "
+              f"unprofiled run's {ms_step[name]:.3f} ms/step: "
+              f"{1 - dev_ms / ms_step[name]:.1%}", flush=True)
     return kernels, launches["fused"]
 
 
@@ -1052,6 +1195,7 @@ def main() -> int:
           f"cudnn={torch.backends.cudnn.allow_tf32}, float32_matmul_precision="
           f"{torch.get_float32_matmul_precision()}", flush=True)
     build_phase()
+    per_step = issue_phase()
     kernels = kernel_phase()
     launches, float_run = main_path_phase()
     codec = codec_kernel_phase()
@@ -1071,6 +1215,10 @@ def main() -> int:
     rows += [dict(name=key, route="cuda", source="kwave_tpu_torch/csrc/zfuse.cu",
                   replaces="kwave_tpu/ops/zfuse.py:113", launches=fused_launches[key],
                   **fused[key]) for key in ZFUSE_KERNELS]
+    for r in rows:  # the 40-bit kernels' steps at this build's instructions per step
+        count, steps = per_step.get(r["name"]), r.pop("steps", 0)
+        r["instr_per_step"] = count
+        r["issue_ms"] = None if count is None else count * steps / INSTR_PER_S * 1e3
     _require(all(r["launches"] > 0 for r in rows),
              f"a kernel was never launched on its path: {rows}")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -11,20 +11,37 @@
 // are uint32 words.
 //
 // Design: the TPU version walks a (sensor tile, window) grid in order and carries the
-// accumulators in scratch memory from one grid step to the next. Here one thread owns one
-// (harmonic h, sensor n): it keeps its accumulators in registers across all K windows and
-// o steps, and writes one frame element per window. A block serves one harmonic and a
-// tile of sensors and stages that harmonic's 4 table columns over both parities
-// (2o x 4 floats) in shared memory once. Window k takes table rows (k % 2)*o + u; the
-// mirror fires after window 0; frame k is buffer 1 when (k + 1) is even, else buffer 2,
-// and the emitted buffer restarts from zero (encoder._emit). The ragged edge of N is
-// masked, no padding. All offsets are 64-bit (the series holds T*N elements).
+// accumulators in scratch memory from one grid step to the next. On this card a chain of
+// K*o dependent steps per (harmonic, sensor) leaves it idle: H*N threads are too few, and
+// each step waits for its own load. But the emitted buffer restarts from zero
+// (encoder._emit), so every frame is a chain of its own: frame k (odd) is buffer 1 from
+// zero over windows k-1 and k, frame k (even, >= 2) is buffer 2 from zero over windows k-1
+// and k, frame 0 is buffer 2 over window 0 plus the mirror; without overlap frame k is the
+// one accumulator over window k. So the record is split at window boundaries: one thread
+// owns one (harmonic h, sensor n) over a chunk of G consecutive windows. It starts from
+// zero accumulators; with overlap and a chunk that starts at window k0 > 0 it first
+// recomputes, over window k0-1 alone, the buffer that is live at that boundary (buffer 1
+// when k0 is odd, buffer 2 when k0 is even; the other one was just emitted and is zero);
+// then it walks its windows as the window loop does and writes one frame element per
+// window. The thread of the last chunk writes the final state planes. The two buffers of
+// a step never read each other (encode_step.cuh), so the recomputed buffer has the bits
+// the unsplit chain gives it.
 //
-// What bounds it on the H100: the series is read once (T*N*4 B) and each frame written
-// once, so by bytes it is memory-bound, but only H*N threads exist and each carries a
-// serial chain of K*o dependent steps: latency, not bandwidth, sets its time. The
-// per-step arithmetic is encode_step.cuh's, shared with encode_window.cu, so both give the
-// same bits.
+// Geometry: blockIdx.x = sensor tile * H + h, blockIdx.y = chunk. Harmonics are separate
+// threads, not a loop in one thread: H is a run-time value, the 40-bit state of one
+// harmonic is already 10 registers, and with h fastest in blockIdx.x the H blocks that read
+// the same samples run side by side, so all but the first find them in the L2 cache. Each
+// block stages its harmonic's 4 table columns over both parities (2o x 4 floats) in shared
+// memory; window k takes rows (k % 2)*o + u. The samples of a batch of steps are loaded
+// before the first of them is used (o is a run-time value, so the compiler cannot unroll
+// the window itself). The ragged edge of N is masked; all offsets are 64-bit.
+//
+// What bounds it on the H100: the float body moves (1 + 1/G) * T*N*4 B of samples and
+// the frames once, little arithmetic: memory. The 40-bit body decodes and re-encodes each
+// accumulator at every step, nearly all of it integer instructions (ops/sass_count.py
+// counts them per step from the built library), and spends most of its time issuing
+// them. The per-step arithmetic is encode_step.cuh's, shared with encode_window.cu, so
+// both give the same bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -32,6 +49,9 @@
 #include "encode_step.cuh"
 
 namespace {
+
+constexpr int kThreads = 128;
+constexpr int kBatch = 4;  // samples loaded ahead of their use
 
 // Stage this block's harmonic columns over both parities: tab[r*4 + k], r in [0, 2o).
 __device__ __forceinline__ void load_table2(float* tab, const float* __restrict__ tabs, int o,
@@ -43,133 +63,215 @@ __device__ __forceinline__ void load_table2(float* tab, const float* __restrict_
   __syncthreads();
 }
 
-template <bool OVERLAP>
-__global__ void series40(const float* __restrict__ series, const float* __restrict__ tabs,
-                         uint32_t* __restrict__ fh, uint32_t* __restrict__ fr,
-                         uint32_t* __restrict__ fi, uint32_t* __restrict__ h1_out,
-                         uint32_t* __restrict__ r1_out, uint32_t* __restrict__ i1_out,
-                         uint32_t* __restrict__ h2_out, uint32_t* __restrict__ r2_out,
-                         uint32_t* __restrict__ i2_out, int K, int o, int H, int N, int e) {
-  extern __shared__ float tab[];
-  const int h = blockIdx.y;
-  load_table2(tab, tabs, o, H, h);
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-
+// 40-bit state of one thread: both buffers, and the post-MAC floats of the last step.
+struct Acc40 {
   uint32_t h1 = 0, r1 = 0, i1 = 0, h2 = 0, r2 = 0, i2 = 0;
-  const float* x_ptr = series + n;
-  for (int k = 0; k < K; ++k) {
-    const float* t = tab + 4 * o * (k & 1);
-    float c1r = 0.f, c1i = 0.f, c2r = 0.f, c2i = 0.f;
-    for (int u = 0; u < o; ++u) {
-      const float x = *x_ptr;
-      x_ptr += N;
-      step40<OVERLAP>(x, t[4 * u + 0], t[4 * u + 1], t[4 * u + 2], t[4 * u + 3], e, h1, r1,
-                      i1, h2, r2, i2, c1r, c1i, c2r, c2i);
-    }
-    const size_t f = ((size_t)k * H + h) * N + n;
-    if (OVERLAP) {
-      if (k == 0) mirror40(c1r, c1i, c2r, c2i, e, h2, r2, i2);
-      if ((k + 1) % 2 == 0) {  // odd frame: buffer 1 is finished
-        fh[f] = h1, fr[f] = r1, fi[f] = i1;
-        h1 = r1 = i1 = 0;
-      } else {
-        fh[f] = h2, fr[f] = r2, fi[f] = i2;
-        h2 = r2 = i2 = 0;
-      }
-    } else {
-      fh[f] = h1, fr[f] = r1, fi[f] = i1;
-      h1 = r1 = i1 = 0;
-    }
+  float c1r = 0.f, c1i = 0.f, c2r = 0.f, c2i = 0.f;
+};
+
+struct AccF {
+  float a1r = 0.f, a1i = 0.f, a2r = 0.f, a2i = 0.f;
+};
+
+// What a walk over one window updates: both buffers, the aliased one, or one buffer alone.
+enum Walk { kBoth, kAliased, kFirst, kSecond };
+
+template <Walk W>
+__device__ __forceinline__ void step(float x, const float* t, int e, Acc40& a) {
+  if (W == kBoth) {
+    step40<true>(x, t[0], t[1], t[2], t[3], e, a.h1, a.r1, a.i1, a.h2, a.r2, a.i2, a.c1r,
+                 a.c1i, a.c2r, a.c2i);
+  } else if (W == kAliased) {
+    step40<false>(x, t[0], t[1], t[2], t[3], e, a.h1, a.r1, a.i1, a.h2, a.r2, a.i2, a.c1r,
+                  a.c1i, a.c2r, a.c2i);
+  } else if (W == kFirst) {
+    step40_one(x, t[0], t[1], e, a.h1, a.r1, a.i1, a.c1r, a.c1i);
+  } else {
+    step40_one(x, t[2], t[3], e, a.h2, a.r2, a.i2, a.c2r, a.c2i);
   }
-  const size_t p = (size_t)h * N + n;
-  h1_out[p] = h1, r1_out[p] = r1, i1_out[p] = i1;
-  if (OVERLAP) h2_out[p] = h2, r2_out[p] = r2, i2_out[p] = i2;
+}
+
+template <Walk W>
+__device__ __forceinline__ void step(float x, const float* t, int, AccF& a) {
+  if (W == kBoth) {
+    stepf<true>(x, t[0], t[1], t[2], t[3], a.a1r, a.a1i, a.a2r, a.a2i);
+  } else if (W == kAliased) {
+    stepf<false>(x, t[0], t[1], t[2], t[3], a.a1r, a.a1i, a.a2r, a.a2i);
+  } else if (W == kFirst) {
+    stepf_one(x, t[0], t[1], a.a1r, a.a1i);
+  } else {
+    stepf_one(x, t[2], t[3], a.a2r, a.a2i);
+  }
+}
+
+// The o steps of one window: x[u*N] against table rows t[4u .. 4u+3].
+template <Walk W, typename Acc>
+__device__ __forceinline__ void walk_window(const float* __restrict__ x, const float* t, int o,
+                                            int N, int e, Acc& a) {
+  int u = 0;
+  for (; u + kBatch <= o; u += kBatch) {
+    float xs[kBatch];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) xs[b] = x[(size_t)(u + b) * N];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) step<W>(xs[b], t + 4 * (u + b), e, a);
+  }
+  for (; u < o; ++u) step<W>(x[(size_t)u * N], t + 4 * u, e, a);
+}
+
+// Zero accumulators, then the buffer that is live at the chunk's first boundary k0.
+template <typename Acc>
+__device__ __forceinline__ void recompute_live(const float* __restrict__ series,
+                                               const float* tab, int k0, int o, int N, int n,
+                                               int e, Acc& a) {
+  if (k0 == 0) return;
+  const float* x = series + (size_t)(k0 - 1) * o * N + n;
+  const float* t = tab + 4 * o * ((k0 - 1) & 1);
+  if (k0 & 1) {
+    walk_window<kFirst>(x, t, o, N, e, a);
+  } else {
+    walk_window<kSecond>(x, t, o, N, e, a);
+  }
 }
 
 template <bool OVERLAP>
-__global__ void seriesf(const float* __restrict__ series, const float* __restrict__ tabs,
-                        float* __restrict__ f_re, float* __restrict__ f_im,
-                        float* __restrict__ a1r_out, float* __restrict__ a1i_out,
-                        float* __restrict__ a2r_out, float* __restrict__ a2i_out, int K, int o,
-                        int H, int N) {
+__global__ void __launch_bounds__(kThreads)
+series40(const float* __restrict__ series, const float* __restrict__ tabs,
+         uint32_t* __restrict__ fh, uint32_t* __restrict__ fr, uint32_t* __restrict__ fi,
+         uint32_t* __restrict__ h1_out, uint32_t* __restrict__ r1_out,
+         uint32_t* __restrict__ i1_out, uint32_t* __restrict__ h2_out,
+         uint32_t* __restrict__ r2_out, uint32_t* __restrict__ i2_out, int K, int o, int H,
+         int N, int e, int G) {
   extern __shared__ float tab[];
-  const int h = blockIdx.y;
+  const int h = blockIdx.x % H;
   load_table2(tab, tabs, o, H, h);
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  const int n = (blockIdx.x / H) * kThreads + threadIdx.x;
   if (n >= N) return;
+  const int k0 = blockIdx.y * G;
+  const int k1 = min(K, k0 + G);
 
-  float a1r = 0.f, a1i = 0.f, a2r = 0.f, a2i = 0.f;
-  const float* x_ptr = series + n;
-  for (int k = 0; k < K; ++k) {
+  Acc40 a;
+  if (OVERLAP) recompute_live(series, tab, k0, o, N, n, e, a);
+  for (int k = k0; k < k1; ++k) {
+    const float* x = series + (size_t)k * o * N + n;
     const float* t = tab + 4 * o * (k & 1);
-    for (int u = 0; u < o; ++u) {
-      const float x = *x_ptr;
-      x_ptr += N;
-      stepf<OVERLAP>(x, t[4 * u + 0], t[4 * u + 1], t[4 * u + 2], t[4 * u + 3], a1r, a1i,
-                     a2r, a2i);
+    walk_window<OVERLAP ? kBoth : kAliased>(x, t, o, N, e, a);
+    const size_t f = ((size_t)k * H + h) * N + n;
+    if (OVERLAP) {
+      if (k == 0) mirror40(a.c1r, a.c1i, a.c2r, a.c2i, e, a.h2, a.r2, a.i2);
+      if (k & 1) {  // odd frame: buffer 1 is finished
+        fh[f] = a.h1, fr[f] = a.r1, fi[f] = a.i1;
+        a.h1 = a.r1 = a.i1 = 0;
+      } else {
+        fh[f] = a.h2, fr[f] = a.r2, fi[f] = a.i2;
+        a.h2 = a.r2 = a.i2 = 0;
+      }
+    } else {
+      fh[f] = a.h1, fr[f] = a.r1, fi[f] = a.i1;
+      a.h1 = a.r1 = a.i1 = 0;
     }
+  }
+  if (k1 == K) {  // the last chunk holds the record's final state
+    const size_t p = (size_t)h * N + n;
+    h1_out[p] = a.h1, r1_out[p] = a.r1, i1_out[p] = a.i1;
+    if (OVERLAP) h2_out[p] = a.h2, r2_out[p] = a.r2, i2_out[p] = a.i2;
+  }
+}
+
+template <bool OVERLAP>
+__global__ void __launch_bounds__(kThreads)
+seriesf(const float* __restrict__ series, const float* __restrict__ tabs,
+        float* __restrict__ f_re, float* __restrict__ f_im, float* __restrict__ a1r_out,
+        float* __restrict__ a1i_out, float* __restrict__ a2r_out, float* __restrict__ a2i_out,
+        int K, int o, int H, int N, int G) {
+  extern __shared__ float tab[];
+  const int h = blockIdx.x % H;
+  load_table2(tab, tabs, o, H, h);
+  const int n = (blockIdx.x / H) * kThreads + threadIdx.x;
+  if (n >= N) return;
+  const int k0 = blockIdx.y * G;
+  const int k1 = min(K, k0 + G);
+
+  AccF a;
+  if (OVERLAP) recompute_live(series, tab, k0, o, N, n, 0, a);
+  for (int k = k0; k < k1; ++k) {
+    const float* x = series + (size_t)k * o * N + n;
+    const float* t = tab + 4 * o * (k & 1);
+    walk_window<OVERLAP ? kBoth : kAliased>(x, t, o, N, 0, a);
     const size_t f = ((size_t)k * H + h) * N + n;
     if (OVERLAP) {
       if (k == 0) {  // first frame: a2 += a1 after the saving step
-        a2r = __fadd_rn(a2r, a1r);
-        a2i = __fadd_rn(a2i, a1i);
+        a.a2r = __fadd_rn(a.a2r, a.a1r);
+        a.a2i = __fadd_rn(a.a2i, a.a1i);
       }
-      if ((k + 1) % 2 == 0) {
-        f_re[f] = a1r, f_im[f] = a1i;
-        a1r = a1i = 0.f;
+      if (k & 1) {
+        f_re[f] = a.a1r, f_im[f] = a.a1i;
+        a.a1r = a.a1i = 0.f;
       } else {
-        f_re[f] = a2r, f_im[f] = a2i;
-        a2r = a2i = 0.f;
+        f_re[f] = a.a2r, f_im[f] = a.a2i;
+        a.a2r = a.a2i = 0.f;
       }
     } else {
-      f_re[f] = a1r, f_im[f] = a1i;
-      a1r = a1i = 0.f;
+      f_re[f] = a.a1r, f_im[f] = a.a1i;
+      a.a1r = a.a1i = 0.f;
     }
   }
-  const size_t p = (size_t)h * N + n;
-  a1r_out[p] = a1r, a1i_out[p] = a1i;
-  if (OVERLAP) a2r_out[p] = a2r, a2i_out[p] = a2i;
+  if (k1 == K) {
+    const size_t p = (size_t)h * N + n;
+    a1r_out[p] = a.a1r, a1i_out[p] = a.a1i;
+    if (OVERLAP) a2r_out[p] = a.a2r, a2i_out[p] = a.a2i;
+  }
 }
 
-// 128 threads: at H*N = 32768 chains this still gives every SM a block or two
-constexpr int kThreads = 128;
-
-dim3 grid_for(int N, int H) { return dim3((N + kThreads - 1) / kThreads, H); }
+// False when the launch would not fit a grid: blockIdx.y holds at most 65535 chunks.
+bool grid_for(int K, int H, int N, int G, dim3& grid) {
+  if (K < 1 || H < 1 || N < 1 || G < 1) return false;
+  const long long tiles = ((long long)N + kThreads - 1) / kThreads;
+  const int chunks = (K + G - 1) / G;
+  if (tiles * H > 2147483647LL || chunks > 65535) return false;
+  grid = dim3((unsigned)(tiles * H), (unsigned)chunks);
+  return true;
+}
 
 }  // namespace
 
 extern "C" {
 
-// Both return cudaGetLastError() after the launch (0 = cudaSuccess). Without overlap the
-// second set of state planes is not written (the caller holds zeros there).
+// Both return cudaGetLastError() after the launch (0 = cudaSuccess), or
+// cudaErrorInvalidValue for a chunk size G that gives more chunks than a grid takes.
+// Without overlap the second set of state planes is not written (the caller holds zeros
+// there).
 int kw_encode_series_40b(const float* series, const float* tabs, uint32_t* fh, uint32_t* fr,
                          uint32_t* fi, uint32_t* h1, uint32_t* r1, uint32_t* i1, uint32_t* h2,
                          uint32_t* r2, uint32_t* i2, int K, int o, int H, int N, int e,
-                         int overlap, void* stream) {
+                         int overlap, int G, void* stream) {
+  dim3 grid;
+  if (!grid_for(K, H, N, G, grid)) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)o * 8 * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (overlap) {
-    series40<true><<<grid_for(N, H), kThreads, smem, s>>>(series, tabs, fh, fr, fi, h1, r1, i1,
-                                                          h2, r2, i2, K, o, H, N, e);
+    series40<true><<<grid, kThreads, smem, s>>>(series, tabs, fh, fr, fi, h1, r1, i1, h2, r2,
+                                                i2, K, o, H, N, e, G);
   } else {
-    series40<false><<<grid_for(N, H), kThreads, smem, s>>>(series, tabs, fh, fr, fi, h1, r1,
-                                                           i1, h2, r2, i2, K, o, H, N, e);
+    series40<false><<<grid, kThreads, smem, s>>>(series, tabs, fh, fr, fi, h1, r1, i1, h2, r2,
+                                                 i2, K, o, H, N, e, G);
   }
   return (int)cudaGetLastError();
 }
 
 int kw_encode_series_float(const float* series, const float* tabs, float* f_re, float* f_im,
                            float* a1r, float* a1i, float* a2r, float* a2i, int K, int o, int H,
-                           int N, int overlap, void* stream) {
+                           int N, int overlap, int G, void* stream) {
+  dim3 grid;
+  if (!grid_for(K, H, N, G, grid)) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)o * 8 * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (overlap) {
-    seriesf<true><<<grid_for(N, H), kThreads, smem, s>>>(series, tabs, f_re, f_im, a1r, a1i,
-                                                         a2r, a2i, K, o, H, N);
+    seriesf<true><<<grid, kThreads, smem, s>>>(series, tabs, f_re, f_im, a1r, a1i, a2r, a2i, K,
+                                               o, H, N, G);
   } else {
-    seriesf<false><<<grid_for(N, H), kThreads, smem, s>>>(series, tabs, f_re, f_im, a1r, a1i,
-                                                          a2r, a2i, K, o, H, N);
+    seriesf<false><<<grid, kThreads, smem, s>>>(series, tabs, f_re, f_im, a1r, a1i, a2r, a2i,
+                                                K, o, H, N, G);
   }
   return (int)cudaGetLastError();
 }

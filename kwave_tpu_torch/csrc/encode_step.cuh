@@ -1,7 +1,8 @@
 // Per-step arithmetic of the reference-exact compressed-stream encoders, shared by the
 // one-window kernels (encode_window.cu) and the whole-record kernels (encode_series.cu) so
 // that their order of operations cannot drift apart: the 40-bit pack/unpack, and one
-// sampled step of the 40-bit and the float accumulators.
+// sampled step of the 40-bit and the float accumulators, of both buffers or of one (the
+// whole-record kernels recompute one buffer over the window before a chunk).
 //
 // Every fp32 product and sum is an explicit __fmul_rn/__fadd_rn, so nvcc cannot contract
 // a + t*x into an FMA (the reference semantics round the product first); the order of
@@ -76,7 +77,19 @@ static __device__ __forceinline__ void decode40(uint32_t hdr, uint32_t mr, uint3
   im = __uint_as_float(norm_bits(s_i, m_i, e_base));
 }
 
-// One sampled step of the 40-bit accumulators: decode, add bE*x (and bE_1*x), re-encode.
+// One sampled step of one 40-bit accumulator: decode, add t*x, re-encode. cr/ci return the
+// post-MAC floats. The two buffers of a window never read each other, so a buffer stepped
+// alone gives the bits it gets beside the other one.
+static __device__ __forceinline__ void step40_one(float x, float tr, float ti, int e,
+                                                  uint32_t& h, uint32_t& r, uint32_t& i,
+                                                  float& cr, float& ci) {
+  decode40(h, r, i, e, cr, ci);
+  cr = __fadd_rn(cr, __fmul_rn(tr, x));
+  ci = __fadd_rn(ci, __fmul_rn(ti, x));
+  encode40(cr, ci, e, h, r, i);
+}
+
+// One sampled step of the 40-bit accumulators: bE*x into buffer 1 and bE_1*x into buffer 2.
 // c1*/c2* return the post-MAC floats, which the first window's mirror sums.
 template <bool OVERLAP>
 static __device__ __forceinline__ void step40(float x, float t1r, float t1i, float t2r,
@@ -84,20 +97,16 @@ static __device__ __forceinline__ void step40(float x, float t1r, float t1i, flo
                                               uint32_t& i1, uint32_t& h2, uint32_t& r2,
                                               uint32_t& i2, float& c1r, float& c1i,
                                               float& c2r, float& c2i) {
-  decode40(h1, r1, i1, e, c1r, c1i);
   if (OVERLAP) {
-    decode40(h2, r2, i2, e, c2r, c2i);
-    c1r = __fadd_rn(c1r, __fmul_rn(t1r, x));
-    c1i = __fadd_rn(c1i, __fmul_rn(t1i, x));
-    c2r = __fadd_rn(c2r, __fmul_rn(t2r, x));
-    c2i = __fadd_rn(c2i, __fmul_rn(t2i, x));
-    encode40(c2r, c2i, e, h2, r2, i2);
+    step40_one(x, t1r, t1i, e, h1, r1, i1, c1r, c1i);
+    step40_one(x, t2r, t2i, e, h2, r2, i2, c2r, c2i);
   } else {
     // cc += (bE*x + bE_1*x): both products rounded, summed, then one accumulate
+    decode40(h1, r1, i1, e, c1r, c1i);
     c1r = __fadd_rn(c1r, __fadd_rn(__fmul_rn(t1r, x), __fmul_rn(t2r, x)));
     c1i = __fadd_rn(c1i, __fadd_rn(__fmul_rn(t1i, x), __fmul_rn(t2i, x)));
+    encode40(c1r, c1i, e, h1, r1, i1);
   }
-  encode40(c1r, c1i, e, h1, r1, i1);
 }
 
 // First frame: buf2 = encode(c2 + c1) of the saving step's floats
@@ -108,20 +117,24 @@ static __device__ __forceinline__ void mirror40(float c1r, float c1i, float c2r,
   encode40(__fadd_rn(c2r, c1r), __fadd_rn(c2i, c1i), e, h2, r2, i2);
 }
 
-// One sampled step of the float accumulators.
+// One sampled step of one float accumulator.
+static __device__ __forceinline__ void stepf_one(float x, float tr, float ti, float& ar,
+                                                 float& ai) {
+  ar = __fadd_rn(ar, __fmul_rn(tr, x));
+  ai = __fadd_rn(ai, __fmul_rn(ti, x));
+}
+
+// One sampled step of the float accumulators. Without overlap the buffer is aliased: two
+// sequential adds into the same accumulator.
 template <bool OVERLAP>
 static __device__ __forceinline__ void stepf(float x, float t1r, float t1i, float t2r,
                                              float t2i, float& a1r, float& a1i, float& a2r,
                                              float& a2i) {
-  a1r = __fadd_rn(a1r, __fmul_rn(t1r, x));
-  a1i = __fadd_rn(a1i, __fmul_rn(t1i, x));
+  stepf_one(x, t1r, t1i, a1r, a1i);
   if (OVERLAP) {
-    a2r = __fadd_rn(a2r, __fmul_rn(t2r, x));
-    a2i = __fadd_rn(a2i, __fmul_rn(t2i, x));
+    stepf_one(x, t2r, t2i, a2r, a2i);
   } else {
-    // aliased buffer: two sequential adds into the same accumulator
-    a1r = __fadd_rn(a1r, __fmul_rn(t2r, x));
-    a1i = __fadd_rn(a1i, __fmul_rn(t2i, x));
+    stepf_one(x, t2r, t2i, a1r, a1i);
   }
 }
 

@@ -37,10 +37,10 @@ SIGNATURES = {
     # chunk, tabs, 4 planes in, 4 planes out; steps, o, H, N, parity, mirror, overlap
     "kw_encode_window_float": [_P] * 10 + [_I] * 7 + [_P],
     # encode_series.cu
-    # series, tabs, 3 frame planes, 6 state planes; K, o, H, N, e, overlap
-    "kw_encode_series_40b": [_P] * 11 + [_I] * 6 + [_P],
-    # series, tabs, 2 frame planes, 4 state planes; K, o, H, N, overlap
-    "kw_encode_series_float": [_P] * 8 + [_I] * 5 + [_P],
+    # series, tabs, 3 frame planes, 6 state planes; K, o, H, N, e, overlap, G
+    "kw_encode_series_40b": [_P] * 11 + [_I] * 7 + [_P],
+    # series, tabs, 2 frame planes, 4 state planes; K, o, H, N, overlap, G
+    "kw_encode_series_float": [_P] * 8 + [_I] * 6 + [_P],
     # fastpath.cu
     # series, tab, p1_in, frames, p1_out; K, o, H, N, first_window
     "kw_project_frames": [_P] * 5 + [_I] * 5 + [_P],
@@ -50,6 +50,8 @@ SIGNATURES = {
     # spectrum, roots, k2z, k2y, k2x, 3 dd vectors, 3 outputs; nz, ny, nxr, n_ops, 3 kinds,
     # 3 axes; 3 powers, c_ref_dt_2; use_kappa
     "kw_zfuse": [_P] * 11 + [_I] * 10 + [ctypes.c_float] * 4 + [_I] + [_P],
+    # the same, then the radices of the three passes (1 for a pass that is not taken)
+    "kw_zfuse_radix": [_P] * 11 + [_I] * 10 + [ctypes.c_float] * 4 + [_I] * 4 + [_P],
 }
 
 

@@ -15,16 +15,22 @@ it is the frame. Returns the frames ``[K, H, N]`` per plane and the six (40-bit)
 (float) final state planes ``[H, N]``, post-emission; without overlap the second set is
 zeros, as the JAX entries return it.
 
-The kernels are CUDA C++ for sm_90a in ``kwave_tpu_torch/csrc/encode_series.cu``: one
-thread per (harmonic, sensor) with its accumulators in registers across all ``K`` windows,
-both parities of the table in shared memory, the series read once and each frame element
-written once. By bytes they are memory-bound (``T*N*4`` B in), but ``H*N`` serial chains of
-``K*o`` dependent steps make latency their limit. The per-step arithmetic is shared with
-the one-window kernels (``csrc/encode_step.cuh``), so a record gives the same bits whether
-it goes through this launch or through `encoder.encode_chunk` window by window.
+The kernels are CUDA C++ for sm_90a in ``kwave_tpu_torch/csrc/encode_series.cu``. The
+emitted buffer restarts from zero, so every frame is a chain of its own over at most two
+windows, and the record is split at window boundaries: one thread per (harmonic, sensor,
+chunk of ``G`` consecutive windows). With overlap, a chunk that starts at window ``k0 > 0``
+first recomputes from zero, over window ``k0 - 1`` alone, the buffer that is live at that
+boundary (buffer 1 when ``k0`` is odd, buffer 2 when it is even); then it walks its windows
+as the window loop does. The thread of the last chunk writes the final state. The float
+body is bound by memory (``(1 + 1/G) * T*N*4`` B in), the 40-bit body by the integer
+instructions of its decode and encode at every step. The per-step arithmetic is shared
+with the one-window kernels (``csrc/encode_step.cuh``), so a record gives the same bits
+whether it goes through this launch or through `encoder.encode_chunk` window by window.
+`chunk_windows_for` gives ``G``; the frames and the state do not depend on it.
 
-The plain versions run the plain window op window by window. The wrapper takes them only
-for tensors on the CPU; on a CUDA tensor it launches the kernel or raises.
+The plain versions run the plain window op window by window; with ``chunk_windows`` they
+compute by the kernels' chunks, recompute included, and give the same bits. The wrapper
+takes them only for tensors on the CPU; on a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -45,22 +51,34 @@ LAUNCHES = {
 # a launch gets without opting in to more.
 MAX_O = 48 * 1024 // 32
 
+CHUNK_WINDOWS = 8  # the recompute reads 1/G of the series again: 12.5 % at 8
+MAX_CHUNKS = 65535  # of one launch (a grid's second dimension)
+
+
+def chunk_windows_for(k_total: int) -> int:
+    """Windows per thread ``G``: ``CHUNK_WINDOWS``, and more only where the record would
+    otherwise have more than ``MAX_CHUNKS`` chunks."""
+    return max(CHUNK_WINDOWS, -(-k_total // MAX_CHUNKS))
+
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
 
 
-def _series_plain(series, tabs, o_size: int, overlap: bool, dtype, window_plain):
-    """The window loop both plain versions share: ``window_plain(chunk, planes, parity,
-    mirror)`` is one window of the plain window op."""
-    h, n = tabs.shape[1] // 4, series.shape[1]
-    k_total = series.shape[0] // o_size
-    per_buf = 3 if dtype == torch.int32 else 2
-    zero = torch.zeros((h, n), dtype=dtype, device=series.device)
+def _chunk_plain(series, o_size: int, overlap: bool, per_buf: int, zero, window_plain,
+                 k0: int, k1: int):
+    """Windows ``k0 .. k1-1`` from the accumulators the record has at boundary ``k0``:
+    zeros, but for the one buffer that is live there, recomputed over window ``k0 - 1``
+    (the window op updates both buffers independently; the other one was just emitted)."""
     planes = (zero,) * (per_buf * (2 if overlap else 1))
+    if overlap and k0 > 0:
+        before = window_plain(series[(k0 - 1) * o_size:k0 * o_size], planes, (k0 - 1) % 2, 0)
+        live = slice(0, per_buf) if k0 % 2 else slice(per_buf, 2 * per_buf)
+        planes = tuple(p if live.start <= j < live.stop else zero
+                       for j, p in enumerate(before))
     frames = []
-    for k in range(k_total):
+    for k in range(k0, k1):
         chunk = series[k * o_size:(k + 1) * o_size]
         planes = tuple(window_plain(chunk, planes, k % 2, int(overlap and k == 0)))
         first = (k + 1) % 2 == 0 or not overlap  # buffer 1 is the finished one
@@ -68,23 +86,45 @@ def _series_plain(series, tabs, o_size: int, overlap: bool, dtype, window_plain)
         frames.append(planes[done])
         planes = tuple(zero if done.start <= j < done.stop else p
                        for j, p in enumerate(planes))
+    return frames, planes
+
+
+def _series_plain(series, tabs, o_size: int, overlap: bool, dtype, window_plain,
+                  chunk_windows: int | None = None):
+    """The window loop both plain versions share: ``window_plain(chunk, planes, parity,
+    mirror)`` is one window of the plain window op. ``chunk_windows`` cuts the record
+    into the kernels' chunks, each computed on its own; None is the unsplit record."""
+    h, n = tabs.shape[1] // 4, series.shape[1]
+    k_total = series.shape[0] // o_size
+    per_buf = 3 if dtype == torch.int32 else 2
+    zero = torch.zeros((h, n), dtype=dtype, device=series.device)
+    g = max(k_total, 1) if chunk_windows is None else int(chunk_windows)
+    if g < 1:
+        raise ValueError(f"chunk_windows must be at least 1; got {chunk_windows}")
+    frames, planes = [], (zero,) * (per_buf * (2 if overlap else 1))
+    for k0 in range(0, k_total, g):
+        part, planes = _chunk_plain(series, o_size, overlap, per_buf, zero, window_plain,
+                                    k0, min(k_total, k0 + g))
+        frames += part
     stacked = tuple(torch.stack([f[j] for f in frames]) if frames else
                     zero.new_zeros((0, h, n)) for j in range(per_buf))
     return stacked, planes + (zero,) * (2 * per_buf - len(planes))
 
 
-def encode_series_40b_plain(series, tabs, e_const: int, o_size: int, overlap: bool = True):
+def encode_series_40b_plain(series, tabs, e_const: int, o_size: int, overlap: bool = True,
+                            chunk_windows: int | None = None):
     return _series_plain(
         series, tabs, o_size, overlap, torch.int32,
         lambda chunk, planes, parity, mirror: encode_window.encode_window_40b_exact_plain(
-            chunk, tabs, planes, e_const, parity, mirror, overlap))
+            chunk, tabs, planes, e_const, parity, mirror, overlap), chunk_windows)
 
 
-def encode_series_float_exact_plain(series, tabs, o_size: int, overlap: bool = True):
+def encode_series_float_exact_plain(series, tabs, o_size: int, overlap: bool = True,
+                                    chunk_windows: int | None = None):
     return _series_plain(
         series, tabs, o_size, overlap, torch.float32,
         lambda chunk, planes, parity, mirror: encode_window.encode_window_float_exact_plain(
-            chunk, tabs, planes, parity, mirror, overlap))
+            chunk, tabs, planes, parity, mirror, overlap), chunk_windows)
 
 
 def _check(series, tabs, o_size: int) -> None:
@@ -109,12 +149,18 @@ def _check(series, tabs, o_size: int) -> None:
 
 
 def _launch(name: str, series, tabs, o_size: int, overlap: bool, dtype, per_buf: int,
-            extra: tuple):
+            extra: tuple, chunk_windows: int | None):
+    """Launch one whole-record kernel. ``chunk_windows`` other than None overrides
+    `chunk_windows_for`: for the card tests and the sweep of `kwave_tpu_torch.sweeps`."""
     from kwave_tpu_torch.ops import _build
 
     lib = _build.load_library()
     h, n = tabs.shape[1] // 4, series.shape[1]
     k_total = series.shape[0] // o_size
+    g = chunk_windows_for(k_total) if chunk_windows is None else int(chunk_windows)
+    if g < 1 or -(-k_total // g) > MAX_CHUNKS:
+        raise ValueError(f"chunk_windows={g} cuts {k_total} windows into more than "
+                         f"{MAX_CHUNKS} chunks, or is below 1")
     frames = tuple(torch.empty((k_total, h, n), dtype=dtype, device=series.device)
                    for _ in range(per_buf))
     state = tuple(torch.empty((h, n), dtype=dtype, device=series.device)
@@ -125,12 +171,28 @@ def _launch(name: str, series, tabs, o_size: int, overlap: bool, dtype, per_buf:
     with torch.cuda.device(series.device):
         err = getattr(lib, name)(
             series.data_ptr(), tabs.data_ptr(), *(t.data_ptr() for t in frames + state),
-            k_total, o_size, h, n, *extra, int(bool(overlap)),
+            k_total, o_size, h, n, *extra, int(bool(overlap)), g,
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
     return frames, state
+
+
+def _kernel_40b(series, tabs, e_const: int, o_size: int, overlap: bool,
+                chunk_windows: int | None = None):
+    out = _launch("kw_encode_series_40b", series, tabs, o_size, overlap, torch.int32, 3,
+                  (int(e_const),), chunk_windows)
+    LAUNCHES["series40_overlap" if overlap else "series40_no_overlap"] += 1
+    return out
+
+
+def _kernel_float(series, tabs, o_size: int, overlap: bool,
+                  chunk_windows: int | None = None):
+    out = _launch("kw_encode_series_float", series, tabs, o_size, overlap, torch.float32, 2,
+                  (), chunk_windows)
+    LAUNCHES["seriesf_overlap" if overlap else "seriesf_no_overlap"] += 1
+    return out
 
 
 def encode_series_40b(series, tabs, e_const: int, o_size: int, overlap: bool = True):
@@ -141,10 +203,7 @@ def encode_series_40b(series, tabs, e_const: int, o_size: int, overlap: bool = T
     _check(series, tabs, o_size)
     if series.device.type == "cpu":
         return encode_series_40b_plain(series, tabs, e_const, o_size, overlap)
-    out = _launch("kw_encode_series_40b", series, tabs, o_size, overlap, torch.int32, 3,
-                  (int(e_const),))
-    LAUNCHES["series40_overlap" if overlap else "series40_no_overlap"] += 1
-    return out
+    return _kernel_40b(series, tabs, e_const, o_size, overlap)
 
 
 def encode_series_float_exact(series, tabs, o_size: int, overlap: bool = True):
@@ -153,7 +212,4 @@ def encode_series_float_exact(series, tabs, o_size: int, overlap: bool = True):
     _check(series, tabs, o_size)
     if series.device.type == "cpu":
         return encode_series_float_exact_plain(series, tabs, o_size, overlap)
-    out = _launch("kw_encode_series_float", series, tabs, o_size, overlap, torch.float32, 2,
-                  ())
-    LAUNCHES["seriesf_overlap" if overlap else "seriesf_no_overlap"] += 1
-    return out
+    return _kernel_float(series, tabs, o_size, overlap)

@@ -269,6 +269,48 @@ def test_series_kernel_matches_plain_window_loop_and_oracle(mode40, overlap):
 @pytest.mark.cuda
 @pytest.mark.parametrize("overlap", [True, False])
 @pytest.mark.parametrize("mode40", [True, False])
+@pytest.mark.parametrize("windows,g", [(7, 4), (3, 8), (9, 2), (5, 1), (6, 3)])
+def test_series_kernel_chunks_match_plain_and_window_loop(mode40, overlap, windows, g):
+    """K3 split into chunks of G windows a thread: K odd, K < G, K a multiple of G and
+    not, chunks that start on odd and on even windows, N ragged (not a multiple of the
+    block's 128 sensors): frames and final state bit-identical to the unsplit plain
+    version and to the K1/K2 window loop, one launch."""
+    from kwave_tpu_torch.ops import encode_series as es
+
+    dev = require_cuda()
+    n, h = 333, 2
+    key = ("series40" if mode40 else "seriesf") + ("_overlap" if overlap else "_no_overlap")
+    basis = generate_basis(9.0, 1, h, normalize=True)
+    o = basis.o_size
+    x = torch.from_numpy(real_series(windows * o + 2, n, 9.0, seed=windows)).to(dev)
+    tabs = torch.from_numpy(stacked_tables(basis)).to(dev)
+    before = es.LAUNCHES[key]
+    if mode40:
+        frames, state = es._kernel_40b(x, tabs, MAX_EXP_P, o, overlap, chunk_windows=g)
+        pf, ps = es.encode_series_40b_plain(x, tabs, MAX_EXP_P, o, overlap)
+    else:
+        frames, state = es._kernel_float(x, tabs, o, overlap, chunk_windows=g)
+        pf, ps = es.encode_series_float_exact_plain(x, tabs, o, overlap)
+    torch.cuda.synchronize()
+    assert es.LAUNCHES[key] == before + 1
+    assert all(tuple(f.shape) == (windows, h, n) for f in frames)
+    for a, b in zip(frames + state, pf + ps):
+        np.testing.assert_array_equal(bits(a), bits(b))
+    cfg = encoder.EncoderConfig.for_stream(basis, False, mode40, overlap)
+    tables = encoder.make_tables(basis, False, dev)
+    st = encoder.init_state(cfg, n, dev)
+    for k in range(windows):
+        st, fr = encoder.encode_chunk(st, x[k * o:(k + 1) * o], cfg, tables)
+        for a, b in zip(fr, frames):
+            np.testing.assert_array_equal(bits(a), bits(b[k]), err_msg=f"window {k}")
+    keys = [name for name in st if name not in ("sampled_step", "compressed_step")]
+    for name, plane in zip(keys, state):
+        np.testing.assert_array_equal(bits(st[name]), bits(plane), err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overlap", [True, False])
+@pytest.mark.parametrize("mode40", [True, False])
 def test_encode_series_exact_on_the_card_matches_oracle(mode40, overlap):
     """encode_series_exact with a trailing remainder (one K3 launch, one K1/K2 partial
     window), then encode_steps across the next saving boundary, against the oracle."""
@@ -307,10 +349,10 @@ def test_encode_series_exact_on_the_card_matches_oracle(mode40, overlap):
 @pytest.mark.parametrize("nz,ny,nx", [(32, 16, 256), (100, 12, 260), (256, 8, 256)])
 @pytest.mark.parametrize("n_ops", [1, 3])
 def test_zfuse_kernel_matches_plain_and_float64(nz, ny, nx, n_ops):
-    """K7 at nz = 32, 100 (not a power of two) and 256, nxr = 129 and 131, one op and
-    three: within 2e-6 of the peak of `apply_plain` and of a float64
-    ``ifft(fft(s, 0) * op, 0)`` (a dense fp32 DFT over up to 256 terms; measured on an
-    H100 at most 4e-7), grad with and without kappa, and nabla."""
+    """K7 at nz = 32, 100 (not a power of two: the dense kernel) and 256, nxr = 129 and
+    131, one op and three: within 2e-6 of the peak of `apply_plain` and of a float64
+    ``ifft(fft(s, 0) * op, 0)`` (measured on an H100 at most 1.3e-6 and 6.5e-7), grad with
+    and without kappa, and nabla."""
     from kwave_tpu_torch.ops import zfuse
 
     dev = require_cuda()
@@ -353,6 +395,82 @@ def test_zfuse_kernel_matches_plain_and_float64(nz, ny, nx, n_ops):
             peak = float(np.abs(ref).max())
             assert float((got - want).abs().max()) <= 2e-6 * peak
             assert float(np.abs(got.cpu().numpy() - ref).max()) <= 2e-6 * peak
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx", [256, 260])
+@pytest.mark.parametrize("nz", [8, 16, 32, 64, 128, 256, 512, 1024])
+def test_zfuse_radix_kernel(nz, nx):
+    """The radix kernel at every pass plan it is built for (one, two and three passes,
+    equal and unequal radices), nxr = 129 and 131 (131 leaves a ragged last tile), one op
+    and three, grad on each axis with and without kappa, and nabla: within 2e-6 of the
+    peak of a float64 FFT, 4e-6 of `apply_plain` (the dense fp32 sum, itself up to 1.3e-6
+    off float64 where the radix passes are 2e-7 off: the sum of the two bounds) and of
+    `apply_radix_plain`; every launch counted as the radix kernel's."""
+    from kwave_tpu_torch.ops import zfuse
+
+    dev = require_cuda()
+    ny, nxr = 8, nx // 2 + 1
+    rng = np.random.default_rng(nz + nx)
+    sizes = (nz, ny, nxr)
+    s = torch.from_numpy((rng.standard_normal(sizes) + 1j * rng.standard_normal(sizes))
+                         .astype(np.complex64)).to(dev)
+    k2 = [(np.fft.fftfreq(nz) * 2 * np.pi * nz / 1e-2) ** 2,
+          (np.fft.fftfreq(ny) * 2 * np.pi * ny / 1e-2) ** 2,
+          (np.fft.rfftfreq(nx) * 2 * np.pi * nx / 1e-2) ** 2]
+    plan = zfuse.make_plan((nz, ny, nx), *k2, 1e-5, dev)
+    assert zfuse.kernel_for(nz) == "radix" and plan.passes == zfuse.radix_passes(nz)
+    dds = [torch.from_numpy((rng.standard_normal(m) + 1j * rng.standard_normal(m))
+                            .astype(np.complex64)).to(dev) for m in sizes]
+    f64 = torch.fft.fft(s.to(torch.complex128), dim=0)
+    cases = [(tuple(zfuse.OpSpec("grad", axis=a) for a in (2, 1, 0)), dds[::-1], True),
+             ((zfuse.OpSpec("grad", axis=0),), dds[:1], False),
+             ((zfuse.OpSpec("grad", axis=1), zfuse.OpSpec("nabla", power=0.5)), dds[1:2],
+              True),
+             ((zfuse.OpSpec("nabla", power=-0.5),), (), False)]
+    for specs, dd, use_kappa in cases:
+        before = dict(zfuse.KERNEL_LAUNCHES)
+        outs = zfuse.apply(plan, s, specs, dd, use_kappa=use_kappa)
+        torch.cuda.synchronize()
+        assert zfuse.KERNEL_LAUNCHES == {"radix": before["radix"] + 1,
+                                         "dense": before["dense"]}
+        dense = zfuse.apply_plain(plan, s, specs, dd, use_kappa=use_kappa)
+        radix = zfuse.apply_radix_plain(plan, s, specs, dd, use_kappa=use_kappa)
+        dd_iter = iter(dd)
+        for spec, got, want_d, want_r in zip(specs, outs, dense, radix):
+            op = zfuse.full_operator(plan, spec, next(dd_iter) if spec.kind == "grad"
+                                     else None, use_kappa)
+            ref = torch.fft.ifft(f64 * op, dim=0)
+            peak = float(ref.abs().max())
+            assert float((got - ref).abs().max()) <= 2e-6 * peak
+            assert float((got - want_d).abs().max()) <= 4e-6 * peak
+            assert float((got - want_r).abs().max()) <= 4e-6 * peak
+
+
+@pytest.mark.cuda
+def test_zfuse_dense_kernel_takes_other_nz():
+    """nz = 100 and nz = 4 go to the dense kernel and count as its launches."""
+    from kwave_tpu_torch.ops import zfuse
+
+    dev = require_cuda()
+    for nz in (100, 4):
+        ny, nx = 4, 16
+        k2 = [(np.fft.fftfreq(m) * 2 * np.pi * m / 1e-2) ** 2 for m in (nz, ny)]
+        k2.append((np.fft.rfftfreq(nx) * 2 * np.pi * nx / 1e-2) ** 2)
+        plan = zfuse.make_plan((nz, ny, nx), *k2, 1e-5, dev)
+        assert plan.passes is None
+        rng = np.random.default_rng(nz)
+        sizes = (nz, ny, plan.nxr)
+        s = torch.from_numpy((rng.standard_normal(sizes) + 1j * rng.standard_normal(sizes))
+                             .astype(np.complex64)).to(dev)
+        before = dict(zfuse.KERNEL_LAUNCHES)
+        specs = (zfuse.OpSpec("nabla", power=0.5),)
+        got = zfuse.apply(plan, s, specs, ())[0]
+        torch.cuda.synchronize()
+        assert zfuse.KERNEL_LAUNCHES == {"radix": before["radix"],
+                                         "dense": before["dense"] + 1}
+        want = zfuse.apply_plain(plan, s, specs, ())[0]
+        assert float((got - want).abs().max()) <= 2e-6 * float(want.abs().max())
 
 
 @pytest.mark.cuda

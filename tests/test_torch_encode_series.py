@@ -9,7 +9,12 @@ the float planes and 2e-6 of the peak for the decoded 40-bit planes, because XLA
 contracts mul+add into an FMA inside the interpreted loop body, so each of the o steps of
 a window may differ by half an ulp of the running sum (tests/test_pallas_ops.py holds the
 JAX window kernel to the oracle at atol 1e-2 on amplitude 1e5 for the same reason; a
-sum near cancellation makes a relative bound meaningless)."""
+sum near cancellation makes a relative bound meaningless).
+
+The kernels split a record into chunks of G windows and recompute the live buffer over the
+window before each chunk; the plain versions do the same with ``chunk_windows``, and are
+held bit for bit to the unsplit plain versions (real data) and to the JAX entries (dyadic
+data)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -104,6 +109,59 @@ def test_entries_match_jax_entries_on_dyadic_data(mode40, overlap, windows):
     assert len(jf) == len(frames) and len(js) == len(state)
     for a, b in zip(frames + state, tuple(jf) + tuple(js)):
         np.testing.assert_array_equal(bits(a), bits(np.asarray(b)))
+
+
+def _plain(series, tabs, o, mode40, overlap, chunk_windows=None):
+    x, t = torch.from_numpy(series), torch.from_numpy(tabs)
+    if mode40:
+        return es.encode_series_40b_plain(x, t, MAX_EXP_P, o, overlap, chunk_windows)
+    return es.encode_series_float_exact_plain(x, t, o, overlap, chunk_windows)
+
+
+@pytest.mark.parametrize("mode40,overlap", VARIANTS)
+@pytest.mark.parametrize("g", [1, 2, 3, 8])
+@pytest.mark.parametrize("windows", [1, 2, 5, 8, 13])
+def test_chunked_plain_equals_unchunked_plain(mode40, overlap, g, windows):
+    """The kernels' decomposition, in the plain version: chunks of G windows, each from
+    zero accumulators plus the live buffer recomputed over the window before it, give the
+    unsplit record's frames and final state bit for bit (K < G, K a multiple of G and
+    not, odd and even chunk boundaries)."""
+    basis = generate_basis(7.0, 1, 2, normalize=True)
+    o, n = basis.o_size, 21
+    series = real_series(windows * o + 2, n, 7.0, seed=10 * windows + g)
+    tabs = stacked_tables(basis)
+    whole = _plain(series, tabs, o, mode40, overlap)
+    split = _plain(series, tabs, o, mode40, overlap, chunk_windows=g)
+    assert all(tuple(f.shape) == (windows, 2, n) for f in split[0])
+    for a, b in zip(whole[0] + whole[1], split[0] + split[1]):
+        np.testing.assert_array_equal(bits(a), bits(b))
+
+
+@pytest.mark.parametrize("mode40,overlap", VARIANTS)
+@pytest.mark.parametrize("g,windows", [(1, 5), (2, 5), (3, 8), (8, 13), (8, 2)])
+def test_chunked_entries_match_jax_entries_on_dyadic_data(mode40, overlap, g, windows):
+    """The plain versions cut into the kernels' chunks against the JAX entries."""
+    basis = dyadic_basis(o=8, harmonics=2)
+    o, n = basis.o_size, 40
+    series = dyadic_series(windows * o + 2, n, seed=windows, scale=128.0 if mode40 else 1.0)
+    tabs = stacked_tables(basis)
+    frames, state = _plain(series, tabs, o, mode40, overlap, chunk_windows=g)
+    if mode40:
+        jf, js = ep.encode_series_40b(jnp.asarray(series), jnp.asarray(tabs), MAX_EXP_P, o,
+                                      overlap=overlap, interpret=True)
+    else:
+        jf, js = ep.encode_series_float_exact(jnp.asarray(series), jnp.asarray(tabs), o,
+                                              overlap=overlap, interpret=True)
+    for a, b in zip(frames + state, tuple(jf) + tuple(js)):
+        np.testing.assert_array_equal(bits(a), bits(np.asarray(b)))
+
+
+@pytest.mark.parametrize("k_total,want", [
+    (1, 8), (5, 8), (204, 8), (8 * 65535, 8), (8 * 65535 + 1, 9), (1_000_000, 16)])
+def test_chunk_windows_for(k_total, want):
+    """G is 8, and more only to keep the chunks within one launch's 65535."""
+    assert es.chunk_windows_for(k_total) == want
+    assert -(-k_total // want) <= es.MAX_CHUNKS
 
 
 @pytest.mark.parametrize("mode40,overlap", VARIANTS)
@@ -267,6 +325,8 @@ def test_entries_refuse_bad_arguments():
         es.encode_series_float_exact(x.double(), tabs, 4)
     with pytest.raises(ValueError, match="contiguous"):
         es.encode_series_float_exact(x.T.contiguous().T, tabs, 4)
+    with pytest.raises(ValueError, match="chunk_windows"):
+        es.encode_series_float_exact_plain(x, tabs, 4, chunk_windows=0)
     before = dict(es.LAUNCHES)
     es.encode_series_float_exact(x, tabs, 4)
     assert es.LAUNCHES == before  # the plain version counts nothing

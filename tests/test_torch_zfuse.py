@@ -7,6 +7,11 @@ Tolerances, and why:
 - `apply_plain` against a float64 numpy ``ifft(fft(s, 0) * op, 0)``: 2e-6 x max|ref|; a
   dense fp32 DFT over nz <= 32 terms measured 1.7e-7 to 2.2e-7 here (and 4e-6 to 7e-6
   against the JAX kernel).
+- `apply_radix_plain` (the radix kernel's passes on tensors) against the float64 reference:
+  the same 2e-6 (measured 8e-8 at nz = 8 to 2.2e-7 at nz = 1024: an FFT's error grows with
+  log2 nz); against `apply_plain`: 4e-6, the sum of the two bounds, because `apply_plain`
+  is the dense sum and is itself up to 7e-7 off float64 at nz = 1024 (measured apart at
+  most 7e-7).
 - compact against full operators over 6 steps: 1e-5 x max|p| (the operators agree to fp32
   rounding: they are built in fp32 on the device instead of float64 on the host; measured
   1.3e-7).
@@ -118,6 +123,93 @@ def test_grad_without_kappa_and_nz_not_a_power_of_two():
                       use_kappa=False)[0].numpy()
     ref = _ref64(s, (dd[:, 0] + 1j * dd[:, 1]).reshape(1, 6, 1))
     assert np.abs(got - ref).max() <= F64_TOL * np.abs(ref).max()
+
+
+RADIX_NZ = [8, 16, 32, 64, 128, 256, 512]
+PLAIN_TOL = 4e-6  # radix passes against the dense sum: the sum of their two bounds
+
+
+def _radix_case(nz, n_ops, kind, use_kappa, seed):
+    """A small spectrum [nz, 3, 4] with its ops, dd vectors and float64 operators."""
+    ny, nx = 3, 6
+    s, k2, plan, jplan = _case(nz=nz, ny=ny, nx=nx, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    sizes = (nz, ny, nx // 2 + 1)
+    shapes = [(nz, 1, 1), (1, ny, 1), (1, 1, sizes[2])]
+    kap = _kappa_np(k2, 1e-5) if use_kappa else 1.0
+    k = np.sqrt(k2[0][:, None, None] + k2[1][None, :, None] + k2[2][None, None, :])
+    if kind == "nabla":
+        powers = (-0.5, 0.5, 1.0)[:n_ops]
+        specs = tuple(zfuse.OpSpec("nabla", power=p) for p in powers)
+        return s, plan, jplan, specs, [], [np.where(k == 0, 0.0, np.where(k == 0, 1.0, k) ** p)
+                                           for p in powers]
+    axes = (0, 1, 2)[:n_ops] if n_ops == 3 else (int(kind[-1]),)
+    dds = [rng.standard_normal((sizes[a], 2)).astype(np.float32) for a in axes]
+    ops64 = [kap * (d[:, 0] + 1j * d[:, 1]).reshape(shapes[a]) for a, d in zip(axes, dds)]
+    return s, plan, jplan, tuple(zfuse.OpSpec("grad", axis=a) for a in axes), dds, ops64
+
+
+@pytest.mark.parametrize("use_kappa", [True, False])
+@pytest.mark.parametrize("n_ops,kind", [(1, "grad0"), (1, "grad1"), (1, "grad2"),
+                                        (1, "nabla"), (3, "grad"), (3, "nabla")])
+@pytest.mark.parametrize("nz", RADIX_NZ)
+def test_radix_plain_matches_float64_and_dense_plain(nz, n_ops, kind, use_kappa):
+    """The radix kernel's decomposition on tensors: its passes, the operator looked up at
+    the digit-reversed bin, the inverse passes, the 1/nz, kappa at arg == 0 and the nabla at
+    k == 0 (bin 0 of column 0 is in every case)."""
+    s, plan, _, specs, dds, ops64 = _radix_case(nz, n_ops, kind, use_kappa, seed=nz + n_ops)
+    assert plan.passes == zfuse.radix_passes(nz) and int(np.prod(plan.passes)) == nz
+    ddc = tuple(torch.from_numpy(d[:, 0] + 1j * d[:, 1]) for d in dds)
+    got = zfuse.apply_radix_plain(plan, torch.from_numpy(s), specs, ddc, use_kappa=use_kappa)
+    dense = zfuse.apply_plain(plan, torch.from_numpy(s), specs, ddc, use_kappa=use_kappa)
+    assert len(got) == n_ops
+    for g, d, op64 in zip(got, dense, ops64):
+        ref = _ref64(s, op64)
+        scale = np.abs(ref).max()
+        assert g.dtype == torch.complex64 and tuple(g.shape) == s.shape
+        assert np.abs(g.numpy() - ref).max() <= F64_TOL * scale
+        assert np.abs(g.numpy() - d.numpy()).max() <= PLAIN_TOL * scale
+
+
+def test_radix_plain_matches_the_jax_kernel():
+    s, plan, jplan, specs, dds, ops64 = _radix_case(32, 3, "grad", True, seed=4)
+    ddc = tuple(torch.from_numpy(d[:, 0] + 1j * d[:, 1]) for d in dds)
+    got = zfuse.apply_radix_plain(plan, torch.from_numpy(s), specs, ddc)
+    theirs = jzfuse.apply(jplan, jnp.asarray(s.real), jnp.asarray(s.imag),
+                          tuple(jzfuse.OpSpec(o.kind, o.axis, o.power) for o in specs),
+                          tuple(dds), use_kappa=True, interpret=True)
+    for g, (re, im), op64 in zip(got, theirs, ops64):
+        _hold(g.numpy(), np.asarray(re) + 1j * np.asarray(im), _ref64(s, op64))
+
+
+@pytest.mark.parametrize("nz,passes", [(8, (8,)), (16, (16,)), (32, (8, 4)), (64, (8, 8)),
+                                       (128, (16, 8)), (256, (16, 16)), (512, (8, 8, 8)),
+                                       (1024, (16, 8, 8))])
+def test_radix_pass_plans_and_digit_reversal(nz, passes):
+    """The plans the CUDA source instantiates, and the bin order they leave: a
+    permutation, equal to the kernel's own formula for three passes."""
+    assert zfuse.radix_passes(nz) == passes and zfuse.kernel_for(nz) == "radix"
+    bins = zfuse.digit_reversed_bins(passes)
+    assert sorted(bins) == list(range(nz))
+    # position p = q0*(nz/R0) + q1*(nz/(R0*R1)) + q2 holds bin q0 + R0*(q1 + R1*q2)
+    r = passes + (1,) * (3 - len(passes))
+    p = np.arange(nz)
+    q0, q1, q2 = p // (r[1] * r[2]), (p // r[2]) % r[1], p % r[2]
+    np.testing.assert_array_equal(bins, q0 + r[0] * (q1 + r[1] * q2))
+
+
+@pytest.mark.parametrize("nz", [1, 2, 4, 25, 100, 192, 1000, 1536])
+def test_other_nz_take_the_dense_kernel(nz):
+    """nz that is no power of two from 8 to 1024 is routed to the dense kernel's plan, and
+    the radix passes refuse it."""
+    assert zfuse.radix_passes(nz) is None and zfuse.kernel_for(nz) == "dense"
+    s, _, plan, _ = _case(nz=nz, ny=2, nx=4)
+    assert plan.passes is None
+    with pytest.raises(ValueError, match="dense kernel"):
+        zfuse.apply_radix_plain(plan, torch.from_numpy(s), (zfuse.OpSpec("nabla"),), ())
+    with pytest.raises(ValueError, match="nz must be in"):
+        _case(nz=zfuse.MAX_NZ + 1, ny=2, nx=4)
+    assert set(zfuse.KERNEL_LAUNCHES) == {"radix", "dense"}
 
 
 def test_apply_refuses_bad_arguments():
