@@ -11,9 +11,15 @@ Phases (each prints one line; any failure raises and the script exits non-zero w
 the final ok line):
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: nvcc builds csrc/*.cu into build/kwave_tpu_torch/ (timed);
-3. kernel parity: the four window-encode variants at o=16, H=1 and 2, N=16384, bit for
-   bit against their plain versions on the card and against kwave_tpu_torch.oracle on the
-   first 256 sensors; kernel and plain time per window from CUDA events;
+3. kernel parity: the four window-encode variants at o=16, H=1, 2 and 3, N=16384 and a
+   ragged N=16384-37, both parities, the mirror on and off and a partial window of 11
+   steps, bit for bit against their plain versions on the card; for the 40-bit variants also the
+   designs the default was chosen from (one thread a sensor; the words packed at every
+   step) and the reference's loop as written, all to the same bits, and one window whose
+   values lie below, inside and above the 40-bit word's range; H=1 and 2 against
+   kwave_tpu_torch.oracle on the first 256 sensors; kernel and plain time per window from
+   CUDA events. Then ``launch_floor_us``, the device time of an empty kernel at the 40-bit
+   window kernel's grid, block and shared memory, with the card's name and power limit;
 4. main path: `driver.run_simulation` on a 128^3 heterogeneous absorbing medium with a
    p0 source, period 16, a few windows plus a tail, as ``--p_raw --p_c --40-bit_complex``
    and then as three shorter runs that take the other three variants. The output goes
@@ -25,7 +31,8 @@ the final ok line):
    full shape (T=4096, N=16384, period 20, H=2), and at H=1, H=4 and a ragged N, against
    its plain version and a float64 projection (within 1e-6 of the frame peak) and the
    oracle's float encoder on 256 sensors (2e-6); flat == 3D bit for bit; K6 window by
-   window == K5 bit for bit; dyadic data bit-exact. The synthesis decode (K4, both
+   window == K5 bit for bit; dyadic data bit-exact; one call of each encode entry (K5 flat
+   and 3D, K6) under torch.profiler runs its one kernel on the device and nothing else. The synthesis decode (K4, both
    entries) on the same frames and on five boundary cases, against plain (1e-6 of the
    peak) and `kwave_tpu_torch.oracle.reconstruct` on 256 sensors (4e-6). Kernel and plain
    times at the full shape from CUDA events, and wall time per call;
@@ -56,8 +63,8 @@ the final ok line):
 Then one JSON line with every kernel's numbers (its time beside its bound: the larger of
 its bytes over 3.35 TB/s and its fp32 operations over 67 TFLOP/s; for the 40-bit kernels
 also ``issue_ms``, the machine instructions that this run's build spends on their steps,
-counted from its SASS, over the card's instruction rate: a share of the time, no bound),
-and as the last line
+counted from its SASS, over the card's instruction rate: a share of the time, no bound)
+and ``launch_floor_us``, and as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off throughout, so every plain version on the
 card computes in full fp32.
 """
@@ -99,9 +106,19 @@ FUSED_RUN_TOL = 1e-4  # p_raw of the fused run vs the compact-only run, of the p
 # Every SM starts at most 4 warp instructions (128 lanes) a clock: 132 SMs at the 1.98 GHz
 # boost clock.
 INSTR_PER_S = 128 * 132 * 1.98e9
-# mangled-name fragments of the kernels whose steps are mostly integer pack/unpack
-ISSUE_KERNELS = {"w40_overlap": "w40_windowILb1EE", "w40_no_overlap": "w40_windowILb0EE",
-                 "series40_overlap": "series40ILb1EE", "series40_no_overlap": "series40ILb0EE"}
+RAGGED = 37  # sensors short of N_SENSORS in phase 3's ragged windows
+
+
+def _issue_kernels() -> dict:
+    """LAUNCHES key -> (mangled-name fragment of the kernel the wrapper launches, lanes
+    that carry one (harmonic, sensor)) for the kernels whose steps are mostly the integer
+    requantisation of the 40-bit accumulators."""
+    from kwave_tpu_torch.ops import encode_window as ew
+
+    return {"w40_overlap": (f"w40_windowILb1ELi{ew.W40_SPLIT}EE", ew.W40_SPLIT),
+            "w40_no_overlap": ("w40_windowILb0ELi1EE", 1),
+            "series40_overlap": ("series40ILb1EE", 1),
+            "series40_no_overlap": ("series40ILb0EE", 1)}
 
 
 def _bound(n_bytes: float, flops: float) -> dict:
@@ -196,21 +213,19 @@ def build_phase():
 
 
 def issue_phase() -> dict:
-    """Machine instructions per sampled step of the 40-bit kernels, from the SASS of the
-    library just built (``cuobjdump`` of the CUDA toolkit). Without the tool the counts,
-    and the rows' ``issue_ms``, are None: they are read beside the times, and gate nothing."""
+    """Machine instructions per sampled step and lane of the 40-bit kernels, from the SASS
+    of the library just built (``cuobjdump`` of the CUDA toolkit). A kernel whose step loop
+    is not found is an error."""
     from kwave_tpu_torch.ops import _build, sass_count
 
-    try:
-        loops = sass_count.parse_loops(sass_count.disassemble(_build.library_path()),
-                                       tuple(ISSUE_KERNELS.values()))
-    except (RuntimeError, OSError, subprocess.SubprocessError) as exc:
-        print(f"[2 build] no instruction counts: {exc}", flush=True)
-        return {key: None for key in ISSUE_KERNELS}
+    kernels = _issue_kernels()
+    loops = sass_count.parse_loops(sass_count.disassemble(_build.library_path()),
+                                   tuple(fragment for fragment, _ in kernels.values()))
     counts = {key: sass_count.instructions_per_step(loops, fragment)
-              for key, fragment in ISSUE_KERNELS.items()}
-    print(f"[2 build] machine instructions per sampled step (cuobjdump -sass): {counts}",
-          flush=True)
+              for key, (fragment, _) in kernels.items()}
+    _require(all(counts.values()), f"no step loop found in the SASS of a kernel: {counts}")
+    print(f"[2 build] machine instructions per sampled step and lane (cuobjdump -sass): "
+          f"{counts}", flush=True)
     return counts
 
 
@@ -259,6 +274,70 @@ def _time_per_call(fn, iters, warmup):
     return start.elapsed_time(end) / iters, wall_ms
 
 
+def _window_planes(mode40, overlap, h, n, seed):
+    """Nonzero starting accumulators [h, n] of one variant, on the card."""
+    import torch
+
+    from kwave_tpu_torch import bitpack
+    from kwave_tpu_torch.basis import MAX_EXP_P
+
+    rng = np.random.default_rng(seed)
+    vals = [torch.from_numpy((1e5 * rng.standard_normal((h, n))).astype(np.float32)).cuda()
+            for _ in range(4)]
+    if not mode40:
+        return tuple(vals[: 4 if overlap else 2])
+    planes = bitpack.encode40(vals[0], vals[1], MAX_EXP_P) + bitpack.encode40(
+        vals[2], vals[3], MAX_EXP_P)
+    return tuple(p.contiguous() for p in planes[: 6 if overlap else 3])
+
+
+def _edge_window_check(key, overlap) -> None:
+    """One 40-bit window whose values leave the word's range on both sides: samples over
+    100 binades (zeros and a denormal row among them) against table entries that put the
+    two halves of an accumulator up to 30 binades apart, H=16, a ragged N. Kernel == plain
+    == the reference's loop as written, bit for bit."""
+    import torch
+
+    from kwave_tpu_torch.basis import MAX_EXP_P
+    from kwave_tpu_torch.ops import encode_window as ew
+
+    rng = np.random.default_rng(31)
+    o, h, n = 6, 16, 4099
+    gaps = 2.0 ** -rng.integers(0, 31, (2 * o, 4 * h))
+    tabs = torch.from_numpy((rng.choice([-1.0, 1.0], gaps.shape) * gaps
+                             * rng.uniform(0.5, 1.0, gaps.shape)).astype(np.float32)).cuda()
+    mag = 2.0 ** rng.integers(-60, 41, (o, n)) * rng.uniform(1.0, 2.0, (o, n))
+    x = (rng.choice([-1.0, 1.0], mag.shape) * mag).astype(np.float32)
+    x[:, ::11] = 0.0
+    x[2, ::5] = 1e-40
+    chunk = torch.from_numpy(x).cuda()
+    planes = _window_planes(True, overlap, h, n, seed=5)
+    for parity, mirror in ((0, 1), (1, 0)):
+        args = (chunk, tabs, planes, MAX_EXP_P, parity, mirror, overlap)
+        got = ew.encode_window_40b_exact(*args)
+        torch.cuda.synchronize()
+        for name, want in (("plain", ew.encode_window_40b_exact_plain(*args)),
+                           ("unsplit plain",
+                            ew.encode_window_40b_exact_unsplit_plain(*args))):
+            _require(all(_bits_equal(a, b) for a, b in zip(got, want)),
+                     f"{key}: edge-value window (parity {parity}, mirror {mirror}): kernel "
+                     f"!= {name}")
+
+
+def launch_floor_phase(smi) -> float:
+    """Device time of an empty kernel at the grid, block and shared memory of the main
+    path's 40-bit overlap window (o=16, H=1, N=16384): what a one-window kernel costs
+    before it does anything. No bound; it is read beside the one-window kernels' times."""
+    from kwave_tpu_torch.ops import encode_window as ew
+
+    ms, _ = _time_per_call(lambda: ew.launch_floor(O_SIZE, 1, N_SENSORS), iters=200,
+                           warmup=20)
+    print(f"[3 kernel] launch_floor_us {ms * 1e3:.3f} (an empty kernel at the 40-bit "
+          f"window's geometry: {ew.WINDOW_THREADS} threads a block, {ew.W40_SPLIT} lanes a "
+          f"sensor, o={O_SIZE} H=1 N={N_SENSORS}) on {smi}", flush=True)
+    return ms * 1e3
+
+
 def kernel_phase():
     """All four variants at the main path's shapes, against plain and oracle."""
     import torch
@@ -271,35 +350,39 @@ def kernel_phase():
     results = {}
     for key, (mode40, overlap, _) in VARIANTS.items():
         worst = 0.0
-        for h in (1, 2):
+        if mode40:
+            extra = (MAX_EXP_P,)
+            kern, plain = ew.encode_window_40b_exact, ew.encode_window_40b_exact_plain
+            # the designs the default was chosen from, and the reference's loop as written
+            others = {"words packed at every step": functools.partial(ew._kernel_40b,
+                                                                      packed=True, split=1),
+                      "unsplit plain": ew.encode_window_40b_exact_unsplit_plain}
+            if overlap:  # without overlap there is one buffer, and one thread has it
+                others["one thread a sensor"] = functools.partial(ew._kernel_40b, split=1)
+        else:
+            extra, others = (), {}
+            kern = ew.encode_window_float_exact
+            plain = ew.encode_window_float_exact_plain
+        for h in (1, 2, 3):
             basis = generate_basis(float(O_SIZE), 1, h, normalize=True)
             tabs = _tables(basis)
             x = torch.from_numpy(_series(3 * O_SIZE, N_SENSORS, seed=h)).cuda()
-            # (a) one window from nonzero state, per parity and mirror: kernel == plain
-            rng = np.random.default_rng(h)
-            vals = [torch.from_numpy((1e5 * rng.standard_normal((h, N_SENSORS))).astype(
-                np.float32)).cuda() for _ in range(4)]
-            if mode40:
-                planes = bitpack.encode40(vals[0], vals[1], MAX_EXP_P) + bitpack.encode40(
-                    vals[2], vals[3], MAX_EXP_P)
-                planes = tuple(p.contiguous() for p in planes[: 6 if overlap else 3])
-                extra = (MAX_EXP_P,)
-                kern, plain = ew.encode_window_40b_exact, ew.encode_window_40b_exact_plain
-            else:
-                planes = tuple(vals[: 4 if overlap else 2])
-                extra = ()
-                kern = ew.encode_window_float_exact
-                plain = ew.encode_window_float_exact_plain
-            chunk = x[:O_SIZE].contiguous()
-            for parity in (0, 1):
-                for mirror in (0, 1):
+            # (a) one window from nonzero state, per parity and mirror, a partial window,
+            # the full and a ragged N: kernel == plain, and so does every other design
+            for n in (N_SENSORS, N_SENSORS - RAGGED):
+                planes = _window_planes(mode40, overlap, h, n, seed=h)
+                for steps, parity, mirror in ((O_SIZE, 0, 0), (O_SIZE, 0, 1), (O_SIZE, 1, 0),
+                                              (O_SIZE, 1, 1), (O_SIZE - 5, 1, 0)):
+                    chunk = x[:steps, :n].contiguous()
                     args = (chunk, tabs, planes, *extra, parity, mirror, overlap)
                     got, want = kern(*args), plain(*args)
                     torch.cuda.synchronize()
-                    for a, b in zip(got, want):
-                        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
-                            raise AssertionError(f"{key} H={h} parity={parity} "
-                                                 f"mirror={mirror}: kernel != plain")
+                    what = f"{key} H={h} N={n} steps={steps} parity={parity} mirror={mirror}"
+                    _require(all(_bits_equal(a, b) for a, b in zip(got, want)),
+                             f"{what}: kernel != plain")
+                    for name, other in others.items():
+                        _require(all(_bits_equal(a, b) for a, b in zip(other(*args), want)),
+                                 f"{what}: {name} != plain")
                     if mode40:  # decoded values, for the error column
                         for k in range(0, len(got), 3):
                             for d1, d2 in zip(bitpack.decode40(*got[k:k + 3], MAX_EXP_P),
@@ -308,6 +391,8 @@ def kernel_phase():
                     else:
                         for a, b in zip(got, want):
                             worst = max(worst, float((a - b).abs().max()))
+            if h == 3:
+                continue
             # (b) three windows from zero state through the encoder: == oracle
             cfg = encoder.EncoderConfig.for_stream(basis, False, mode40, overlap)
             tabd = encoder.make_tables(basis, False, "cuda")
@@ -327,21 +412,28 @@ def kernel_phase():
                                           np.ascontiguousarray(b).view(np.int32)):
                         raise AssertionError(f"{key} H={h} window {w}: kernel != oracle")
             if h == 1:  # the main path's shape: time it
+                chunk = x[:O_SIZE].contiguous()
+                planes = _window_planes(mode40, overlap, h, N_SENSORS, seed=h)
                 args = (chunk, tabs, planes, *extra, 0, 0, overlap)
                 ms, wall = _time_per_call(lambda: kern(*args), iters=200, warmup=20)
                 plain_ms, plain_wall = _time_per_call(lambda: plain(*args), iters=10,
                                                         warmup=2)
                 # the chunk and the table in, each plane in and out; 4 products and 4
-                # sums per sensor and step; the 40-bit pack/unpack is integer work
+                # sums per sensor and step; the 40-bit requantisation is integer work
                 bound = _bound(_nbytes(chunk, tabs, *planes, *planes),
                                8.0 * O_SIZE * N_SENSORS)
+        if mode40:
+            _edge_window_check(key, overlap)
         results[key] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, **bound,
                             library_ms=None, steps=O_SIZE * N_SENSORS)
-        print(f"[3 kernel] {key}: bit-exact vs plain (H=1,2, parity 0/1, mirror 0/1) and "
-              f"vs oracle ({ORACLE_SENSORS} sensors, 3 windows); per window at o={O_SIZE} "
-              f"H=1 N={N_SENSORS}, device time: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms; wall per call: kernel {wall:.4f} ms, plain {plain_wall:.4f} ms",
-              flush=True)
+        print(f"[3 kernel] {key}: bit-exact vs plain (H=1,2,3; N={N_SENSORS} and "
+              f"{N_SENSORS - RAGGED}; parity 0/1, mirror 0/1, a window of {O_SIZE - 5} steps"
+              + (f"; also {', '.join(others)}; and a window of values below, inside and "
+                 f"above the word's range" if others else "") + f") and "
+              f"vs oracle ({ORACLE_SENSORS} sensors, 3 windows, H=1,2); per window at "
+              f"o={O_SIZE} H=1 N={N_SENSORS}, device time: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms; wall per call: kernel {wall:.4f} ms, plain "
+              f"{plain_wall:.4f} ms", flush=True)
     return results
 
 
@@ -460,6 +552,21 @@ def codec_kernel_phase():
     return results
 
 
+def _device_events(fn) -> dict:
+    """Name -> count of everything the device ran during one call of ``fn`` (kernels,
+    copies, memsets), from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # not the first call: the build and the allocator's first blocks are set-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")}
+
+
 def _codec_main_checks(x, frames, rec, basis, lo, hi, tab4, results, k6_err):
     """At the full shape: K4 against the oracle and on the five boundary cases, dyadic
     bit-exactness, and the times of every kernel and its plain version."""
@@ -504,6 +611,17 @@ def _codec_main_checks(x, frames, rec, basis, lo, hi, tab4, results, k6_err):
 
     p1 = torch.zeros_like(frames[0])
     chunk = x[:o]
+    # a call of an encode entry runs its kernel on the device, and nothing else
+    for name, call, kernel in (
+            ("encode_frames_flat", lambda: fp.encode_frames_flat(x, lo, hi, o),
+             "project_frames"),
+            ("encode_frames", lambda: fp.encode_frames(x, lo, hi, o), "project_frames"),
+            ("encode_window_float", lambda: ew.encode_window_float(chunk, lo, hi, p1),
+             "project_window")):
+        events = _device_events(call)
+        _require(len(events) == 1 and sum(events.values()) == 1
+                 and kernel in next(iter(events)),
+                 f"{name} ran on the device, besides one {kernel}: {events}")
     timed = {  # LAUNCHES key: (kernel call, plain call)
         "encode_frames_flat": (lambda: fp.encode_frames_flat(x, lo, hi, o),
                                lambda: fp.encode_frames_plain(x, lo, hi, o)),
@@ -548,7 +666,9 @@ def _codec_main_checks(x, frames, rec, basis, lo, hi, tab4, results, k6_err):
                             library_ms=None)
         parts.append(f"{key} {ms * 1e3:.1f} us (wall {wall * 1e3:.1f} us), plain "
                      f"{plain_ms * 1e3:.1f} us (wall {plain_wall * 1e3:.1f} us)")
-    return (f"; K4 off oracle {dec_orc:.2e} ({ORACLE_SENSORS} sensors); 5 boundary cases "
+    return (f"; each encode entry's call is one kernel on the device and nothing else "
+            f"(torch.profiler); K4 off oracle {dec_orc:.2e} ({ORACLE_SENSORS} sensors); 5 "
+            f"boundary cases "
             f"flat == 3D, worst {worst_case:.2e} off plain/oracle; dyadic K5 and K4 == plain "
             f"bit for bit; device time per call: " + "; ".join(parts))
 
@@ -1197,6 +1317,7 @@ def main() -> int:
     build_phase()
     per_step = issue_phase()
     kernels = kernel_phase()
+    floor_us = launch_floor_phase(smi)  # after the kernels' timing, at the same clocks
     launches, float_run = main_path_phase()
     codec = codec_kernel_phase()
     codec_launches = codec_round_trip_phase(*float_run)
@@ -1215,13 +1336,15 @@ def main() -> int:
     rows += [dict(name=key, route="cuda", source="kwave_tpu_torch/csrc/zfuse.cu",
                   replaces="kwave_tpu/ops/zfuse.py:113", launches=fused_launches[key],
                   **fused[key]) for key in ZFUSE_KERNELS]
-    for r in rows:  # the 40-bit kernels' steps at this build's instructions per step
+    lanes = {key: n for key, (_, n) in _issue_kernels().items()}
+    for r in rows:  # the 40-bit kernels' steps at this build's instructions per step and lane
         count, steps = per_step.get(r["name"]), r.pop("steps", 0)
         r["instr_per_step"] = count
-        r["issue_ms"] = None if count is None else count * steps / INSTR_PER_S * 1e3
+        r["issue_ms"] = None if count is None else \
+            count * lanes[r["name"]] * steps / INSTR_PER_S * 1e3
     _require(all(r["launches"] > 0 for r in rows),
              f"a kernel was never launched on its path: {rows}")
-    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"kernels": rows, "launch_floor_us": floor_us}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

@@ -115,6 +115,50 @@ def decode40(header: torch.Tensor, mr: torch.Tensor, mi: torch.Tensor, e: int):
     return _unfields(header, m_r, m_i, e)
 
 
+def _to_int32(value: int) -> int:
+    """A 32-bit pattern as the Python int that an int32 tensor holds for it."""
+    return ((value + (1 << 31)) % (1 << 32)) - (1 << 31)
+
+
+def quantize40(re: torch.Tensor, im: torch.Tensor, e: int):
+    """``decode40(*encode40(re, im, e), e)`` bit for bit, without the words in between: the
+    value that a 40-bit accumulator holds after a step, as the CUDA kernels carry it from
+    one step to the next (``quant40`` in ``csrc/encode_step.cuh``).
+
+    With ``top = max(both exponents, e)`` a half with exponent ``e_x`` is shifted by
+    ``rs = 6 + top - e_x``; the flag bit that `encode40` sets above its mantissa is the
+    leading one that `decode40` normalises to, so the half keeps its sign and exponent and
+    loses the low ``rs + 1`` bits of its mantissa (after `encode40`'s rounding); ``rs >=
+    23`` leaves a signed zero. ``top - e > 15`` saturates both halves to the word's largest
+    value. Where a shift count reaches 256 it wraps in the reference's uint8 (one half 250
+    binades below the other, with ``e`` above 234): those elements take the pack and the
+    unpack as they are."""
+    bits_r = re.to(torch.float32).contiguous().view(_I32)
+    bits_i = im.to(torch.float32).contiguous().view(_I32)
+    e_r = (bits_r >> 23) & 0xFF
+    e_i = (bits_i >> 23) & 0xFF
+    top = torch.clamp(torch.maximum(e_r, e_i), min=e)
+    over = top - e > 0xF
+    wrap = ~over & (top - torch.minimum(e_r, e_i) >= 250)
+    sign, keep = _to_int32(0x80000000), _to_int32(0xFF800000)
+    sat = _to_int32(((e + 14) << 23) & 0xFFFFFFFF | 0x7FFF00)  # _norm of 0xFFFF << 6
+
+    def half(b, e_x):
+        rs = torch.clamp(6 + top - e_x, max=23)
+        t = (b & 0x7FFFFF) >> rs
+        up = (t > 0) & (t != (torch.full_like(rs, 0x7FFFFF) >> rs))
+        kept = (b & keep) | (((t + up.to(_I32)) & -2) << rs)
+        out = torch.where(rs == 23, b & sign, kept)
+        return torch.where(over, (b & sign) | sat, out)
+
+    out_r, out_i = half(bits_r, e_r), half(bits_i, e_i)
+    if bool(wrap.any()):
+        slow_r, slow_i = decode40(*encode40(re, im, e), e)
+        out_r = torch.where(wrap, slow_r.view(_I32), out_r)
+        out_i = torch.where(wrap, slow_i.view(_I32), out_i)
+    return out_r.view(torch.float32), out_i.view(torch.float32)
+
+
 # ---------------------------------------------------------------------------
 # W-bit complex packing (port of kwave_tpu.bitpack.encode_packed/decode_packed)
 # ---------------------------------------------------------------------------

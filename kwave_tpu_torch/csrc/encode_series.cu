@@ -29,7 +29,7 @@
 //
 // Geometry: blockIdx.x = sensor tile * H + h, blockIdx.y = chunk. Harmonics are separate
 // threads, not a loop in one thread: H is a run-time value, the 40-bit state of one
-// harmonic is already 10 registers, and with h fastest in blockIdx.x the H blocks that read
+// harmonic is already 8 registers, and with h fastest in blockIdx.x the H blocks that read
 // the same samples run side by side, so all but the first find them in the L2 cache. Each
 // block stages its harmonic's 4 table columns over both parities (2o x 4 floats) in shared
 // memory; window k takes rows (k % 2)*o + u. The samples of a batch of steps are loaded
@@ -37,11 +37,12 @@
 // the window itself). The ragged edge of N is masked; all offsets are 64-bit.
 //
 // What bounds it on the H100: the float body moves (1 + 1/G) * T*N*4 B of samples and
-// the frames once, little arithmetic: memory. The 40-bit body decodes and re-encodes each
-// accumulator at every step, nearly all of it integer instructions (ops/sass_count.py
-// counts them per step from the built library), and spends most of its time issuing
-// them. The per-step arithmetic is encode_step.cuh's, shared with encode_window.cu, so
-// both give the same bits.
+// the frames once, little arithmetic: memory. The 40-bit body requantises each accumulator
+// at every step, nearly all of it integer instructions (ops/sass_count.py counts them per
+// step from the built library), and spends most of its time issuing them; the accumulators
+// stay unpacked between steps and are packed once a window, when a frame is written. The
+// per-step arithmetic is encode_step.cuh's, shared with encode_window.cu, so both give the
+// same bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,9 +64,10 @@ __device__ __forceinline__ void load_table2(float* tab, const float* __restrict_
   __syncthreads();
 }
 
-// 40-bit state of one thread: both buffers, and the post-MAC floats of the last step.
+// 40-bit state of one thread: both buffers as the floats their words decode to (q*, see
+// quant40), and the post-MAC floats of the last step (c*), which the words are packed from.
 struct Acc40 {
-  uint32_t h1 = 0, r1 = 0, i1 = 0, h2 = 0, r2 = 0, i2 = 0;
+  float q1r = 0.f, q1i = 0.f, q2r = 0.f, q2i = 0.f;
   float c1r = 0.f, c1i = 0.f, c2r = 0.f, c2i = 0.f;
 };
 
@@ -78,16 +80,11 @@ enum Walk { kBoth, kAliased, kFirst, kSecond };
 
 template <Walk W>
 __device__ __forceinline__ void step(float x, const float* t, int e, Acc40& a) {
-  if (W == kBoth) {
-    step40<true>(x, t[0], t[1], t[2], t[3], e, a.h1, a.r1, a.i1, a.h2, a.r2, a.i2, a.c1r,
-                 a.c1i, a.c2r, a.c2i);
-  } else if (W == kAliased) {
-    step40<false>(x, t[0], t[1], t[2], t[3], e, a.h1, a.r1, a.i1, a.h2, a.r2, a.i2, a.c1r,
-                  a.c1i, a.c2r, a.c2i);
-  } else if (W == kFirst) {
-    step40_one(x, t[0], t[1], e, a.h1, a.r1, a.i1, a.c1r, a.c1i);
+  if (W == kAliased) {
+    step40_aliased(x, t[0], t[1], t[2], t[3], e, a.q1r, a.q1i, a.c1r, a.c1i);
   } else {
-    step40_one(x, t[2], t[3], e, a.h2, a.r2, a.i2, a.c2r, a.c2i);
+    if (W != kSecond) step40_one(x, t[0], t[1], e, a.q1r, a.q1i, a.c1r, a.c1i);
+    if (W != kFirst) step40_one(x, t[2], t[3], e, a.q2r, a.q2i, a.c2r, a.c2i);
   }
 }
 
@@ -157,24 +154,30 @@ series40(const float* __restrict__ series, const float* __restrict__ tabs,
     const float* t = tab + 4 * o * (k & 1);
     walk_window<OVERLAP ? kBoth : kAliased>(x, t, o, N, e, a);
     const size_t f = ((size_t)k * H + h) * N + n;
-    if (OVERLAP) {
-      if (k == 0) mirror40(a.c1r, a.c1i, a.c2r, a.c2i, e, a.h2, a.r2, a.i2);
-      if (k & 1) {  // odd frame: buffer 1 is finished
-        fh[f] = a.h1, fr[f] = a.r1, fi[f] = a.i1;
-        a.h1 = a.r1 = a.i1 = 0;
-      } else {
-        fh[f] = a.h2, fr[f] = a.r2, fi[f] = a.i2;
-        a.h2 = a.r2 = a.i2 = 0;
-      }
-    } else {
-      fh[f] = a.h1, fr[f] = a.r1, fi[f] = a.i1;
-      a.h1 = a.r1 = a.i1 = 0;
+    uint32_t wh, wr, wi;
+    if (OVERLAP && !(k & 1)) {  // even frame: buffer 2 is finished, and restarts from zero
+      if (k == 0) a.c2r = __fadd_rn(a.c2r, a.c1r), a.c2i = __fadd_rn(a.c2i, a.c1i);  // mirror
+      encode40(a.c2r, a.c2i, e, wh, wr, wi);
+      a.q2r = a.q2i = 0.f;
+    } else {  // odd frame, or the one accumulator without overlap: buffer 1
+      encode40(a.c1r, a.c1i, e, wh, wr, wi);
+      a.q1r = a.q1i = 0.f;
     }
+    fh[f] = wh, fr[f] = wr, fi[f] = wi;
   }
-  if (k1 == K) {  // the last chunk holds the record's final state
+  if (k1 == K) {
+    // the last chunk holds the record's final state: zero words for the buffer that window
+    // K - 1 emitted, the last step's floats packed for the one that lives on
     const size_t p = (size_t)h * N + n;
-    h1_out[p] = a.h1, r1_out[p] = a.r1, i1_out[p] = a.i1;
-    if (OVERLAP) h2_out[p] = a.h2, r2_out[p] = a.r2, i2_out[p] = a.i2;
+    uint32_t wh = 0, wr = 0, wi = 0;
+    const bool first_lives = OVERLAP && !((K - 1) & 1);
+    if (first_lives) encode40(a.c1r, a.c1i, e, wh, wr, wi);
+    h1_out[p] = wh, r1_out[p] = wr, i1_out[p] = wi;
+    if (OVERLAP) {
+      wh = wr = wi = 0;
+      if (!first_lives) encode40(a.c2r, a.c2i, e, wh, wr, wi);
+      h2_out[p] = wh, r2_out[p] = wr, i2_out[p] = wi;
+    }
   }
 }
 
@@ -238,7 +241,8 @@ bool grid_for(int K, int H, int N, int G, dim3& grid) {
 extern "C" {
 
 // Both return cudaGetLastError() after the launch (0 = cudaSuccess), or
-// cudaErrorInvalidValue for a chunk size G that gives more chunks than a grid takes.
+// cudaErrorInvalidValue for a chunk size G that gives more chunks than a grid takes or an
+// exponent offset e outside 0 .. kQuant40MaxE.
 // Without overlap the second set of state planes is not written (the caller holds zeros
 // there).
 int kw_encode_series_40b(const float* series, const float* tabs, uint32_t* fh, uint32_t* fr,
@@ -246,7 +250,8 @@ int kw_encode_series_40b(const float* series, const float* tabs, uint32_t* fh, u
                          uint32_t* r2, uint32_t* i2, int K, int o, int H, int N, int e,
                          int overlap, int G, void* stream) {
   dim3 grid;
-  if (!grid_for(K, H, N, G, grid)) return (int)cudaErrorInvalidValue;
+  if (e < 0 || e > kQuant40MaxE || !grid_for(K, H, N, G, grid))
+    return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)o * 8 * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (overlap) {

@@ -1,8 +1,10 @@
 // Per-step arithmetic of the reference-exact compressed-stream encoders, shared by the
 // one-window kernels (encode_window.cu) and the whole-record kernels (encode_series.cu) so
 // that their order of operations cannot drift apart: the 40-bit pack/unpack, and one
-// sampled step of the 40-bit and the float accumulators, of both buffers or of one (the
-// whole-record kernels recompute one buffer over the window before a chunk).
+// sampled step of the 40-bit and the float accumulators, of one buffer at a time (a lane of
+// the one-window kernel owns one buffer; the whole-record kernels recompute one buffer over
+// the window before a chunk). Between two steps a 40-bit accumulator is held as the floats
+// its words decode to (quant40); the words are packed when a window ends.
 //
 // Every fp32 product and sum is an explicit __fmul_rn/__fadd_rn, so nvcc cannot contract
 // a + t*x into an FMA (the reference semantics round the product first); the order of
@@ -77,36 +79,85 @@ static __device__ __forceinline__ void decode40(uint32_t hdr, uint32_t mr, uint3
   im = __uint_as_float(norm_bits(s_i, m_i, e_base));
 }
 
-// One sampled step of one 40-bit accumulator: decode, add t*x, re-encode. cr/ci return the
-// post-MAC floats. The two buffers of a window never read each other, so a buffer stepped
-// alone gives the bits it gets beside the other one.
-static __device__ __forceinline__ void step40_one(float x, float tr, float ti, int e,
-                                                  uint32_t& h, uint32_t& r, uint32_t& i,
-                                                  float& cr, float& ci) {
+// Exponent offsets e that quant40 takes: 0 .. kQuant40MaxE. Above it a shift count of the
+// pack can reach 256 and wrap in the reference's uint8 (one half 250 binades below the
+// other); below 0 the offset has no place in an exponent field.
+constexpr int kQuant40MaxE = 234;
+
+// One half of quant40. eb is b's exponent field in place (b & 0x7F800000), top the shared
+// one; the half is shifted by rs = 6 + (top - eb) >> 23, at most 23. The pack cuts the
+// mantissa m to t = m >> rs, adds one unless t is 0 or all ones, and its last shift drops
+// the lowest bit: that is t rounded up to even, but an all-ones t rounded down. In place,
+// the kept mantissa is the smaller of
+//   (m + (1 << rs)) & (-2 << rs)   and   ((0x7FFFFF >> rs) - 1) << rs
+// (the first passes 2^23 only where t is all ones; at rs = 23 the first is 0 and the
+// second huge). rs = 23 leaves a signed zero; `over` gives the saturated word's value
+// `sat`.
+static __device__ __forceinline__ float quant40_half(uint32_t b, uint32_t eb, uint32_t top,
+                                                     bool over, uint32_t sat) {
+  const int rs = min((int)((top - eb) >> 23) + 6, 23);
+  const uint32_t up = ((b & 0x007FFFFFu) + (1u << rs)) & (0xFFFFFFFEu << rs);
+  const uint32_t cap = ((0x7FFFFFu >> rs) - 1u) << rs;
+  const uint32_t kept = (b & (rs == 23 ? 0x80000000u : 0xFF800000u)) | min(up, cap);
+  return __uint_as_float(over ? ((b & 0x80000000u) | sat) : kept);
+}
+
+// The accumulator between two steps: (re, im) -> decode40(encode40(re, im)), bit for bit
+// for every pair of floats and every e from 0 to kQuant40MaxE, without the words in between
+// and without a branch. With top = max(both exponents, e), a half with exponent e_x is
+// shifted by rs = 6 + top - e_x; the flag bit that the pack sets above its mantissa is the
+// leading one that the unpack's normalise looks for, so the half keeps its sign and
+// exponent and loses the low rs + 1 bits of its mantissa. top - e > 15 saturates both
+// halves to the word's largest value (norm_bits of 0xFFFF << 6 at exponent e + 15). The
+// exponents are compared in place, as fields of the float's bits.
+static __device__ __forceinline__ void quant40(float& re, float& im, int e) {
+  const uint32_t br = __float_as_uint(re);
+  const uint32_t bi = __float_as_uint(im);
+  const uint32_t er = br & 0x7F800000u;
+  const uint32_t ei = bi & 0x7F800000u;
+  const uint32_t top = max(max(er, ei), (uint32_t)e << 23);
+  const bool over = top > ((uint32_t)(e + 15) << 23);
+  const uint32_t sat = ((uint32_t)(e + 14) << 23) | 0x7FFF00u;
+  re = quant40_half(br, er, top, over, sat);
+  im = quant40_half(bi, ei, top, over, sat);
+}
+
+// One sampled step of one 40-bit accumulator, the words kept between steps: decode, add
+// t*x, re-encode. cr/ci return the post-MAC floats. Only the sweep's baseline variant of
+// the one-window kernel takes it; every other path takes step40_one.
+static __device__ __forceinline__ void step40_packed_one(float x, float tr, float ti, int e,
+                                                         uint32_t& h, uint32_t& r,
+                                                         uint32_t& i, float& cr, float& ci) {
   decode40(h, r, i, e, cr, ci);
   cr = __fadd_rn(cr, __fmul_rn(tr, x));
   ci = __fadd_rn(ci, __fmul_rn(ti, x));
   encode40(cr, ci, e, h, r, i);
 }
 
-// One sampled step of the 40-bit accumulators: bE*x into buffer 1 and bE_1*x into buffer 2.
-// c1*/c2* return the post-MAC floats, which the first window's mirror sums.
-template <bool OVERLAP>
-static __device__ __forceinline__ void step40(float x, float t1r, float t1i, float t2r,
-                                              float t2i, int e, uint32_t& h1, uint32_t& r1,
-                                              uint32_t& i1, uint32_t& h2, uint32_t& r2,
-                                              uint32_t& i2, float& c1r, float& c1i,
-                                              float& c2r, float& c2i) {
-  if (OVERLAP) {
-    step40_one(x, t1r, t1i, e, h1, r1, i1, c1r, c1i);
-    step40_one(x, t2r, t2i, e, h2, r2, i2, c2r, c2i);
-  } else {
-    // cc += (bE*x + bE_1*x): both products rounded, summed, then one accumulate
-    decode40(h1, r1, i1, e, c1r, c1i);
-    c1r = __fadd_rn(c1r, __fadd_rn(__fmul_rn(t1r, x), __fmul_rn(t2r, x)));
-    c1i = __fadd_rn(c1i, __fadd_rn(__fmul_rn(t1i, x), __fmul_rn(t2i, x)));
-    encode40(c1r, c1i, e, h1, r1, i1);
-  }
+// One sampled step of one 40-bit accumulator, held as the floats q that its words decode
+// to: add t*x, requantise. cr/ci return the post-MAC floats, which encode40 packs into the
+// accumulator's words when they are needed (after the last step of a window) and which the
+// first window's mirror sums. The two buffers of a window never read each other, so a
+// buffer stepped alone gives the bits it gets beside the other one.
+static __device__ __forceinline__ void step40_one(float x, float tr, float ti, int e,
+                                                  float& qr, float& qi, float& cr, float& ci) {
+  cr = __fadd_rn(qr, __fmul_rn(tr, x));
+  ci = __fadd_rn(qi, __fmul_rn(ti, x));
+  qr = cr;
+  qi = ci;
+  quant40(qr, qi, e);
+}
+
+// One sampled step of the no-overlap accumulator: cc += (bE*x + bE_1*x), both products
+// rounded, summed, then one accumulate.
+static __device__ __forceinline__ void step40_aliased(float x, float t1r, float t1i,
+                                                      float t2r, float t2i, int e, float& qr,
+                                                      float& qi, float& cr, float& ci) {
+  cr = __fadd_rn(qr, __fadd_rn(__fmul_rn(t1r, x), __fmul_rn(t2r, x)));
+  ci = __fadd_rn(qi, __fadd_rn(__fmul_rn(t1i, x), __fmul_rn(t2i, x)));
+  qr = cr;
+  qi = ci;
+  quant40(qr, qi, e);
 }
 
 // First frame: buf2 = encode(c2 + c1) of the saving step's floats

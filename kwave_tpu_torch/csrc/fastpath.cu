@@ -4,8 +4,9 @@
 //
 // Replaces the TPU kernels of kwave_tpu/ops/fastpath.py and kwave_tpu/ops/encode_pallas.py:
 //   project_frames <- fastpath.py _enc_kernel_flat (encode_frames_flat) and _enc_kernel
-//                     (encode_frames); with K = 1 and a carried P1, encode_pallas.py
-//                     _float_kernel (encode_window_float)
+//                     (encode_frames)
+//   project_window <- encode_pallas.py _float_kernel (encode_window_float): one window of
+//                     project_frames, with the first-half projection P1 carried
 //   synth_series   <- fastpath.py _dec_kernel_flat (reconstruct_series_flat) and
 //                     _dec_kernel (reconstruct_series)
 // The TPU kernels' flat and 3D forms differ only in how they tile the TPU's (8, 128)
@@ -17,12 +18,24 @@
 // Encode: frame[k] = P1[k-1] + P2[k], frame[0] = P1[0] + P2[0] (the mirror identity),
 // where P = chunk_k^T . [tab_lo | tab_hi] is the [4H] projection of window k (o steps).
 // One thread per (sensor n, block of KB consecutive windows), coalesced along n; its 4H
-// projection sums stay in registers and the [o, 4H] table sits in shared memory. The TPU
+// projection sums stay in registers and the [o, 4H] table sits in shared memory, staged
+// from the two half tables as the caller holds them (no joined copy is made). The TPU
 // kernel carries P1 from window k-1 along its sequential grid; blocks here run in no
 // order, so each thread recomputes P1 of the window just before its block (one extra
-// window read per KB windows). In one-window mode (K = 1, the K6 entry) P1 of the
-// previous window comes in from p1_in unless first_window, and P1 goes out to p1_out.
-// Trailing T % o steps are never read; a ragged N is masked.
+// window read per KB windows). Trailing T % o steps are never read; a ragged N is masked.
+//
+// One window (project_window): P1 of the previous window comes in from p1_in unless
+// first_window, and P1 goes out to p1_out. A window is 1.3 MB at the codec's shape, so the
+// launch, one round trip to device memory and the instructions ahead of the first load are
+// what it costs, not bytes. Each column of the two half tables is summed by one thread in
+// u order with fmaf, as project_frames does, so a window has the bits of the whole-series
+// frame. A thread issues the loads of a whole window (kWindowBatch samples, and the next
+// batch before it works on this one) before its first multiply-add, with 32-bit offsets;
+// the table is staged four loads a thread at a time; blocks are small, so a window of
+// 16384 sensors covers the card. A thread sums R of the 2H coefficient rows and
+// blockIdx.y walks the rows: the wrapper takes R >= 2H, all rows in one thread, because
+// with the rows spread over the grid every sample is loaded 2H / R times, and on the
+// H100 that costs more than the wider launch brings (`kwave_tpu_torch.sweeps`).
 //
 // Decode: x[k*o + r] = sum_j tab[r, j] * [F[k]; F[k+1]]_j with tab [o, 4H] =
 // [bE_re[o:] | bE_im[o:] | bE_re[:o] | bE_im[:o]] (the o/2 normalisation is folded into
@@ -40,7 +53,8 @@
 //
 // Arithmetic is fp32 throughout (fmaf, in table order). It is not bit-identical to the
 // plain PyTorch version (a matmul with its own summation order); both entries of each
-// kernel, and K6 window by window against K5, are bit-identical to each other.
+// kernel, and project_window window by window against project_frames, are bit-identical to
+// each other.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,10 +63,21 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWindowsPerThread = 8;  // KB
+constexpr int kWindowBatch = 16;      // samples a thread of project_window loads ahead
 
 __device__ __forceinline__ void load_table(float* stab, const float* __restrict__ tab,
                                            int count) {
   for (int j = threadIdx.x; j < count; j += blockDim.x) stab[j] = tab[j];
+  __syncthreads();
+}
+
+// stab[o, 2*H2] = [tab_lo | tab_hi] from the two [o, H2] half tables.
+__device__ __forceinline__ void load_half_tables(float* stab, const float* __restrict__ lo,
+                                                 const float* __restrict__ hi, int o, int H2) {
+  for (int j = threadIdx.x; j < o * 2 * H2; j += blockDim.x) {
+    const int u = j / (2 * H2), c = j % (2 * H2);
+    stab[j] = c < H2 ? lo[u * H2 + c] : hi[u * H2 + c - H2];
+  }
   __syncthreads();
 }
 
@@ -71,13 +96,13 @@ __device__ __forceinline__ void project(const float* __restrict__ x, const float
 }
 
 template <int H2>
-__global__ void project_frames(const float* __restrict__ series, const float* __restrict__ tab,
-                               const float* __restrict__ p1_in, float* __restrict__ frames,
-                               float* __restrict__ p1_out, int K, int o, int N,
-                               int first_window) {
+__global__ void project_frames(const float* __restrict__ series,
+                               const float* __restrict__ tab_lo,
+                               const float* __restrict__ tab_hi, float* __restrict__ frames,
+                               int K, int o, int N) {
   constexpr int H4 = 2 * H2;
   extern __shared__ float stab[];  // [o, 4H]
-  load_table(stab, tab, o * H4);
+  load_half_tables(stab, tab_lo, tab_hi, o, H2);
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
   const int k0 = blockIdx.y * kWindowsPerThread;
@@ -89,13 +114,10 @@ __global__ void project_frames(const float* __restrict__ series, const float* __
     project<H4>(series + (size_t)(k0 - 1) * o * N + n, stab, o, N, p);
 #pragma unroll
     for (int j = 0; j < H2; ++j) prev[j] = p[j];
-  } else if (!first_window) {  // one-window mode: P1 carried in
-#pragma unroll
-    for (int j = 0; j < H2; ++j) prev[j] = p1_in[(size_t)j * N + n];
   }
   for (int k = k0; k < k1; ++k) {
     project<H4>(series + (size_t)k * o * N + n, stab, o, N, p);
-    if (k == 0 && first_window) {  // mirror identity: the window's own P1
+    if (k == 0) {  // mirror identity: the window's own P1
 #pragma unroll
       for (int j = 0; j < H2; ++j) prev[j] = p[j];
     }
@@ -106,9 +128,86 @@ __global__ void project_frames(const float* __restrict__ series, const float* __
       prev[j] = p[j];
     }
   }
-  if (p1_out != nullptr) {
+}
+
+// xs[i] = x[(u0 + i) * N] for the steps of the batch that exist; the others are left as
+// they are, and no multiply-add reads them.
+__device__ __forceinline__ void load_window_batch(float (&xs)[kWindowBatch],
+                                                  const float* __restrict__ x, int u0, int o,
+                                                  int N) {
+  const int first = u0 * N;  // o * N fits an int (kw_project_window)
 #pragma unroll
-    for (int j = 0; j < H2; ++j) p1_out[(size_t)j * N + n] = prev[j];
+  for (int i = 0; i < kWindowBatch; ++i) {
+    if (u0 + i < o) xs[i] = x[first + i * N];
+  }
+}
+
+// One window: thread (n, blockIdx.y) sums columns j of tab_lo (P1) and of tab_hi (P2) for
+// its R coefficient rows j = blockIdx.y * R + r.
+template <int R>
+__global__ void project_window(const float* __restrict__ chunk,
+                               const float* __restrict__ tab_lo,
+                               const float* __restrict__ tab_hi,
+                               const float* __restrict__ p1_in, float* __restrict__ frame,
+                               float* __restrict__ p1_out, int o, int H2, int N,
+                               int first_window) {
+  extern __shared__ float stab[];  // [o, 2R]: these rows' columns of tab_lo, then of tab_hi
+  const int j0 = blockIdx.y * R;
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  const int nn = min(n, N - 1);
+  const float* x = chunk + nn;
+  float xs[kWindowBatch];
+  load_window_batch(xs, x, 0, o, N);
+  float prev[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    prev[r] = !first_window && j0 + r < H2 ? p1_in[(size_t)(j0 + r) * N + nn] : 0.f;
+  // four table loads a thread in flight before the first store: one round trip for a
+  // table of up to 4 * blockDim.x entries
+  for (int i0 = threadIdx.x; i0 < o * 2 * R; i0 += 4 * blockDim.x) {
+    float v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int i = i0 + k * blockDim.x;
+      const int u = i / (2 * R), c = i % (2 * R), j = j0 + c % R;
+      v[k] = i < o * 2 * R && j < H2 ? (c < R ? tab_lo : tab_hi)[u * H2 + j] : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int i = i0 + k * blockDim.x;
+      if (i < o * 2 * R) stab[i] = v[k];
+    }
+  }
+  __syncthreads();
+
+  float p1[R], p2[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) p1[r] = p2[r] = 0.f;
+  for (int u0 = 0; u0 < o; u0 += kWindowBatch) {
+    float next[kWindowBatch];
+    load_window_batch(next, x, u0 + kWindowBatch, o, N);
+#pragma unroll
+    for (int i = 0; i < kWindowBatch; ++i) {
+      if (u0 + i < o) {
+        const float* t = stab + (u0 + i) * 2 * R;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          p1[r] = fmaf(t[r], xs[i], p1[r]);
+          p2[r] = fmaf(t[R + r], xs[i], p2[r]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kWindowBatch; ++i) xs[i] = next[i];
+  }
+  if (n >= N) return;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (j0 + r < H2) {
+      // first window: the mirror identity, the window's own P1
+      frame[(size_t)(j0 + r) * N + n] = __fadd_rn(first_window ? p1[r] : prev[r], p2[r]);
+      p1_out[(size_t)(j0 + r) * N + n] = p1[r];
+    }
   }
 }
 
@@ -164,19 +263,44 @@ dim3 grid_for(int N, int windows) {
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch (0 = cudaSuccess).
-int kw_project_frames(const float* series, const float* tab, const float* p1_in,
-                      float* frames, float* p1_out, int K, int o, int H, int N,
-                      int first_window, void* stream) {
+// Each returns cudaGetLastError() after the launch (0 = cudaSuccess).
+int kw_project_frames(const float* series, const float* tab_lo, const float* tab_hi,
+                      float* frames, int K, int o, int H, int N, void* stream) {
   const size_t smem = (size_t)o * 4 * H * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (H) {
 #define KW_CASE(h)                                                                   \
   case h:                                                                            \
     project_frames<2 * h><<<grid_for(N, K), kThreads, smem, s>>>(                    \
-        series, tab, p1_in, frames, p1_out, K, o, N, first_window);                  \
+        series, tab_lo, tab_hi, frames, K, o, N);                                    \
     break;
     KW_FOR_EACH_H(KW_CASE)
+#undef KW_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// One window; `threads` is the block size and `rows` (1, 2, 4, 8 or 16) the coefficient
+// rows of the 2H that one thread sums. p1_in is not read when first_window.
+int kw_project_window(const float* chunk, const float* tab_lo, const float* tab_hi,
+                      const float* p1_in, float* frame, float* p1_out, int o, int H, int N,
+                      int first_window, int threads, int rows, void* stream) {
+  if (o < 1 || H < 1 || N < 1 || threads < 1 || threads > 1024 || rows < 1 ||
+      (long long)o * N > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((N + threads - 1) / threads, (2 * H + rows - 1) / rows);
+  const size_t smem = (size_t)o * 2 * rows * sizeof(float);
+  if (grid.y > 65535 || smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (rows) {
+#define KW_CASE(r)                                                                    \
+  case r:                                                                             \
+    project_window<r><<<grid, threads, smem, s>>>(chunk, tab_lo, tab_hi, p1_in, frame, \
+                                                  p1_out, o, 2 * H, N, first_window);  \
+    break;
+    KW_CASE(1) KW_CASE(2) KW_CASE(4) KW_CASE(8) KW_CASE(16)
 #undef KW_CASE
     default:
       return (int)cudaErrorInvalidValue;

@@ -58,7 +58,8 @@ class EncoderConfig:
 
 def make_tables(basis: CompressionBasis, shifted: bool,
                 device: torch.device | str = "cpu") -> dict[str, torch.Tensor]:
-    """Basis tables as time-major [2o, H] tensors (column bSize-1 is never addressed)."""
+    """Basis tables as time-major [2o, H] tensors (column bSize-1 is never addressed),
+    and under "stacked" the four joined as the window op takes them."""
     be_re, be_im, be1_re, be1_im = basis.tables(shifted)
     n = 2 * basis.o_size
 
@@ -66,11 +67,17 @@ def make_tables(basis: CompressionBasis, shifted: bool,
         # non_blocking: PyTorch's blocking upload would wait for the stream to drain
         return torch.from_numpy(a[:, :n].T.astype(np.float32)).to(device, non_blocking=True)
 
-    return {"be_re": t(be_re), "be_im": t(be_im), "be1_re": t(be1_re), "be1_im": t(be1_im)}
+    tables = {"be_re": t(be_re), "be_im": t(be_im), "be1_re": t(be1_re), "be1_im": t(be1_im)}
+    # joined once here, so that a window's call does nothing on the device but its kernel
+    tables["stacked"] = stacked_tables(tables)
+    return tables
 
 
 def stacked_tables(tables: dict[str, torch.Tensor]) -> torch.Tensor:
-    """[2o, 4H] = [bE_re | bE_im | bE1_re | bE1_im] columns (the window op's layout)."""
+    """[2o, 4H] = [bE_re | bE_im | bE1_re | bE1_im] columns (the window op's layout): the
+    one `make_tables` joined, or joined now for a dict of the four tables alone."""
+    if "stacked" in tables:
+        return tables["stacked"]
     return torch.cat(
         [tables["be_re"], tables["be_im"], tables["be1_re"], tables["be1_im"]], dim=1
     ).contiguous()

@@ -32,18 +32,24 @@ _I = ctypes.c_int
 # C signatures of csrc/*.cu (pointers and the stream as void*)
 SIGNATURES = {
     # encode_window.cu
-    # chunk, tabs, 6 planes in, 6 planes out; steps, o, H, N, e, parity, mirror, overlap
-    "kw_encode_window_40b": [_P] * 14 + [_I] * 8 + [_P],
-    # chunk, tabs, 4 planes in, 4 planes out; steps, o, H, N, parity, mirror, overlap
-    "kw_encode_window_float": [_P] * 10 + [_I] * 7 + [_P],
+    # chunk, tabs, 6 planes in, 6 planes out; steps, o, H, N, e, parity, mirror, overlap,
+    # threads, split, packed
+    "kw_encode_window_40b": [_P] * 14 + [_I] * 11 + [_P],
+    # chunk, tabs, 4 planes in, 4 planes out; steps, o, H, N, parity, mirror, overlap,
+    # threads
+    "kw_encode_window_float": [_P] * 10 + [_I] * 8 + [_P],
+    # steps, H, N, threads, split
+    "kw_launch_floor": [_I] * 5 + [_P],
     # encode_series.cu
     # series, tabs, 3 frame planes, 6 state planes; K, o, H, N, e, overlap, G
     "kw_encode_series_40b": [_P] * 11 + [_I] * 7 + [_P],
     # series, tabs, 2 frame planes, 4 state planes; K, o, H, N, overlap, G
     "kw_encode_series_float": [_P] * 8 + [_I] * 6 + [_P],
     # fastpath.cu
-    # series, tab, p1_in, frames, p1_out; K, o, H, N, first_window
-    "kw_project_frames": [_P] * 5 + [_I] * 5 + [_P],
+    # series, tab_lo, tab_hi, frames; K, o, H, N
+    "kw_project_frames": [_P] * 4 + [_I] * 4 + [_P],
+    # chunk, tab_lo, tab_hi, p1_in, frame, p1_out; o, H, N, first_window, threads, rows
+    "kw_project_window": [_P] * 6 + [_I] * 6 + [_P],
     # frames, tab, x; k_total, o, H, N, n_steps
     "kw_synth_series": [_P] * 3 + [_I] * 5 + [_P],
     # zfuse.cu

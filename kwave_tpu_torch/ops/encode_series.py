@@ -201,6 +201,7 @@ def encode_series_40b(series, tabs, e_const: int, o_size: int, overlap: bool = T
     the final state planes (hdr1, mr1, mi1, hdr2, mr2, mi2) each ``[H, N]``,
     post-emission), as int32 bit views of the reference's uint32 words."""
     _check(series, tabs, o_size)
+    encode_window.check_e_const(e_const)
     if series.device.type == "cpu":
         return encode_series_40b_plain(series, tabs, e_const, o_size, overlap)
     return _kernel_40b(series, tabs, e_const, o_size, overlap)

@@ -12,22 +12,26 @@ Replaces the TPU window kernels of ``kwave_tpu/ops/encode_pallas.py``:
   fp32 MAC of two complex accumulators (one aliased accumulator without overlap).
 - `encode_window_float`: ``_float_kernel``, entry ``encode_window_float``: one window of
   the fast windowed projection (not bit-identical to the reference's MAC order), with
-  the first-half projection P1 carried from window to window. It is served by the
-  projection kernel of `kwave_tpu_torch.ops.fastpath` in its one-window mode, so window
-  by window it gives the whole-series encode's frames bit for bit.
+  the first-half projection P1 carried from window to window. Its kernel is
+  ``project_window`` of ``csrc/fastpath.cu``, which sums each column as the whole-series
+  projection kernel does, so window by window it gives that encode's frames bit for bit.
 
-The kernels are CUDA C++ for sm_90a in ``kwave_tpu_torch/csrc/encode_window.cu``: one
-thread per (harmonic, sensor), the accumulator planes in registers for the whole window,
-the window's table columns in shared memory, the chunk read once and coalesced along the
-sensors. They are bound by memory and launch latency (per window: ``steps*N*4`` B of
-samples in, each ``[H, N]`` plane read and written once), so the design moves each byte
-once. Every product and sum is an explicit round-to-nearest intrinsic, so no FMA
-contraction changes a bit against the reference's scalar loop.
+The kernels are CUDA C++ for sm_90a in ``kwave_tpu_torch/csrc/encode_window.cu``: the
+accumulators in registers for the whole window, the window's table columns in shared
+memory, the chunk read once and coalesced along the sensors. A window moves under 2 MB, so
+what it costs is the launch, one round trip to device memory and the chain of ``steps``
+dependent updates; the source says what the design does about each (the 40-bit
+accumulators unpacked between steps, the two buffers of a sensor on two lanes, small
+blocks that cover the card, every sample of a window loaded before its first step). Every
+product and sum is an explicit round-to-nearest intrinsic, so no FMA contraction changes a
+bit against the reference's scalar loop.
 
 Beside each kernel sits its plain PyTorch version with the same signature (``*_plain``).
-The wrapper takes the plain version only for tensors on the CPU; on a CUDA tensor it
-launches the kernel or raises. The plain versions use no ``addcmul``/``addmm``, which fuse
-the multiply-add.
+The 40-bit one computes as the kernel does (each buffer a chain of its own, held as floats
+between steps by `bitpack.quantize40`); `encode_window_40b_exact_unsplit_plain` is the
+reference's loop as written, and the tests hold the two to the same bits. The wrapper takes
+the plain version only for tensors on the CPU; on a CUDA tensor it launches the kernel or
+raises. The plain versions use no ``addcmul``/``addmm``, which fuse the multiply-add.
 
 Layout: chunk ``[steps, N]`` float32 with ``1 <= steps <= o`` (``steps < o`` is a trailing
 partial window, with the mirror off); tabs ``[2o, 4H]`` float32 =
@@ -52,6 +56,16 @@ LAUNCHES = {
     "wfloat_projection": 0,
 }
 
+# Geometry of the window kernels: a small block, so that one window of 16384 sensors covers
+# the card's 132 SMs; with overlap, the two 40-bit buffers of a sensor on two lanes.
+WINDOW_THREADS = 64
+W40_SPLIT = 2
+
+# Exponent offsets of the 40-bit paths: 0 .. MAX_E_CONST (the reference's are 138 and 114).
+# Above it a shift count of the pack can wrap in the reference's uint8, which the kernels'
+# step between the words (quant40) leaves out; below 0 it is no exponent.
+MAX_E_CONST = 234
+
 # Largest window the kernels take: the table slice (steps x 4 floats) must fit the
 # 48 KB of shared memory a launch gets without opting in to more.
 MAX_STEPS = 48 * 1024 // 16
@@ -73,8 +87,11 @@ def _columns(tabs: torch.Tensor, row: int, h: int):
 # ---------------------------------------------------------------------------
 
 
-def encode_window_40b_exact_plain(chunk, tabs, planes, e_const: int, parity: int,
-                                  mirror: int, overlap: bool = True):
+def encode_window_40b_exact_unsplit_plain(chunk, tabs, planes, e_const: int, parity: int,
+                                          mirror: int, overlap: bool = True):
+    """The reference's loop as it is written: both buffers in one loop, every accumulator
+    unpacked from its words and packed again at every step. `encode_window_40b_exact_plain`
+    is held to it bit for bit by the tests."""
     o, h = tabs.shape[0] // 2, tabs.shape[1] // 4
     h1, r1, i1 = planes[:3]
     h2, r2, i2 = planes[3:] if overlap else (None, None, None)
@@ -100,6 +117,43 @@ def encode_window_40b_exact_plain(chunk, tabs, planes, e_const: int, parity: int
         # first frame: buf2 = encode(c2 + c1) of the last step's values before re-encoding
         h2, r2, i2 = bitpack.encode40(c2r + c1r, c2i + c1i, e_const)
     return h1, r1, i1, h2, r2, i2
+
+
+def _chain_40b(chunk, tabs, words, e_const: int, parity: int, buffer: int | None):
+    """One 40-bit accumulator over the window, as one lane of the kernel carries it: the
+    words unpacked once, then per step the MAC and `bitpack.quantize40`, the accumulator
+    held as floats. ``buffer`` 0 / 1 takes bE / bE_1 (the two buffers never read each
+    other); None is the no-overlap accumulator, which adds the sum of both products.
+    Returns the post-MAC floats of the last step, which the caller packs."""
+    o, h = tabs.shape[0] // 2, tabs.shape[1] // 4
+    qr, qi = bitpack.decode40(*words, e_const)
+    for u in range(chunk.shape[0]):
+        x = chunk[u][None, :]
+        t1r, t1i, t2r, t2i = _columns(tabs, parity * o + u, h)
+        if buffer is None:
+            # cc += (bE*x + bE_1*x): products rounded, summed, then one accumulate
+            cr = qr + (t1r * x + t2r * x)
+            ci = qi + (t1i * x + t2i * x)
+        else:
+            cr = qr + (t2r if buffer else t1r) * x
+            ci = qi + (t2i if buffer else t1i) * x
+        qr, qi = bitpack.quantize40(cr, ci, e_const)
+    return cr, ci
+
+
+def encode_window_40b_exact_plain(chunk, tabs, planes, e_const: int, parity: int,
+                                  mirror: int, overlap: bool = True):
+    """The kernel's decomposition: each buffer a chain of its own (`_chain_40b`), the words
+    packed once after the last step."""
+    if not overlap:
+        return bitpack.encode40(*_chain_40b(chunk, tabs, planes[:3], e_const, parity, None),
+                                e_const)
+    c1r, c1i = _chain_40b(chunk, tabs, planes[:3], e_const, parity, 0)
+    c2r, c2i = _chain_40b(chunk, tabs, planes[3:], e_const, parity, 1)
+    if mirror:
+        # first frame: buf2 = encode(c2 + c1) of the last step's values before re-encoding
+        c2r, c2i = c2r + c1r, c2i + c1i
+    return bitpack.encode40(c1r, c1i, e_const) + bitpack.encode40(c2r, c2i, e_const)
 
 
 def encode_window_float_exact_plain(chunk, tabs, planes, parity: int, mirror: int,
@@ -164,24 +218,26 @@ def _check(chunk, tabs, planes, plane_dtype, overlap: bool, parity: int) -> None
         raise ValueError(f"unsupported device {chunk.device}")
 
 
+def check_e_const(e_const: int) -> None:
+    if not 0 <= e_const <= MAX_E_CONST:
+        raise ValueError(f"e_const must be in 0..{MAX_E_CONST}; got {e_const}")
+
+
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
 
-def encode_window_40b_exact(chunk, tabs, planes, e_const: int, parity: int, mirror: int,
-                            overlap: bool = True):
-    """One window of the reference-exact packed-accumulator path. ``planes`` is
-    (hdr1, mr1, mi1[, hdr2, mr2, mi2]); returns the updated planes (frame emission and
-    zeroing stay in `kwave_tpu_torch.encoder`)."""
-    planes = tuple(planes)
-    _check(chunk, tabs, planes, torch.int32, overlap, parity)
-    if chunk.device.type == "cpu":
-        return encode_window_40b_exact_plain(chunk, tabs, planes, e_const, parity, mirror,
-                                             overlap)
+def _kernel_40b(chunk, tabs, planes, e_const: int, parity: int, mirror: int, overlap: bool,
+                threads: int | None = None, split: int | None = None, packed: bool = False):
+    """Launch the 40-bit window kernel on checked CUDA tensors. ``threads``, ``split`` and
+    ``packed`` other than the defaults are the variants that `kwave_tpu_torch.sweeps` and
+    the card tests compare: the block size, one lane per buffer (2) or per sensor (1), and
+    the baseline kernel that packs its words at every step."""
     from kwave_tpu_torch.ops import _build
 
     lib = _build.load_library()
+    split = (W40_SPLIT if overlap else 1) if split is None else int(split)
     outs = tuple(torch.empty_like(p) for p in planes)
     ins = planes + (None,) * (6 - len(planes))
     outs6 = outs + (None,) * (6 - len(outs))
@@ -192,22 +248,48 @@ def encode_window_40b_exact(chunk, tabs, planes, e_const: int, parity: int, mirr
             chunk.data_ptr(), tabs.data_ptr(), *map(ptr, ins), *map(ptr, outs6),
             steps, tabs.shape[0] // 2, tabs.shape[1] // 4, n, int(e_const), int(parity),
             int(bool(mirror)), int(bool(overlap)),
+            WINDOW_THREADS if threads is None else int(threads), split, int(bool(packed)),
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "encode_window_40b_exact")
+    return outs
+
+
+def encode_window_40b_exact(chunk, tabs, planes, e_const: int, parity: int, mirror: int,
+                            overlap: bool = True):
+    """One window of the reference-exact packed-accumulator path. ``planes`` is
+    (hdr1, mr1, mi1[, hdr2, mr2, mi2]); returns the updated planes (frame emission and
+    zeroing stay in `kwave_tpu_torch.encoder`)."""
+    planes = tuple(planes)
+    _check(chunk, tabs, planes, torch.int32, overlap, parity)
+    check_e_const(e_const)
+    if chunk.device.type == "cpu":
+        return encode_window_40b_exact_plain(chunk, tabs, planes, e_const, parity, mirror,
+                                             overlap)
+    outs = _kernel_40b(chunk, tabs, planes, e_const, parity, mirror, overlap)
     LAUNCHES["w40_overlap" if overlap else "w40_no_overlap"] += 1
     return outs
 
 
-def encode_window_float_exact(chunk, tabs, planes, parity: int, mirror: int,
-                              overlap: bool = True):
-    """One window of the reference-exact float accumulate path. ``planes`` is
-    (acc1_re, acc1_im[, acc2_re, acc2_im]); returns the updated planes."""
-    planes = tuple(planes)
-    _check(chunk, tabs, planes, torch.float32, overlap, parity)
-    if chunk.device.type == "cpu":
-        return encode_window_float_exact_plain(chunk, tabs, planes, parity, mirror,
-                                               overlap)
+def launch_floor(steps: int, n_harm: int, n_sensors: int, threads: int | None = None,
+                 split: int | None = None) -> None:
+    """Launch an empty kernel at the grid, block and shared memory that a 40-bit overlap
+    window of this shape gets: what a window costs before it does anything. For timing
+    (`chip_smoke.py`, `kwave_tpu_torch.sweeps`); no path of the package calls it."""
+    from kwave_tpu_torch.ops import _build
+
+    err = _build.load_library().kw_launch_floor(
+        int(steps), int(n_harm), int(n_sensors),
+        WINDOW_THREADS if threads is None else int(threads),
+        W40_SPLIT if split is None else int(split),
+        torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "launch_floor")
+
+
+def _kernel_float(chunk, tabs, planes, parity: int, mirror: int, overlap: bool,
+                  threads: int | None = None):
+    """Launch the float window kernel on checked CUDA tensors (``threads``: see
+    `_kernel_40b`)."""
     from kwave_tpu_torch.ops import _build
 
     lib = _build.load_library()
@@ -221,9 +303,23 @@ def encode_window_float_exact(chunk, tabs, planes, parity: int, mirror: int,
             chunk.data_ptr(), tabs.data_ptr(), *map(ptr, ins), *map(ptr, outs4),
             steps, tabs.shape[0] // 2, tabs.shape[1] // 4, n, int(parity),
             int(bool(mirror)), int(bool(overlap)),
+            WINDOW_THREADS if threads is None else int(threads),
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "encode_window_float_exact")
+    return outs
+
+
+def encode_window_float_exact(chunk, tabs, planes, parity: int, mirror: int,
+                              overlap: bool = True):
+    """One window of the reference-exact float accumulate path. ``planes`` is
+    (acc1_re, acc1_im[, acc2_re, acc2_im]); returns the updated planes."""
+    planes = tuple(planes)
+    _check(chunk, tabs, planes, torch.float32, overlap, parity)
+    if chunk.device.type == "cpu":
+        return encode_window_float_exact_plain(chunk, tabs, planes, parity, mirror,
+                                               overlap)
+    outs = _kernel_float(chunk, tabs, planes, parity, mirror, overlap)
     LAUNCHES["wfloat_overlap" if overlap else "wfloat_no_overlap"] += 1
     return outs
 
@@ -249,9 +345,9 @@ def encode_window_float(chunk, tab_lo, tab_hi, p1_prev, first_window: bool = Fal
     dev = fastpath.check_tensors((chunk, tab_lo, tab_hi, p1_prev), h2 // 2, o)
     if dev.type == "cpu":
         return encode_window_float_plain(chunk, tab_lo, tab_hi, p1_prev, first_window)
-    tab4 = torch.cat([tab_lo, tab_hi], dim=1).contiguous()
-    frames, p1 = fastpath.launch_projection(
-        chunk.contiguous(), tab4, o, 1, p1_prev=None if first_window else
-        p1_prev.contiguous(), first_window=first_window, want_p1=True)
+    # the kernel is the call's one piece of device work: it stages its table columns from
+    # the two half tables as they are
+    out = fastpath.launch_window_projection(
+        *fastpath.as_contiguous(chunk, tab_lo, tab_hi, p1_prev), first_window)
     LAUNCHES["wfloat_projection"] += 1
-    return frames[0], p1
+    return out

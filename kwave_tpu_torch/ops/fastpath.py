@@ -14,8 +14,11 @@ Replaces the TPU kernels of ``kwave_tpu/ops/fastpath.py``:
 
 The TPU's flat and 3D forms differ only in how they tile the TPU; here each pair is one
 CUDA kernel in ``kwave_tpu_torch/csrc/fastpath.cu`` (sm_90a), so the two entries are
-bit-identical. The same encode kernel serves ``encode_window.encode_window_float`` (K6)
-in a one-window mode. The kernels are fp32 throughout: the TPU's matrix-unit knobs do not
+bit-identical. ``encode_window.encode_window_float`` (K6) is a kernel of its own in the same
+file (``project_window``): one thread per sensor and coefficient row, the same sums in the
+same order, so a window has the bits of the whole-series frame. A call of an encode entry
+does nothing on the device besides its kernel: the kernels take the two half tables as the
+caller holds them. The kernels are fp32 throughout: the TPU's matrix-unit knobs do not
 carry over, so every ``compute`` value takes the one kernel and a ``precision`` other than
 ``"highest"`` is refused. The kernels are bound by bytes; the source says how.
 
@@ -44,6 +47,10 @@ MAX_TABLE_FLOATS = 48 * 1024 // 4
 # Windows per thread (kWindowsPerThread in csrc/fastpath.cu); blocks of them on grid y.
 WINDOWS_PER_THREAD = 8
 MAX_WINDOWS = WINDOWS_PER_THREAD * 65535
+# The one-window projection kernel (K6): a small block, so that one window of 16384 sensors
+# covers the card's 132 SMs, and the row counts a thread is instantiated for.
+WINDOW_THREADS = 64
+WINDOW_ROWS = (1, 2, 4, 8, 16)
 # Every compute value of the JAX 3D entries; all of them take the one fp32 kernel here.
 COMPUTES = ("vpu", "mxu_highest", "mxu_default")
 
@@ -130,30 +137,61 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
 
-def launch_projection(series, tab4, o_size: int, k_frames: int, p1_prev=None,
-                      first_window: bool = True, want_p1: bool = False):
-    """Launch the projection kernel on CUDA tensors. Returns (frames [K, 2H, N], p1 or
-    None); ``p1_prev``/``want_p1`` are the one-window mode of `encode_window_float`."""
+def as_contiguous(*tensors):
+    """The tensors as they are when contiguous (no device work), else contiguous copies."""
+    return tuple(t if t.is_contiguous() else t.contiguous() for t in tensors)
+
+
+def launch_projection(series, tab_lo, tab_hi, o_size: int, k_frames: int):
+    """Launch the whole-series projection kernel on contiguous CUDA tensors: the one piece
+    of device work of `encode_frames*` (the kernel stages the table from the two half
+    tables, and the frames are allocated, not filled). Returns frames [K, 2H, N]."""
     from kwave_tpu_torch.ops import _build
 
-    h2, n = tab4.shape[1] // 2, series.shape[1]
-    if series.ndim != 2 or not series.is_contiguous() or not tab4.is_contiguous():
-        raise ValueError("series [T, N] and the table must be contiguous")
+    h2, n = tab_lo.shape[1], series.shape[1]
     if not 1 <= k_frames <= MAX_WINDOWS:
         raise ValueError(f"{k_frames} windows: the kernel takes 1..{MAX_WINDOWS}")
     frames = torch.empty((k_frames, h2, n), dtype=torch.float32, device=series.device)
-    p1 = torch.empty((h2, n), dtype=torch.float32, device=series.device) if want_p1 \
-        else None
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib = _build.load_library()
     with torch.cuda.device(series.device):
         err = lib.kw_project_frames(
-            series.data_ptr(), tab4.data_ptr(), ptr(p1_prev), frames.data_ptr(), ptr(p1),
-            k_frames, o_size, h2 // 2, n, int(bool(first_window)),
-            torch.cuda.current_stream().cuda_stream,
+            series.data_ptr(), tab_lo.data_ptr(), tab_hi.data_ptr(), frames.data_ptr(),
+            k_frames, o_size, h2 // 2, n, torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "project_frames")
-    return frames, p1
+    return frames
+
+
+def window_rows_for(h2: int) -> int:
+    """Coefficient rows of the 2H that one thread of the one-window kernel sums: all of
+    them (the least instantiated count that holds them), so that every sample is loaded
+    by one thread."""
+    return next(r for r in WINDOW_ROWS if r >= h2)
+
+
+def launch_window_projection(chunk, tab_lo, tab_hi, p1_prev, first_window: bool,
+                             threads: int | None = None, rows: int | None = None):
+    """Launch the one-window projection kernel (`encode_window.encode_window_float`) on
+    contiguous CUDA tensors; ``threads`` and ``rows`` other than None override
+    `WINDOW_THREADS` and `window_rows_for` (for `kwave_tpu_torch.sweeps`). Returns
+    (frame [2H, N], p1 [2H, N])."""
+    from kwave_tpu_torch.ops import _build
+
+    (o_size, h2), n = tab_lo.shape, chunk.shape[1]
+    frame = torch.empty((h2, n), dtype=torch.float32, device=chunk.device)
+    p1 = torch.empty_like(frame)
+    lib = _build.load_library()
+    with torch.cuda.device(chunk.device):
+        err = lib.kw_project_window(
+            chunk.data_ptr(), tab_lo.data_ptr(), tab_hi.data_ptr(),
+            None if first_window else p1_prev.data_ptr(), frame.data_ptr(), p1.data_ptr(),
+            o_size, h2 // 2, n, int(bool(first_window)),
+            WINDOW_THREADS if threads is None else int(threads),
+            window_rows_for(h2) if rows is None else int(rows),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(err, "project_window")
+    return frame, p1
 
 
 def _encode(series, tab_lo, tab_hi, o_size: int, key: str) -> torch.Tensor:
@@ -168,8 +206,7 @@ def _encode(series, tab_lo, tab_hi, o_size: int, key: str) -> torch.Tensor:
         raise ValueError(f"series of {series.shape[0]} steps holds no window of {o_size}")
     if dev.type == "cpu":
         return encode_frames_plain(series, tab_lo, tab_hi, o_size)
-    tab4 = torch.cat([tab_lo, tab_hi], dim=1).contiguous()
-    frames, _ = launch_projection(series.contiguous(), tab4, o_size, k_frames)
+    frames = launch_projection(*as_contiguous(series, tab_lo, tab_hi), o_size, k_frames)
     LAUNCHES[key] += 1
     return frames
 

@@ -87,6 +87,136 @@ def test_encoder_on_the_card_matches_oracle(mode40, overlap):
                                           bits(b.astype(np.uint32) if mode40 else b))
 
 
+def _words(rng, h, n, n_acc, dev):
+    """Accumulator words that hold large, small, zero and saturated values."""
+    planes = []
+    for _ in range(n_acc):
+        scale = torch.from_numpy(10.0 ** rng.integers(-3, 9, (h, n))).float()
+        re = torch.from_numpy(rng.standard_normal((h, n))).float() * scale
+        im = torch.from_numpy(rng.standard_normal((h, n))).float() * scale.flip(1)
+        re[:, ::7] = 0.0
+        planes += [p.contiguous().to(dev) for p in bitpack.encode40(re, im, MAX_EXP_P)]
+    return tuple(planes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overlap,threads,split,packed", [
+    (True, None, None, False), (True, 64, 1, False), (True, 32, 2, False),
+    (True, 128, 2, False), (True, 256, 1, False), (True, 256, 1, True),
+    (False, None, None, False), (False, 32, 1, False), (False, 256, 1, False),
+    (False, 256, 1, True)])
+def test_w40_kernel_designs_match_plain(overlap, threads, split, packed):
+    """The 40-bit window kernel as the wrapper launches it, with one thread a sensor and
+    one lane a buffer, at other block sizes, and the baseline that packs its words at every
+    step: all bit-identical to the plain version and to the reference's loop as written,
+    at H = 1..3, both parities, the mirror, a partial window, one step, and N ragged against
+    the warp (16 or 32 sensors) and the block."""
+    dev = require_cuda()
+    rng = np.random.default_rng(23)
+    for h in (1, 2, 3):
+        basis = generate_basis(16.0, 1, h, normalize=True)
+        o = basis.o_size
+        tabs = torch.from_numpy(stacked_tables(basis)).to(dev)
+        for n in (N, 16384 - 37, 17):
+            planes = _words(rng, h, n, 2 if overlap else 1, dev)
+            for steps, parity, mirror in ((o, 0, 1), (o, 1, 0), (o - 5, 1, 0), (1, 0, 0)):
+                chunk = torch.from_numpy(real_series(steps, n, 16.0, seed=steps)).to(dev)
+                args = (chunk, tabs, planes, MAX_EXP_P, parity, mirror, overlap)
+                got = ew._kernel_40b(*args, threads=threads, split=split, packed=packed)
+                torch.cuda.synchronize()
+                want = ew.encode_window_40b_exact_plain(*args)
+                unsplit = ew.encode_window_40b_exact_unsplit_plain(*args)
+                for a, b, c in zip(got, want, unsplit):
+                    np.testing.assert_array_equal(bits(a), bits(b))
+                    np.testing.assert_array_equal(bits(a), bits(c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overlap", [True, False])
+def test_w40_kernel_matches_plain_on_edge_values(overlap):
+    """Samples over 100 binades (zeros and denormals among them) against table entries
+    that put the two halves of an accumulator up to 30 binades apart: values far below the
+    word's range, inside it and saturated, with the following steps adding to what the
+    step between the words (quant40) left. Kernel == plain == the reference's loop."""
+    dev = require_cuda()
+    rng = np.random.default_rng(31)
+    o, h, n = 6, 16, 4099
+    gaps = 2.0 ** -rng.integers(0, 31, (2 * o, 4 * h))
+    tabs = torch.from_numpy((rng.choice([-1.0, 1.0], gaps.shape) * gaps
+                             * rng.uniform(0.5, 1.0, gaps.shape)).astype(np.float32)).to(dev)
+    mag = 2.0 ** rng.integers(-60, 41, (o, n)) * rng.uniform(1.0, 2.0, (o, n))
+    x = (rng.choice([-1.0, 1.0], mag.shape) * mag).astype(np.float32)
+    x[:, ::11] = 0.0
+    x[2, ::5] = 1e-40  # denormal
+    chunk = torch.from_numpy(x).to(dev)
+    planes = _words(rng, h, n, 2 if overlap else 1, dev)
+    for parity, mirror in ((0, 1), (1, 0)):
+        args = (chunk, tabs, planes, MAX_EXP_P, parity, mirror, overlap)
+        got = ew.encode_window_40b_exact(*args)
+        torch.cuda.synchronize()
+        want = ew.encode_window_40b_exact_plain(*args)
+        unsplit = ew.encode_window_40b_exact_unsplit_plain(*args)
+        for a, b, c in zip(got, want, unsplit):
+            np.testing.assert_array_equal(bits(a), bits(b))
+            np.testing.assert_array_equal(bits(a), bits(c))
+
+
+@pytest.mark.cuda
+def test_w40_kernel_refuses_what_it_does_not_take():
+    dev = require_cuda()
+    basis = generate_basis(16.0, 1, 1, normalize=True)
+    tabs = torch.from_numpy(stacked_tables(basis)).to(dev)
+    chunk = torch.zeros((basis.o_size, N), device=dev)
+    planes = tuple(torch.zeros((1, N), dtype=torch.int32, device=dev) for _ in range(6))
+    with pytest.raises(RuntimeError, match="cudaError"):
+        ew._kernel_40b(chunk, tabs, planes, MAX_EXP_P, 0, 0, True, threads=48)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        ew._kernel_40b(chunk, tabs, planes[:3], MAX_EXP_P, 0, 0, False, split=2)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        ew._kernel_40b(chunk, tabs, planes, ew.MAX_E_CONST + 1, 0, 0, True)
+    ew.launch_floor(basis.o_size, 1, N)
+    torch.cuda.synchronize()
+
+
+def _device_events(fn):
+    """Name -> count of everything the device ran during one call of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["encode_frames_flat", "encode_frames",
+                                   "encode_window_float"])
+def test_encode_entries_launch_their_kernel_and_nothing_else(entry):
+    """One call of an encode entry is one kernel on the device: no copy, no concatenation
+    of the half tables, no memset (torch.profiler's device events of the call)."""
+    from kwave_tpu_torch.ops import fastpath
+
+    dev = require_cuda()
+    basis = generate_basis(20.0, 1, 2, normalize=True)
+    o = basis.o_size
+    tab, _ = _half_tables(basis)
+    lo, hi = (torch.from_numpy(t).to(dev) for t in (tab[:o], tab[o:]))
+    x = torch.from_numpy(real_series(o * 6, 1000, 20.0, seed=1)).to(dev)
+    p1 = torch.zeros((4, 1000), device=dev)
+    call, kernel = {
+        "encode_frames_flat": (lambda: fastpath.encode_frames_flat(x, lo, hi, o),
+                               "project_frames"),
+        "encode_frames": (lambda: fastpath.encode_frames(x, lo, hi, o), "project_frames"),
+        "encode_window_float": (lambda: ew.encode_window_float(x[:o], lo, hi, p1),
+                                "project_window"),
+    }[entry]
+    events = _device_events(call)
+    assert sum(events.values()) == 1 and kernel in next(iter(events)), events
+
+
 # ---------------------------------------------------------------------------
 # Fast-path codec kernels (csrc/fastpath.cu): K5 encode, K6 one-window, K4 decode
 # ---------------------------------------------------------------------------
@@ -105,7 +235,10 @@ def _half_tables(basis):
     tab = np.concatenate([be_re[:, : 2 * o].T, be_im[:, : 2 * o].T], axis=1)  # [2o, 2H]
     tab4 = np.concatenate([tab[o:, :basis.harmonics], tab[o:, basis.harmonics:],
                            tab[:o, :basis.harmonics], tab[:o, basis.harmonics:]], axis=1)
-    return tab.astype(np.float32), tab4.astype(np.float32)
+    # C order: np.concatenate of the transposed tables gives Fortran order, and a wrapper
+    # copies a table that is not contiguous (one more kernel on the device)
+    return (np.ascontiguousarray(tab, dtype=np.float32),
+            np.ascontiguousarray(tab4, dtype=np.float32))
 
 
 def _close(got, want, rel=REL_TOL):
@@ -140,8 +273,13 @@ def test_projection_kernel_matches_plain(period, h, windows, extra, n):
 
     p1 = torch.zeros((2 * h, n), device=dev)
     for w in range(windows):
-        frame, p1 = ew.encode_window_float(x[w * o:(w + 1) * o], lo, hi, p1,
-                                           first_window=(w == 0))
+        chunk = x[w * o:(w + 1) * o]
+        for threads, rows in ((32, 1), (256, 2), (128, 16)):  # other geometries, same bits
+            other, _ = fastpath.launch_window_projection(chunk, lo, hi, p1, w == 0,
+                                                         threads=threads, rows=rows)
+            np.testing.assert_array_equal(bits(other), bits(flat[w]),
+                                          err_msg=f"window {w} rows {rows}")
+        frame, p1 = ew.encode_window_float(chunk, lo, hi, p1, first_window=(w == 0))
         np.testing.assert_array_equal(bits(frame), bits(flat[w]), err_msg=f"window {w}")
 
     xd = torch.from_numpy(np.random.default_rng(5).integers(

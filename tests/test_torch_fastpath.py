@@ -153,6 +153,52 @@ def test_encode_window_float_matches_jax_kernel_and_k5(h, n):
                                            atol=1e-2)
 
 
+@pytest.mark.parametrize("h,n", [(1, 128), (2, 131), (3, 77)])
+def test_encode_window_float_within_1e6_of_the_frame_peak(h, n):
+    """K6 window by window against the JAX kernel (interpret mode) and against the port's
+    whole-series frames, each within 1e-6 of the frame peak; P1 carried between windows
+    the same way."""
+    basis = generate_basis(16.0, 1, h, normalize=True)
+    o, windows = basis.o_size, 4
+    tab, _ = _tables(basis)
+    lo, hi = tab[:o], tab[o:]
+    x = real_series(o * windows, n, 16.0, seed=h)
+    whole = fp.encode_frames_flat(_t(x), _t(lo), _t(hi), o).numpy()
+    p1, jp1 = torch.zeros((2 * h, n)), jnp.zeros((2 * h, n), jnp.float32)
+    for w in range(windows):
+        chunk = x[w * o:(w + 1) * o]
+        frame, p1 = ew.encode_window_float(_t(chunk), _t(lo), _t(hi), p1,
+                                           first_window=(w == 0))
+        jframe, jp1 = jep.encode_window_float(jnp.asarray(chunk), jnp.asarray(lo),
+                                              jnp.asarray(hi), jp1, first_window=(w == 0))
+        peak = float(np.abs(np.asarray(jframe)).max())
+        assert float(np.abs(frame.numpy() - np.asarray(jframe)).max()) <= 1e-6 * peak
+        assert float(np.abs(frame.numpy() - whole[w]).max()) <= 1e-6 * peak
+        assert float(np.abs(p1.numpy() - np.asarray(jp1)).max()) <= 1e-6 * peak
+
+
+@pytest.mark.parametrize("h2,want", [(2, 2), (3, 4), (4, 4), (6, 8), (16, 16)])
+def test_window_rows_for_holds_every_row_in_one_thread(h2, want):
+    assert fp.window_rows_for(h2) == want
+
+
+def test_non_contiguous_half_tables_give_the_same_frames():
+    """Column slices of a joined table (not contiguous) against contiguous copies."""
+    basis = generate_basis(20.0, 1, 2, normalize=True)
+    o = basis.o_size
+    tab, _ = _tables(basis)
+    joined = _t(np.concatenate([tab[:o], tab[o:]], axis=1))  # [o, 4H]
+    lo, hi = joined[:, :4], joined[:, 4:]
+    assert not lo.is_contiguous()
+    x = _t(real_series(o * 3, 40, 20.0, seed=2))
+    np.testing.assert_array_equal(
+        bits(fp.encode_frames_flat(x, lo, hi, o)),
+        bits(fp.encode_frames_flat(x, lo.contiguous(), hi.contiguous(), o)))
+    for t in fp.as_contiguous(lo, hi, x):
+        assert t.is_contiguous()
+    assert fp.as_contiguous(x)[0] is x
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     o = 10
     x, lo = torch.zeros((3 * o, 8)), torch.zeros((o, 4))
