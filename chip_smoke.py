@@ -2,8 +2,8 @@
 """Smoke test of kwave_tpu_torch on one NVIDIA card: builds the CUDA kernels from the
 sources in this checkout, holds each against its plain PyTorch version and the NumPy
 oracle, then drives the port's paths: the simulation at 128^3 with 16384 index sensors,
-the codec round trip, the whole-record exact encode, and the 256^3 simulation with the
-fused z stage.
+the codec round trip, the whole-record exact encode, the 256^3 simulation with the
+fused z stage, and a run in checkpoint legs with the intensity and Q-term outputs.
 
     python3 chip_smoke.py
 
@@ -60,6 +60,24 @@ the final ok line):
    compact operators alone and once with ``fuse_z``: p_raw of the two within 1e-4 of the
    peak, each run's p_c bytes equal to the oracle's encoding of its own p_raw, ms/step
    of both, and the device time by kernel of one profiled window of each.
+9. checkpoint legs and the intensity / Q-term outputs: `run_simulation` at phase 4's
+   width (128^3, 16384 index sensors, period 16, H = 1) as ``--p_raw
+   --u_non_staggered_raw --p_c --u_non_staggered_c --40-bit_complex --I_avg_c --Q_term_c
+   --I_avg --Q_term``, 6 windows and a 5-step tail, every file an in-memory group: run A
+   in one leg, run B in four (a checkpoint every 2 windows, so three legs of 2 windows
+   and one of the 5 trailing steps, each a fresh `run_simulation(resume_from=...)` on
+   the reopened output). Checks: every dataset of B
+   equals A's bit for bit; A's I*_avg on the first 256 sensors against a float64 numpy
+   time shift and mean, its I*_avg_c against the oracle's decode of the stored p_c and
+   u*_non_staggered_c frames averaged in float64, its Q_term and Q_term_c against a
+   float64 numpy spectral divergence of the scattered intensities (the intensities
+   within 1e-5 of the peak; Q within 1e-6 of k_max |I|max, the size of the terms that
+   its derivatives sum and cancel); the 40-bit window kernel launched 4 x (windows + 1) times in A and in B
+   (four compressed streams; no window encoded twice across a leg boundary). The record's
+   101 steps leave its spectrum without a Nyquist bin, so `postproc.time_shift_half_step`
+   is also held to float64 numpy at 96 steps. Prints ms/step of A and B, seconds per
+   checkpoint write and per resume, seconds of the post-processing, and the device time
+   by kind of kernel of one profiled window of the loop.
 Then one JSON line with every kernel's numbers (its time beside its bound: the larger of
 its bytes over 3.35 TB/s and its fp32 operations over 67 TFLOP/s; for the 40-bit kernels
 also ``issue_ms``, the machine instructions that this run's build spends on their steps,
@@ -67,10 +85,16 @@ counted from its SASS, over the card's instruction rate: a share of the time, no
 and ``launch_floor_us``, and as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off throughout, so every plain version on the
 card computes in full fp32.
+
+``python3 chip_smoke.py --main-path-readings N [--package-from DIR]`` runs none of the
+phases: it builds the kernels and prints N readings of phase 4's first run as one JSON
+line, with the package of DIR where that is given. Two commits are compared by running
+it for each in turns, several processes a commit, in one session on one card.
 """
 
 from __future__ import annotations
 
+import argparse
 import functools
 import json
 import subprocess
@@ -101,6 +125,13 @@ ZFUSE_TOL = 2e-6  # K7 vs a float64 FFT, of the peak
 # radix kernel 2e-7, so the two are held to the sum of their bounds
 ZFUSE_PLAIN_TOL = 4e-6
 FUSED_RUN_TOL = 1e-4  # p_raw of the fused run vs the compact-only run, of the peak
+
+# phase 9: the run in legs
+LEGS_FLAGS = ["--p_raw", "--u_non_staggered_raw", "--p_c", "--u_non_staggered_c",
+              "--40-bit_complex", "--I_avg_c", "--Q_term_c", "--I_avg", "--Q_term"]
+LEGS_WINDOWS, LEGS_TAIL, LEG_WINDOWS = 6, 5, 2  # the record; windows between checkpoints
+INTENSITY_TOL = 1e-5  # I*_avg, I*_avg_c vs float64 numpy, of the peak
+Q_TOL = 1e-6  # Q_term[_c] vs float64 numpy, of k_max |I|max (see `_intensity_checks`)
 
 
 # Every SM starts at most 4 warp instructions (128 lanes) a clock: 132 SMs at the 1.98 GHz
@@ -159,6 +190,10 @@ class MemDataset:
     def shape(self):
         return self.data.shape
 
+    @property
+    def dtype(self):
+        return self.data.dtype
+
     def __getitem__(self, key):
         return self.data[key]
 
@@ -184,6 +219,15 @@ class MemGroup:
 
     def __getitem__(self, name):
         return self.items[name]
+
+    def __contains__(self, name):
+        return name in self.items
+
+    def __delitem__(self, name):
+        del self.items[name]
+
+    def keys(self):
+        return self.items.keys()
 
 
 def device_phase():
@@ -1132,7 +1176,7 @@ def fused_phase():
                          ("fused", dict(compact_operators=True, fuse_z=True))):
         zfuse.reset_launch_counts()
         ew.reset_launch_counts()
-        out, secs, steps = _run(flags, windows, tail, data=data, **fields)
+        out, secs, steps, _ = _run(flags, windows, tail, data=data, **fields)
         launches[name] = dict(zfuse.LAUNCHES)
         by_kernel = dict(zfuse.KERNEL_LAUNCHES)  # of the fused run, which comes last
         _require(ew.LAUNCHES["w40_overlap"] == windows + 1,
@@ -1192,9 +1236,12 @@ def _input(nt: int, n: int = GRID_N):
                      p0=p0)
 
 
-def _run(flags: list[str], windows: int, tail: int, data=None, **run_fields):
-    """One `run_simulation` through the CLI's parser into an in-memory group;
-    ``run_fields`` sets RunConfig fields that have no flag (compact_operators, fuse_z)."""
+def _run(flags: list[str], windows: int, tail: int, data=None, out=None, resume_from=None,
+         **run_fields):
+    """One `run_simulation` through the CLI's parser into an in-memory group (``out``, or
+    a new one); ``run_fields`` sets RunConfig fields that have no flag
+    (compact_operators, fuse_z) or that take a group here (checkpoint_file). Returns the
+    group, the seconds, the record's steps and the run's summary."""
     import dataclasses
 
     import torch
@@ -1207,12 +1254,13 @@ def _run(flags: list[str], windows: int, tail: int, data=None, **run_fields):
     data = data if data is not None else _input(windows * O_SIZE + tail)
     run = dataclasses.replace(params.args_to_run_config(args, dt=data.grid.dt),
                               **run_fields)
-    out = MemGroup()
+    out = out if out is not None else MemGroup()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run_simulation(data, run, out, device="cuda")
+    legs = {} if resume_from is None else {"resume_from": resume_from}
+    summary = run_simulation(data, run, out, device="cuda", **legs)
     torch.cuda.synchronize()
-    return out, time.perf_counter() - t0, data.grid.nt
+    return out, time.perf_counter() - t0, data.grid.nt, summary
 
 
 def _check_run(out, flags, steps):
@@ -1274,7 +1322,7 @@ def main_path_phase():
     float_run = None
     for flags, windows, tail, variant in runs:
         before = dict(ew.LAUNCHES)
-        out, secs, steps = _run(flags, windows, tail)
+        out, secs, steps, _ = _run(flags, windows, tail)
         delta = {k: ew.LAUNCHES[k] - before[k] for k in ew.LAUNCHES}
         calls = windows + (1 if tail else 0)  # full windows + the trailing partial one
         want = {k: (calls if k == variant else 0) for k in ew.LAUNCHES}
@@ -1294,11 +1342,251 @@ def main_path_phase():
     return dict(ew.LAUNCHES), float_run
 
 
-def main() -> int:
-    if not (ROOT / "kwave_tpu_torch").is_dir():
-        print("chip_smoke.py: kwave_tpu_torch/ is not beside this script", file=sys.stderr)
+def _datasets(group, prefix=""):
+    """Every dataset of an in-memory group, by its path."""
+    for name, item in group.items.items():
+        if isinstance(item, MemGroup):
+            yield from _datasets(item, f"{prefix}{name}/")
+        else:
+            yield prefix + name, item.data
+
+
+def _intensity_checks(out, data, steps) -> dict:
+    """Run A's intensities and Q terms against float64 numpy (module docstring, phase 9);
+    returns each one's largest error as a share of its peak."""
+    from kwave_tpu_torch import oracle
+
+    k, t = ORACLE_SENSORS, steps
+    errs = {}
+
+    def hold(name, got, want, peak=None, tol=INTENSITY_TOL):
+        own = float(np.abs(want).max())
+        peak = own if peak is None else peak
+        err = float(np.abs(got.astype(np.float64) - want).max())
+        _require(own > 0 and np.isfinite(got).all() and err <= tol * peak,
+                 f"{name}: off float64 numpy by {err / max(peak, 1e-300):.3g} of "
+                 f"{peak:.4g} (its own peak {own:.4g}), allowed {tol:g}")
+        errs[name] = err / own
+
+    def decoded(name, e):  # stored 40-bit frames of the first k sensors, H = 1
+        raw = np.ascontiguousarray(out[name].data[0]).view(np.uint8)[:, : 5 * k]
+        planes = oracle.bytes_to_soa(np.ascontiguousarray(raw).reshape(-1))
+        re, im = oracle.decode40(*(p.reshape(-1, k, 1) for p in planes), e)
+        return re.astype(np.float64), im.astype(np.float64)
+
+    n_bins = t // 2 + 1
+    shift = (np.arange(n_bins) + t // 2) % t - t // 2
+    phase = np.exp(1j * np.pi * shift / t)[:, None]
+    p = out["p"].data[0][:, :k].astype(np.float64)
+    p_re, p_im = decoded("p_c", oracle.MAX_EXP_P)
+    _require(p_re.shape[0] == LEGS_WINDOWS, f"p_c holds {p_re.shape[0]} frames")
+    for a in "xyz":
+        u = out[f"u{a}_non_staggered"].data[0][:, :k].astype(np.float64)
+        shifted = np.fft.irfft(np.fft.rfft(u, axis=0) * phase, n=t, axis=0)
+        hold(f"I{a}_avg", out[f"I{a}_avg"].data.reshape(-1)[:k], (p * shifted).mean(axis=0))
+        u_re, u_im = decoded(f"u{a}_non_staggered_c", oracle.MAX_EXP_U)
+        hold(f"I{a}_avg_c", out[f"I{a}_avg_c"].data.reshape(-1)[:k],
+             (0.5 * (p_re * u_re + p_im * u_im)).sum(axis=2).mean(axis=0))
+
+    # the record's 101 steps leave the spectrum without a Nyquist bin, whose imaginary
+    # part cuFFT's c2r transform does not drop as the CPU's does: an even length, directly
+    import torch
+
+    from kwave_tpu_torch import postproc
+
+    u = np.random.default_rng(11).standard_normal((6 * O_SIZE, k)).astype(np.float32)
+    shift = (np.arange(u.shape[0] // 2 + 1) + u.shape[0] // 2) % u.shape[0] - u.shape[0] // 2
+    hold(f"time_shift_T{u.shape[0]}",
+         postproc.time_shift_half_step(torch.from_numpy(u).to("cuda")).cpu().numpy(),
+         np.fft.irfft(np.fft.rfft(u.astype(np.float64), axis=0)
+                      * np.exp(1j * np.pi * shift / u.shape[0])[:, None],
+                      n=u.shape[0], axis=0))
+
+    grid, mask = data.grid, data.sensor_mask_index
+    for suffix in ("", "_c"):
+        q, scale = np.zeros(grid.shape, np.float64), 0.0
+        for axis, (a, d) in enumerate(zip("zyx", (grid.dz, grid.dy, grid.dx))):
+            field = np.zeros(grid.n_elements, np.float64)
+            field[mask] = out[f"I{a}_avg{suffix}"].data.reshape(-1)
+            n = grid.shape[axis]
+            ik = 2j * np.pi / d * ((np.arange(n // 2 + 1) + n // 2) % n - n // 2) / n
+            shp = [1, 1, 1]
+            shp[axis] = -1
+            q -= np.fft.irfft(np.fft.rfft(field.reshape(grid.shape), axis=axis)
+                              * ik.reshape(shp), n=n, axis=axis)
+            scale = max(scale, np.pi / d * float(np.abs(field).max()))
+        # The scattered field is a set of spikes, and the derivative at a spike is a sum
+        # over all wavenumbers of terms up to k_max |I| that cancel: the fp32 error goes
+        # with that size, not with what is left of the sum. So Q is held to 1e-6 of
+        # k_max |I|max; the line prints the error as a share of Q's own peak.
+        hold("Q_term" + suffix, out["Q_term" + suffix].data.reshape(-1),
+             q.reshape(-1)[mask], peak=scale, tol=Q_TOL)
+    return errs
+
+
+class _TimedCheckpoints:
+    """While open, `io.checkpoint`'s two functions are timed, the device drained before
+    and after each call; ``seconds`` holds, per function name, the seconds of every call
+    in order. The driver itself carries no such clock."""
+
+    def __enter__(self):
+        import torch
+
+        from kwave_tpu_torch.io import checkpoint
+
+        self.module, self.seconds = checkpoint, {}
+        self.saved = {n: getattr(checkpoint, n)
+                      for n in ("write_checkpoint", "read_checkpoint")}
+
+        def timed(name, fn):
+            def call(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                result = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                self.seconds.setdefault(name, []).append(time.perf_counter() - t0)
+                return result
+            return call
+
+        for name, fn in self.saved.items():
+            setattr(checkpoint, name, timed(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.module, name, fn)
+
+
+def legs_phase(smi):
+    """Phase 9: one run in one leg and in three, and what the intensity and Q-term
+    outputs hold (module docstring)."""
+    from kwave_tpu_torch.ops import encode_window as ew
+
+    steps = LEGS_WINDOWS * O_SIZE + LEGS_TAIL
+    data = _input(steps)
+    post_attr, sim_attr, pre_attr = ("post-processing_phase_execution_time",
+                                     "simulation_phase_execution_time",
+                                     "pre-processing_phase_execution_time")
+    # four compressed streams, each one launch a window and one for the trailing steps
+    want = 4 * (LEGS_WINDOWS + 1)
+
+    ew.reset_launch_counts()
+    out_a, secs_a, _, _ = _run(LEGS_FLAGS, LEGS_WINDOWS, LEGS_TAIL, data=data)
+    launches_a = dict(ew.LAUNCHES)
+
+    ew.reset_launch_counts()
+    out_b, ckpt = MemGroup(), MemGroup()
+    stops, pre, secs_b, resume = [], [0.0], 0.0, None
+    with _TimedCheckpoints() as timed:
+        while True:
+            _, secs, _, summary = _run(LEGS_FLAGS, LEGS_WINDOWS, LEGS_TAIL, data=data,
+                                       out=out_b, resume_from=resume, checkpoint_file=ckpt,
+                                       checkpoint_interval_steps=LEG_WINDOWS * O_SIZE)
+            secs_b += secs
+            stops.append(summary.get("__checkpointed_at__"))
+            pre.append(float(out_b.attrs[pre_attr]))  # cumulated over the legs so far
+            if stops[-1] is None:
+                break
+            resume = ckpt
+            _require(len(stops) < 10, f"the run in legs does not end: {stops}")
+    launches_b = dict(ew.LAUNCHES)
+    writes, reads = timed.seconds["write_checkpoint"], timed.seconds["read_checkpoint"]
+    _require(len(writes) == len(stops) and len(reads) == len(stops) - 1,
+             f"{len(stops)} legs wrote {len(writes)} checkpoints and read {len(reads)}")
+    # the trailing steps are a leg of their own: the last checkpoint falls at the end of
+    # the last whole window, before the end of the record
+    _require(stops == [(k * LEG_WINDOWS * O_SIZE,)
+                       for k in range(1, LEGS_WINDOWS // LEG_WINDOWS + 1)] + [None],
+             f"legs stopped at {stops}")
+    for name, got in (("A", launches_a), ("B", launches_b)):
+        _require(got == {k: (want if k == "w40_overlap" else 0) for k in got},
+                 f"run {name}: window-encode launches {got}, expected w40_overlap {want}")
+
+    a, b = dict(_datasets(out_a)), dict(_datasets(out_b))
+    _require(a.keys() == b.keys(), f"datasets differ: {sorted(a.keys() ^ b.keys())}")
+    differing = {}
+    for name in a:
+        x, y = np.ascontiguousarray(a[name]), np.ascontiguousarray(b[name])
+        same = x.shape == y.shape and x.dtype == y.dtype and \
+            np.array_equal(x.view(np.uint8), y.view(np.uint8))
+        if not same:
+            diff = np.abs(x.astype(np.float64) - y.astype(np.float64))
+            differing[name] = (float(diff.max()), float(np.abs(x).max()))
+    _require(not differing, f"three legs differ from one leg in (max diff, peak): "
+             f"{differing}")
+    errs = _intensity_checks(out_a, data, steps)
+
+    def ms_step(out, less=0.0):
+        return (float(out.attrs[sim_attr]) - less) / steps * 1e3
+
+    in_sim = sum(writes[:-1])  # the last one, at the end of the run, is post-processing
+    pre_legs = [b - a for a, b in zip(pre, pre[1:])]
+    print(f"[9 legs] {' '.join(LEGS_FLAGS)}: {GRID_N}^3, {N_SENSORS} sensors, {steps} steps "
+          f"({LEGS_WINDOWS} windows + {LEGS_TAIL}-step tail), {len(a)} datasets; run B in "
+          f"{len(stops)} legs (checkpoints at {[at[0] for at in stops if at]}) == run A bit "
+          f"for bit in every dataset; w40_overlap launched {want}x in A and in B "
+          f"(4 streams x ({LEGS_WINDOWS} windows + the tail)); against float64 numpy, of "
+          f"each one's peak: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()),
+          flush=True)
+    print(f"[9 legs] run A: {ms_step(out_a):.3f} ms/step in the simulation phase, "
+          f"{secs_a / steps * 1e3:.3f} ms/step end to end ({smi})", flush=True)
+    print(f"[9 legs] run B: {ms_step(out_b):.3f} ms/step in the simulation phase summed over "
+          f"the legs, {ms_step(out_b, in_sim):.3f} without the {len(stops) - 1} checkpoint "
+          f"writes inside it, {secs_b / steps * 1e3:.3f} ms/step end to end ({smi})", flush=True)
+    print(f"[9 legs] checkpoint write: {' '.join(f'{w:.4f}' for w in writes)} s each "
+          f"(7 fields of {GRID_N}^3 to the host, they and 4 Temp_ pairs into a group; the "
+          f"last one at the end of the run)", flush=True)
+    print(f"[9 legs] resume: checkpoint read {' '.join(f'{r:.4f}' for r in reads)} s each; "
+          f"the pre-processing phase, which on a resumed leg also puts the state on the "
+          f"device and reopens the output: {' '.join(f'{x:.4f}' for x in pre_legs)} s per "
+          f"leg, the first not resumed", flush=True)
+    print(f"[9 legs] post-processing: {float(out_a.attrs[post_attr]):.4f} s in run A, "
+          f"{float(out_b.attrs[post_attr]):.4f} s in run B's last leg (aggregates, I_avg "
+          f"and Q_term from the stored series, Q_term_c)", flush=True)
+    # the window loop alone: the outputs computed after the run are left out
+    loop_flags = [f for f in LEGS_FLAGS if f not in ("--I_avg", "--Q_term", "--Q_term_c")]
+    dev_ms, top, setup_ms = _profile_window(data, loop_flags)
+    print(f"[9 profile] {' '.join(loop_flags)}: {dev_ms:.3f} ms of kernel time per step "
+          f"over one window; " + "; ".join(f"{k} {share:.1%}" for k, share in top)
+          + f"; set-up uploads {setup_ms:.1f} ms, left out; idle share against run A's "
+          f"{ms_step(out_a):.3f} ms/step: {1 - dev_ms / ms_step(out_a):.1%}", flush=True)
+    return launches_a
+
+
+def readings_phase(readings: int, tree: Path) -> int:
+    """``--main-path-readings``: phase 4's first run (128^3, 16384 sensors, 8 windows and a
+    5-step tail, 40-bit overlap) ``readings`` times in this process, after the build and
+    the same warm-up, with the package of ``tree``. One reading a run does not resolve 5 %
+    on a loop the host bounds; two trees are compared by such processes in turns."""
+    _, smi = device_phase()
+    build_phase()
+    flags, windows, tail = ["--p_raw", "--p_c", "--40-bit_complex"], 8, 5
+    _run(flags, 1, 3)  # warm-up, as phase 4's
+    sim, end = [], []
+    for _ in range(readings):
+        out, secs, steps, _ = _run(flags, windows, tail)
+        sim.append(float(out.attrs["simulation_phase_execution_time"]) / steps * 1e3)
+        end.append(secs / steps * 1e3)
+    print(json.dumps({"main_path_readings": {
+        "tree": str(tree), "flags": flags, "steps": windows * O_SIZE + tail, "card": smi,
+        "sim_ms_per_step": sim, "end_to_end_ms_per_step": end,
+        "median_sim_ms_per_step": float(np.median(sim))}}), flush=True)
+    return 0
+
+
+def main(argv: list[str]) -> int:
+    parser = argparse.ArgumentParser(description="The port's check on one NVIDIA H100.")
+    parser.add_argument("--main-path-readings", type=int, default=0, metavar="N",
+                        help="instead of the phases: N readings of phase 4's first run")
+    parser.add_argument("--package-from", type=Path, default=ROOT, metavar="DIR",
+                        help="with --main-path-readings: the checkout whose "
+                             "kwave_tpu_torch is read (another commit, for a comparison)")
+    args = parser.parse_args(argv)
+    tree = args.package_from.resolve()
+    if not (tree / "kwave_tpu_torch").is_dir():
+        print(f"chip_smoke.py: kwave_tpu_torch/ is not in {tree}", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(tree))
     import torch
 
     if not torch.cuda.is_available():
@@ -1309,6 +1597,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    if args.main_path_readings:
+        return readings_phase(args.main_path_readings, tree)
 
     name, smi = device_phase()
     print(f"[1 device] allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
@@ -1323,6 +1613,8 @@ def main() -> int:
     codec_launches = codec_round_trip_phase(*float_run)
     series, series_launches = series_phase()
     fused, fused_launches = fused_phase()
+    legs_launches = legs_phase(smi)
+    _require(legs_launches["w40_overlap"] > 0, "phase 9 launched no window kernel")
 
     rows = [dict(name=key, route="cuda", source="kwave_tpu_torch/csrc/encode_window.cu",
                  replaces=VARIANTS[key][2], launches=launches[key], **kernels[key])
@@ -1336,6 +1628,9 @@ def main() -> int:
     rows += [dict(name=key, route="cuda", source="kwave_tpu_torch/csrc/zfuse.cu",
                   replaces="kwave_tpu/ops/zfuse.py:113", launches=fused_launches[key],
                   **fused[key]) for key in ZFUSE_KERNELS]
+    for r in rows:  # the window kernels' launches on phase 9's path, beside the main path's
+        if r["name"] in legs_launches:
+            r["launches_legs_path"] = legs_launches[r["name"]]
     lanes = {key: n for key, (_, n) in _issue_kernels().items()}
     for r in rows:  # the 40-bit kernels' steps at this build's instructions per step and lane
         count, steps = per_step.get(r["name"]), r.pop("steps", 0)
@@ -1352,4 +1647,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

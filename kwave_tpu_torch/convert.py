@@ -10,6 +10,10 @@ The functions read the JAX objects' fields by name and convert each through
 - `sources_from_jax`: `kwave_tpu.solver.Sources` -> `Sources`;
 - `encoder_state_from_jax` / `encoder_state_to_numpy`: encoder state dicts both ways
   (uint32 planes <-> int32 bit views, device counters <-> host integers);
+- `stream_states_from_jax` / `stream_states_to_numpy`: the driver's per-stream state dict
+  both ways (encoder states of compressed streams, reduce buffers, the ``iavg_c``
+  intensity accumulators, None for raw / final streams). A checkpoint itself needs no
+  conversion: both packages read and write the same file;
 - `frames_from_jax` / `frames_to_numpy`: coefficient frames both ways (float ``[K, 2H, N]``
   or ``[K, H, N]`` frames stay float32; uint32 packed planes <-> int32 bit views).
 """
@@ -129,3 +133,25 @@ def encoder_state_to_numpy(state: dict[str, Any]) -> dict[str, Any]:
     for k, v in state.items():
         out[k] = np.int32(v) if k in _ENCODER_COUNTERS else _plane_to_numpy(v)
     return out
+
+
+def stream_states_from_jax(states: dict[str, Any],
+                           device: torch.device | str = "cpu") -> dict[str, Any]:
+    """JAX `streams.init_stream_states`-shaped dict -> the port's: encoder state dicts
+    through `encoder_state_from_jax`, aggregate and intensity buffers as float32 tensors,
+    None (raw / final streams) as None."""
+    return {
+        name: encoder_state_from_jax(st, device) if isinstance(st, dict)
+        else _tensor(st, device, torch.float32)
+        for name, st in states.items()
+    }
+
+
+def stream_states_to_numpy(states: dict[str, Any]) -> dict[str, Any]:
+    """The port's stream states -> the JAX layout as numpy (the inverse of
+    `stream_states_from_jax`)."""
+    return {
+        name: encoder_state_to_numpy(st) if isinstance(st, dict)
+        else None if st is None else st.detach().cpu().numpy()
+        for name, st in states.items()
+    }

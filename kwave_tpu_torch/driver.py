@@ -10,9 +10,12 @@ dispatched (the reference's delayed flush, KSpaceFirstOrderSolver.cpp:1060-1093,
 window granularity).
 
 Covered: the lead-in before sampling starts (-s), the t==0 initial-pressure peel, the
-trailing partial window, the tiny-record lastStep rule, the auto no-overlap rule and
-`detect_period` with its attribute cache. Not ported yet (each raises where it would be
-requested): checkpoint legs, meshes / multi-process, I_avg / Q_term and their `_c` forms.
+trailing partial window, the tiny-record lastStep rule, the auto no-overlap rule,
+`detect_period` with its attribute cache, checkpoint legs (a run that stops at a window
+boundary, writes its state and continues in a later call with ``resume_from``), and the
+intensity / Q-term outputs (I_avg, Q_term from the stored raw series after the run;
+I_avg_c, Q_term_c accumulated on the fly from the coefficient frames). Not ported:
+meshes / multi-process.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 
 from kwave_tpu_torch import encoder, streams
 from kwave_tpu_torch.basis import CompressionBasis, find_period, generate_basis
+from kwave_tpu_torch.io import checkpoint as ckpt_io
 from kwave_tpu_torch.io.input_file import InputData
 from kwave_tpu_torch.io.output_file import create_output_file
 from kwave_tpu_torch.sampling import sample_index
@@ -41,7 +45,12 @@ from kwave_tpu_torch.solver import (
     step,
 )
 from kwave_tpu_torch.streams import StreamSpec, StreamWriter
-from kwave_tpu_torch.utils.observability import Logger, PhaseTimers, write_run_info
+from kwave_tpu_torch.utils.observability import (
+    Logger,
+    PhaseTimers,
+    read_cumulated_times,
+    write_run_info,
+)
 
 
 @dataclasses.dataclass
@@ -49,6 +58,10 @@ class RunConfig:
     """Driver-level knobs (the CLI surface that this port runs)."""
 
     flags: dict[str, bool]  # stream flags (streams.StreamSpec.from_flags keys)
+    i_avg: bool = False  # --I_avg: time-averaged intensity from raw series
+    i_avg_c: bool = False  # --I_avg_c: intensity from coefficient space
+    q_term: bool = False  # --Q_term
+    q_term_c: bool = False  # --Q_term_c
     mode40: bool = False
     no_overlap: bool = False  # --no_overlap (also auto-forced for short records)
     period: Optional[float] = None  # None -> auto-detect from p_source_input
@@ -56,6 +69,11 @@ class RunConfig:
     harmonics: int = 1
     sampling_start: int = 0  # -s flag, 0-based
     compression_level: int = 0
+    # a path, or an open group-like object that holds the checkpoint in memory
+    checkpoint_file: Optional[Any] = None
+    checkpoint_interval_steps: Optional[int] = None
+    checkpoint_interval_seconds: Optional[float] = None
+    block_size: Optional[int] = None  # --block_size: post-processing I/O block (elements)
     progress_interval: int = 5  # -r flag: progress print interval in percent
     benchmark_steps: Optional[int] = None  # --benchmark: Nt truncation, recorded in attrs
     data_load_seconds: float = 0.0  # input-file read time measured by the CLI
@@ -130,6 +148,46 @@ def _gather_sources(state: SimState, ops, mask, wanted: list[str]) -> dict[str, 
     return row
 
 
+def _stream_specs(run: RunConfig, is3d: bool) -> list[StreamSpec]:
+    """The run's streams: those of the flags, the dependencies that the intensity and
+    Q-term outputs force, and one iavg_c stream per axis."""
+    flags = dict(run.flags)
+    # I_avg / Q_term re-read the stored p / u_non_staggered series from the output file
+    # after the run (computeAverageIntensities), so those must be real saved datasets
+    if run.i_avg or run.q_term:
+        flags["p_raw"] = True
+        flags["u_non_staggered_raw"] = True
+    # I_avg_c / Q_term_c accumulate intensity on the fly from the coefficient frames;
+    # their compressed dependency streams run hidden (doNotSave) unless also asked for
+    # (OutputStreamContainer.cpp:269-325)
+    hidden = set()
+    if run.i_avg_c or run.q_term_c:
+        for k in ("p_c", "u_non_staggered_c"):
+            if not flags.get(k):
+                flags[k] = True
+                hidden.add(k)
+    specs = StreamSpec.from_flags(flags, is3d, run.mode40)
+    ax = ("x", "y", "z") if is3d else ("x", "y")
+    hidden_names = {"p_c"} & hidden
+    if "u_non_staggered_c" in hidden:
+        hidden_names |= {f"u{a}_non_staggered_c" for a in ax}
+    specs = [dataclasses.replace(s, save=False) if s.name in hidden_names else s
+             for s in specs]
+    if run.i_avg_c or run.q_term_c:
+        specs += [StreamSpec(f"I{a}_avg_c", f"u{a}_shifted", "iavg_c", mode40=run.mode40)
+                  for a in ax]
+    return specs
+
+
+def _summary(writer: StreamWriter) -> dict[str, Any]:
+    """Dataset names -> shapes (per-cuboid groups: a dict of their datasets' shapes)."""
+    return {
+        name: (ds.shape if name not in writer.groups
+               else {k: ds[k].shape for k in ds.keys()})
+        for name, ds in writer.datasets.items()
+    }
+
+
 @dataclasses.dataclass
 class _Run:
     """What every window of one run shares."""
@@ -147,11 +205,12 @@ class _Run:
 
 
 def _run_window(r: _Run, sim_state: SimState, stream_states, t0: int, steps: int,
-                emit: bool, peel_p0: bool):
+                emit: bool, peel_p0: bool, stepwise: bool = False):
     """``steps`` solver steps from time index t0, the sensor gather after each, then one
     `process_chunk`. With ``peel_p0`` the first step (t0 == 0) is the state-independent
     initial-pressure result (the reference applies p0 once,
-    KSpaceFirstOrderSolver.cpp:925-928)."""
+    KSpaceFirstOrderSolver.cpp:925-928). ``stepwise`` marks rows that start inside a
+    window (see `streams.process_chunk`)."""
     rows: dict[str, list] = {w: [] for w in r.wanted}
     stream_states = dict(stream_states)
     for i in range(steps):
@@ -168,7 +227,7 @@ def _run_window(r: _Run, sim_state: SimState, stream_states, t0: int, steps: int
             stream_states[s.name] = fold(stream_states[s.name], field)
     chunks = {w: torch.stack(v) for w, v in rows.items()}
     stream_states, emissions = streams.process_chunk(
-        stream_states, chunks, r.specs, r.basis, r.tables, emit=emit
+        stream_states, chunks, r.specs, r.basis, r.tables, emit=emit, stepwise=stepwise
     )
     return sim_state, stream_states, emissions
 
@@ -182,11 +241,19 @@ def require_device(device: torch.device) -> None:
 
 
 def run_simulation(data: InputData, run: RunConfig, output,
-                   device: torch.device | str = "cuda") -> dict[str, Any]:
+                   device: torch.device | str = "cuda",
+                   resume_from=None) -> dict[str, Any]:
     """Full compute(): preprocess -> windowed main loop -> aggregates -> output.
 
     ``output`` is the output file's path, or an open group-like object that receives
-    the datasets (the caller then owns and closes it). Returns dataset names -> shapes."""
+    the datasets (the caller then owns and closes it). ``resume_from`` and
+    ``run.checkpoint_file`` are each a checkpoint's path or such an object too.
+
+    With ``run.checkpoint_file`` and an interval (steps, or seconds of wall time; the
+    first met wins) the run stops at the next window boundary, writes its state there
+    and returns with ``"__checkpointed_at__": (t,)`` in the summary. A later call with
+    ``resume_from`` set to that checkpoint and the same ``output`` continues it: the
+    legs' output equals a single run's. Returns dataset names -> shapes."""
     device = torch.device(device)
     require_device(device)
     timers = PhaseTimers()
@@ -196,7 +263,7 @@ def run_simulation(data: InputData, run: RunConfig, output,
 
     grid, medium = data.grid, data.medium
     is3d = grid.dim == 3
-    specs = StreamSpec.from_flags(run.flags, is3d, run.mode40)
+    specs = _stream_specs(run, is3d)
     if not specs:
         raise ValueError("no output stream requested")
     basis = None
@@ -297,19 +364,79 @@ def run_simulation(data: InputData, run: RunConfig, output,
     sim_state = init_state(grid, device)
     stream_states = streams.init_stream_states(specs, n_sensors, grid.n_elements, basis,
                                                device)
-    peel_pending = data.p0 is not None
+
+    t0 = 0
+    ck = None
+    if resume_from is not None:
+        ck = ckpt_io.read_checkpoint(resume_from)
+        # a stale checkpoint from another run would silently corrupt the output: its
+        # dims must be the input grid's (KSpaceFirstOrderSolver.cpp:189-228)
+        ck_dims = tuple(int(v) for v in ck["grid_shape"])
+        if ck_dims != (grid.nx, grid.ny, grid.nz):
+            raise ValueError(
+                f"checkpoint file {resume_from!r} was written for grid {ck_dims} "
+                f"(nx, ny, nz) but the input file has ({grid.nx}, {grid.ny}, {grid.nz})"
+            )
+        t0 = int(ck["t_index"])
+        if not 0 <= t0 <= grid.nt:
+            raise ValueError(
+                f"checkpoint t_index {t0} outside the input's 0..nt={grid.nt} range"
+            )
+        fd = ck["fields"]
+        sim_state = SimState(**{
+            attr: put(fd[dname].reshape(grid.shape), f32) if dname in fd else None
+            for attr, dname in ckpt_io._FIELD_NAMES
+        })
+    # the initial pressure is applied once, by whichever leg covers step 0
+    peel_pending = data.p0 is not None and t0 == 0
+    sampled_done = max(t0 - run.sampling_start, 0)
 
     own_file = isinstance(output, (str, os.PathLike))
-    f = create_output_file(os.fspath(output)) if own_file else output
+    if not own_file:
+        f = output
+    elif ck is not None:
+        import h5py
+
+        f = h5py.File(os.fspath(output), "r+")
+    else:
+        f = create_output_file(os.fspath(output))
     try:
-        writer = StreamWriter(f, specs, n_sensors, sampled_steps, basis,
-                              run.compression_level, cuboid_shapes=cuboid_shapes,
-                              field_shape=grid.shape)
+        if ck is not None:
+            # the output must belong to the same interrupted run: its raw datasets are
+            # sized for the full record and must cover the rows already produced
+            # (KSpaceFirstOrderSolver.cpp:189-228)
+            for s in specs:
+                if s.op == "raw" and s.save and cuboid_shapes is None:
+                    if s.name not in f:
+                        raise ValueError(
+                            f"output file {output!r} lacks dataset {s.name!r} expected "
+                            "by the checkpointed run"
+                        )
+                    rows_total = f[s.name].shape[1]
+                    if rows_total != sampled_steps or sampled_done > rows_total:
+                        raise ValueError(
+                            f"output dataset {s.name!r} has {rows_total} rows but the "
+                            f"checkpoint expects {sampled_steps} total ({sampled_done} "
+                            "done): output/checkpoint mismatch"
+                        )
+            writer = StreamWriter(f, specs, n_sensors, sampled_steps, basis,
+                                  run.compression_level, cuboid_shapes=cuboid_shapes,
+                                  field_shape=grid.shape, reopen=True,
+                                  rows_done=sampled_done)
+            stream_states = streams.restore_stream_states(
+                stream_states, ck["stream_coeffs"], specs, sampled_done, o)
+            stream_states = streams.restore_aggregates_from_file(
+                stream_states, specs, f, sampled_done)
+            timers.restore_cumulated(read_cumulated_times(f))
+        else:
+            writer = StreamWriter(f, specs, n_sensors, sampled_steps, basis,
+                                  run.compression_level, cuboid_shapes=cuboid_shapes,
+                                  field_shape=grid.shape)
         Logger.log(Logger.ADVANCED, "Simulation: %dD grid %dx%dx%d, nt=%d, dt=%.3e on %s",
                    grid.dim, grid.nx, grid.ny, grid.nz, grid.nt, grid.dt, device)
         Logger.log(Logger.ADVANCED, "  sensors: %d (%s mask) | streams: %s", n_sensors,
                    "cuboid" if cuboid_shapes is not None else "index",
-                   ", ".join(s.name for s in specs))
+                   ", ".join(s.name + ("" if s.save else " (hidden)") for s in specs))
         if basis is not None:
             Logger.log(Logger.ADVANCED,
                        "  compression: period=%.4g mos=%d harmonics=%d oSize=%d mode40=%s",
@@ -320,8 +447,7 @@ def run_simulation(data: InputData, run: RunConfig, output,
 
         # lead-in: steps before sampling starts (the reference skips storage until
         # t >= s, KSpaceFirstOrderSolver.cpp:1060-1068)
-        t = 0
-        for t in range(run.sampling_start):
+        for t in range(t0, run.sampling_start):
             t_it = _time.time()
             if peel_pending:  # t == 0
                 sim_state = add_initial_pressure(sim_state, ops, src.p0, spectral_multi)
@@ -329,9 +455,24 @@ def run_simulation(data: InputData, run: RunConfig, output,
             else:
                 sim_state = step(sim_state, t, ops, src, cfg, spectral_multi)
             timers.add_iteration(_time.time() - t_it, sampled=False)
-        t = run.sampling_start
+        t = max(t0, run.sampling_start)
+
+        if basis is not None and sampled_done % o and t < grid.nt:
+            # a leg resumed inside a window: step by step up to the window's boundary
+            # (or the end of the record), where the one frame of that window comes out
+            steps = min(o - sampled_done % o, grid.nt - t)
+            t_it = _time.time()
+            sim_state, stream_states, emissions = _run_window(
+                r, sim_state, stream_states, t, steps,
+                emit=steps == o - sampled_done % o, peel_p0=False, stepwise=True
+            )
+            writer.flush_emissions(emissions)
+            for _ in range(steps):
+                timers.add_iteration((_time.time() - t_it) / steps, sampled=True)
+            t += steps
 
         n_windows = (grid.nt - t) // o
+        interrupted = False
         pending = None  # one-window-delayed flush
         for _ in range(n_windows):
             t_it = _time.time()
@@ -346,9 +487,40 @@ def run_simulation(data: InputData, run: RunConfig, output,
             for _ in range(o):
                 timers.add_iteration(dt_it / o, sampled=True)
             t += o
-            Logger.progress(t, grid.nt, wall0, run.progress_interval)
+            Logger.progress(t - t0, grid.nt - t0, wall0, run.progress_interval)
+            if run.checkpoint_file is not None and t < grid.nt and (
+                (run.checkpoint_interval_steps is not None
+                 and t - t0 >= run.checkpoint_interval_steps)
+                or (run.checkpoint_interval_seconds is not None
+                    and _time.time() - wall0 >= run.checkpoint_interval_seconds)
+            ):
+                # checkpoint leg boundary: elapsed-seconds or step-count trigger, first
+                # met wins (isTimeToCheckpoint, Parameters.cpp:683; window granularity
+                # keeps the encoder state frame-aligned)
+                interrupted = True
+                break
         if pending is not None:
             writer.flush_emissions(pending)
+
+        def write_checkpoint():
+            ckpt_io.write_checkpoint(
+                run.checkpoint_file, sim_state, t, (grid.nx, grid.ny, grid.nz),
+                stream_coeffs=streams.stream_states_to_checkpoint(stream_states, specs,
+                                                                  n_sensors),
+            )
+
+        file_path = os.fspath(output) if own_file else None
+        if interrupted:
+            # aggregates are persisted RAW at leg boundaries; only the last leg
+            # finalizes them (IndexOutputStream reopen/postProcess split)
+            writer.flush_aggregates(streams.raw_aggregates(stream_states, specs))
+            write_checkpoint()
+            summary = _summary(writer)
+            summary["__checkpointed_at__"] = (t,)
+            timers.stop("simulation")
+            timers.stop("total")
+            write_run_info(f, timers, device, file_path=file_path)  # cumulated times
+            return summary
 
         # trailing steps (< one window): raw rows, aggregate folds and compressed
         # accumulators still advance every sampled step (IndexOutputStream.cpp:397-450);
@@ -380,19 +552,34 @@ def run_simulation(data: InputData, run: RunConfig, output,
         timers.stop("simulation")
 
         timers.start("postprocessing")
-        writer.flush_aggregates(streams.finalize_aggregates(stream_states, specs,
-                                                            sampled_steps))
+        writer.flush_aggregates(streams.finalize_aggregates(
+            stream_states, specs, sampled_steps, compressed_frames=sampled_steps // o))
         writer.flush_final_fields(
             {s.name: getattr(sim_state, s.source) for s in specs if s.op == "final"}
         )
-        summary = {
-            name: (ds.shape if name not in writer.groups
-                   else {k: ds[k].shape for k in ds.keys()})
-            for name, ds in writer.datasets.items()
-        }
+        if run.checkpoint_file is not None:
+            # the end-of-run checkpoint carries the stream accumulators too: the
+            # reference persists them on every checkpoint (BaseOutputStream.cpp:551-606)
+            write_checkpoint()
+        summary = _summary(writer)
+
+        if run.i_avg or run.q_term:
+            from kwave_tpu_torch.postproc import post_process_output_file
+
+            post_process_output_file(
+                f, grid, mask_np, want_i_avg=run.i_avg, want_q_term=run.q_term,
+                from_coeffs=False, block_size=run.block_size, device=device,
+            )
+        if run.q_term_c:
+            # I_avg_c was accumulated on the fly (iavg_c streams); the Q term derives
+            # from it (computeQTerm over the IAvgC data,
+            # KSpaceFirstOrderSolver.cpp:1016-1030)
+            from kwave_tpu_torch.postproc import q_term_from_intensity
+
+            q_term_from_intensity(f, grid, mask_np, suffix="_c", device=device)
         timers.stop("postprocessing")
         timers.stop("total")
-        write_run_info(f, timers, device, file_path=os.fspath(output) if own_file else None)
+        write_run_info(f, timers, device, file_path=file_path)
         if run.benchmark_steps is not None:
             # record the --benchmark Nt truncation so the output is not taken for a full run
             from kwave_tpu_torch.io.hdf5 import write_attr

@@ -6,12 +6,15 @@
   `data_type` ("float"|"long") and `domain_type` ("real"|"complex") attributes.
 - File header: root-group string attributes (Hdf5FileHeader.cpp:62-88).
 
-Every function takes an open group-like object; none imports h5py.
+Every function takes an open group-like object; only `open_group`, given a path,
+imports h5py.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
+import os
 import socket
 from typing import Optional
 
@@ -20,6 +23,44 @@ import numpy as np
 from kwave_tpu_torch.io import names
 
 CREATED_BY = "kwave_tpu_torch v0.1"
+
+
+@contextlib.contextmanager
+def open_group(target, mode: str):
+    """``target`` as an open group. A path is opened with h5py in ``mode`` and closed on
+    exit; an open group-like object is passed through and stays the caller's. Mode "w"
+    empties such an object first, as it truncates a file."""
+    if isinstance(target, (str, os.PathLike)):
+        import h5py
+
+        with h5py.File(os.fspath(target), mode) as f:
+            yield f
+        return
+    if mode == "w":
+        for k in list(target.keys()):
+            del target[k]
+        target.attrs.clear()
+    yield target
+
+
+def is_group(obj) -> bool:
+    """A group (per-cuboid layout) rather than a dataset, by what it can do: works on
+    h5py objects and on in-memory stand-ins alike."""
+    return hasattr(obj, "keys")
+
+
+def group_datasets(grp) -> list:
+    """The per-cuboid datasets "1", "2", ... of a cuboid group, in order."""
+    return [grp[k] for k in sorted(grp.keys(), key=int)]
+
+
+def read_flat(obj) -> np.ndarray:
+    """A dataset, or a cuboid group's datasets concatenated, as one flat float32 array
+    (cuboid-concatenated point order, x fastest: the sensor mask's order)."""
+    if is_group(obj):
+        return np.concatenate([np.asarray(d[...], np.float32).reshape(-1)
+                               for d in group_datasets(obj)])
+    return np.asarray(obj[...], np.float32).reshape(-1)
 
 
 def _fixed_str(value: str) -> np.bytes_:
@@ -55,7 +96,7 @@ def write_scalar(f, name: str, value, dtype=None) -> None:
 
 
 def read_scalar(f, name: str):
-    v = np.asarray(f[name]).reshape(-1)[0]
+    v = np.asarray(f[name][...]).reshape(-1)[0]
     return int(v) if np.issubdtype(v.dtype, np.integer) else float(v)
 
 

@@ -3,9 +3,11 @@
 
 Same long-option names and semantics (`-s` is 1-based, `-c` is the output-file gzip level,
 `--benchmark` truncates Nt). ``-g``/``-t`` are accepted for drop-in compatibility and
-ignored: the device comes from ``KWAVE_TPU_TORCH_DEVICE``. Flags whose feature is not
-ported yet are parsed and refused by `unported_flags` with their ROADMAP item; none is
-silently ignored.
+ignored: the device comes from ``KWAVE_TPU_TORCH_DEVICE``. The spectral-engine knobs of
+`kwave_tpu.params` are accepted too: the FFT here is cuFFT in full fp32, so ``auto`` /
+``highest`` and the mxfft switches change nothing, and ``--fft_precision high`` is
+refused (`refused_fft_flags`). Flags whose feature is not ported yet are parsed and
+refused by `unported_flags` with their ROADMAP item; none is silently ignored.
 """
 
 from __future__ import annotations
@@ -23,20 +25,11 @@ STREAM_FLAGS = (
 
 # flag (argparse dest) -> the ROADMAP item that ports it
 UNPORTED = {
-    "I_avg": "queue 1 item 8 (decoder and postproc: I_avg)",
-    "Q_term": "queue 1 item 8 (decoder and postproc: Q_term)",
-    "I_avg_c": "queue 1 item 4 (iavg_c streams) and item 8",
-    "Q_term_c": "queue 1 item 4 (iavg_c streams) and item 8",
-    "post": "queue 1 item 8 (decoder and postproc: --post)",
-    "block_size": "queue 1 item 8 (decoder and postproc: post-processing I/O block)",
-    "checkpoint_file": "queue 1 item 7 (checkpoint legs)",
-    "checkpoint_interval": "queue 1 item 7 (checkpoint legs)",
-    "checkpoint_timesteps": "queue 1 item 7 (checkpoint legs)",
-    "devices": "queue 1 item 10 (parallel)",
-    "distributed": "queue 1 item 10 (parallel)",
-    "coordinator": "queue 1 item 10 (parallel)",
-    "num_processes": "queue 1 item 10 (parallel)",
-    "process_id": "queue 1 item 10 (parallel)",
+    "devices": "queue 1 item 6 (parallel)",
+    "distributed": "queue 1 item 6 (parallel)",
+    "coordinator": "queue 1 item 6 (parallel)",
+    "num_processes": "queue 1 item 6 (parallel)",
+    "process_id": "queue 1 item 6 (parallel)",
 }
 
 
@@ -64,10 +57,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--copy_sensor_mask", action="store_true",
                    help="copy the sensor mask into the output file")
 
-    # not ported yet: refused with their ROADMAP item (see UNPORTED)
     p.add_argument("--checkpoint_file", default=None)
     p.add_argument("--checkpoint_interval", type=int, default=None, metavar="SECONDS")
     p.add_argument("--checkpoint_timesteps", type=int, default=None, metavar="STEPS")
+
+    # not ported yet: refused with their ROADMAP item (see UNPORTED)
     p.add_argument("--devices", type=int, default=None, metavar="N")
     p.add_argument("--distributed", action="store_true")
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT")
@@ -101,6 +95,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="no-overlap compression windows")
     p.add_argument("--40-bit_complex", dest="bit40", action="store_true",
                    help="store coefficients in the packed 40-bit format")
+
+    # spectral-engine knobs of kwave_tpu.params (its matmul FFT); no-ops with cuFFT
+    p.add_argument("--fft_precision", choices=["auto", "highest", "high"],
+                   default="auto",
+                   help="auto and highest: cuFFT in full fp32 (what this port always "
+                        "runs); high (a reduced-precision matmul FFT) is refused")
+    p.add_argument("--mxfft", dest="matmul_fft", action="store_const", const=True,
+                   default=None, help="(compat; ignored: the FFT is cuFFT)")
+    p.add_argument("--no-mxfft", dest="matmul_fft", action="store_const", const=False,
+                   help="(compat; ignored: the FFT is cuFFT)")
+    p.add_argument("--fft_direct_base", type=int, default=None,
+                   help="(compat; ignored: the FFT is cuFFT)")
     return p
 
 
@@ -109,6 +115,15 @@ def unported_flags(args) -> list[str]:
     item."""
     return [f"--{k}: {item}" for k, item in UNPORTED.items()
             if getattr(args, k) not in (None, False)]
+
+
+def refused_fft_flags(args) -> list[str]:
+    """The spectral-engine settings this port refuses, each with the reason."""
+    if args.fft_precision == "high":
+        return ["--fft_precision high: the reduced-precision matmul FFT is under "
+                "ROADMAP.md's \"Not ported, on purpose\"; cuFFT runs in full fp32 "
+                "(auto / highest)"]
+    return []
 
 
 def args_to_run_config(args, dt: Optional[float] = None) -> RunConfig:
@@ -121,6 +136,10 @@ def args_to_run_config(args, dt: Optional[float] = None) -> RunConfig:
         period = 1.0 / (args.frequency * dt)  # Parameters.cpp:473-485
     return RunConfig(
         flags={k: getattr(args, k) for k in STREAM_FLAGS},
+        i_avg=args.I_avg,
+        i_avg_c=args.I_avg_c,
+        q_term=args.Q_term,
+        q_term_c=args.Q_term_c,
         mode40=args.bit40,
         no_overlap=args.no_overlap,
         period=period,
@@ -128,6 +147,10 @@ def args_to_run_config(args, dt: Optional[float] = None) -> RunConfig:
         harmonics=args.harmonics,
         sampling_start=max(args.sampling_start - 1, 0),  # 1-based CLI -> 0-based
         compression_level=args.compression_level,
+        checkpoint_file=args.checkpoint_file,
+        checkpoint_interval_steps=args.checkpoint_timesteps,
+        checkpoint_interval_seconds=args.checkpoint_interval,
+        block_size=args.block_size,
         progress_interval=args.progress_interval,
         benchmark_steps=args.benchmark,
     )

@@ -7,7 +7,10 @@
 - `process_chunk`, which consumes one oSize-step window of sampled rows per source and
   advances every stream at once: raw rows pass through, aggregates fold, compressed
   streams emit exactly one coefficient frame;
-- a host-side `StreamWriter` that owns the output datasets and flushes emissions.
+- a host-side `StreamWriter` that owns the output datasets and flushes emissions;
+- the checkpoint forms of the stream state (`stream_states_to_checkpoint`,
+  `restore_stream_states`, `restore_aggregates_from_file`, `raw_aggregates`), with which
+  a run continues in a later leg.
 
 Dataset sizing follows the reference: raw rows Nt-s, compressed frames floor((Nt-s)/oSize)
 (IndexOutputStream.cpp:105-117).
@@ -21,9 +24,10 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from kwave_tpu_torch import bitpack, encoder, sampling
+from kwave_tpu_torch import bitpack, decoder, encoder, sampling
 from kwave_tpu_torch.basis import MAX_EXP_P, MAX_EXP_U, CompressionBasis
 from kwave_tpu_torch.io import names as dn
+from kwave_tpu_torch.io.hdf5 import is_group, read_flat
 from kwave_tpu_torch.io.output_file import (
     CompressionAttrs,
     create_aggregate_dataset,
@@ -49,12 +53,16 @@ SOURCES = (
 class StreamSpec:
     name: str  # dataset name, e.g. "p_c", "ux_rms"
     source: str  # one of SOURCES
-    op: str  # raw | c | rms | max | min | max_all | min_all | final
+    op: str  # raw | c | rms | max | min | max_all | min_all | final | iavg_c
     mode40: bool = False
     shifted_basis: bool = False  # velocity non-staggered streams use shifted tables
     # --no_overlap: single aliased accumulator (BaseOutputStream.cpp:246-257); also
     # auto-forced when the record is shorter than one period (Parameters.cpp:141-145)
     overlap: bool = True
+    # doNotSave: the stream runs (samples, encodes, accumulates) but writes no dataset:
+    # the hidden dependency streams of I_avg_c / Q_term_c
+    # (OutputStreamContainer.cpp:269-325)
+    save: bool = True
 
     @staticmethod
     def from_flags(flags: dict[str, bool], is3d: bool, mode40: bool = False
@@ -133,6 +141,10 @@ def init_stream_states(specs: list[StreamSpec], n_sensors: int, n_grid: int,
             states[s.name] = sampling.init_reduce_buffer(s.op, n_sensors, device)
         elif s.op in ("max_all", "min_all"):
             states[s.name] = sampling.init_reduce_buffer(s.op.split("_")[0], n_grid, device)
+        elif s.op == "iavg_c":
+            # on-the-fly coefficient-space intensity accumulator
+            # (IndexOutputStream::postSample, IndexOutputStream.cpp:299-342)
+            states[s.name] = torch.zeros(n_sensors, dtype=torch.float32, device=device)
         elif s.op in ("raw", "final"):
             states[s.name] = None
         else:
@@ -154,6 +166,7 @@ def process_chunk(
     basis: Optional[CompressionBasis],
     tables: Optional[dict[bool, dict[str, torch.Tensor]]],
     emit: bool = True,
+    stepwise: bool = False,
 ) -> tuple[dict[str, Any], dict[str, Any]]:
     """Advance all streams by one aligned oSize window. Returns (states, emissions):
     emissions[name] = raw rows [o, N] | coefficient frame: float mode (re, im) planes,
@@ -161,9 +174,14 @@ def process_chunk(
     `bitpack.frame_wire_bytes`) | None.
 
     ``emit=False`` processes a partial trailing window (< oSize rows): compressed streams
-    accumulate without emitting a frame (IndexOutputStream.cpp:397-456). ``tables`` is
-    `encoder_tables(basis, device)` (None without compressed streams). Whole-domain
-    extrema are folded per step by the driver, not here."""
+    accumulate without emitting a frame (IndexOutputStream.cpp:397-456), and the iavg_c
+    pass is skipped (postSample fires per completed frame only). ``stepwise=True`` takes
+    rows that start inside a window (the first steps of a leg resumed from a checkpoint
+    that is not window-aligned): compressed streams go through `encoder.encode_steps`,
+    and the rows must end at the window's boundary (``emit=True``: the one frame comes
+    out) or before it (``emit=False``). ``tables`` is `encoder_tables(basis, device)`
+    (None without compressed streams). Whole-domain extrema are folded per step by the
+    driver, not here."""
     out: dict[str, Any] = {}
     new_states = dict(states)
     for s in specs:
@@ -173,7 +191,16 @@ def process_chunk(
             cfg = encoder.EncoderConfig.for_stream(basis, s.shifted_basis, s.mode40,
                                                    s.overlap)
             tab = tables[s.shifted_basis]
-            if emit:
+            if stepwise:
+                st, frames = encoder.encode_steps(states[s.name], chunks[s.source], cfg,
+                                                  tab)
+                if len(frames) != int(emit):
+                    raise ValueError(
+                        f"stream {s.name!r}: {len(frames)} frames from stepwise rows, "
+                        f"expected {int(emit)}"
+                    )
+                out[s.name] = frames[0] if frames else None
+            elif emit:
                 st, frame = encoder.encode_chunk(states[s.name], chunks[s.source], cfg, tab)
                 out[s.name] = frame
             else:
@@ -196,17 +223,34 @@ def process_chunk(
 
 def finalize_emissions(states: dict[str, Any], emissions: dict[str, Any],
                        specs: list[StreamSpec]) -> None:
-    """The per-frame post pass in its REQUIRED order, as one call (mutates
-    ``emissions``): the coefficient-space intensity pass consumes the SoA planes first
-    (IndexOutputStream::postSample; its iavg_c streams are not ported yet, ROADMAP
-    queue 1 item 4), THEN the 40-bit frames are packed to wire words. Every emission
-    producer (window loop, tiny-record partial) goes through this one helper."""
-    if any(s.op == "iavg_c" for s in specs):
-        raise NotImplementedError(
-            "iavg_c streams (I_avg_c / Q_term_c) are not ported yet (ROADMAP queue 1 "
-            "item 4)"
-        )
+    """The per-frame post pass in its REQUIRED order, as one call (mutates both
+    dicts): the coefficient-space intensity pass consumes the SoA planes first
+    (IndexOutputStream::postSample), THEN the 40-bit frames are packed to wire words.
+    Every emission producer (window loop, tiny-record partial) goes through this one
+    helper."""
+    accumulate_iavg_from_frames(states, emissions, specs)
     pack_40bit_emissions(emissions, specs)
+
+
+def accumulate_iavg_from_frames(states: dict[str, Any], frames: dict[str, Any],
+                                specs: list[StreamSpec]) -> None:
+    """One postSample pass (IndexOutputStream.cpp:299-342): every iavg_c stream consumes
+    the just-completed coefficient frames of its p/u partner streams (``[H, N]`` planes,
+    40-bit ones decoded first). Mutates ``states``. Fires once per completed frame,
+    including the tiny-record lastStep partial frame (:313)."""
+    pf = None  # the pressure frame, shared by every axis: decoded once
+    for s in specs:
+        if s.op != "iavg_c":
+            continue
+        axis = s.name[1]  # "Ix_avg_c" -> "x"
+        uf = frames[f"u{axis}_non_staggered" + dn.COMPRESS_SUFFIX]
+        if pf is None:
+            pf = frames["p" + dn.COMPRESS_SUFFIX]
+            if s.mode40:
+                pf = decoder.decode_frames_40b(*pf, MAX_EXP_P)
+        if s.mode40:
+            uf = decoder.decode_frames_40b(*uf, MAX_EXP_U)
+        states[s.name] = decoder.avg_intensity_update(states[s.name], *pf, *uf)
 
 
 def pack_40bit_emissions(emissions: dict[str, Any], specs: list[StreamSpec]) -> None:
@@ -217,21 +261,131 @@ def pack_40bit_emissions(emissions: dict[str, Any], specs: list[StreamSpec]) -> 
             emissions[s.name] = bitpack.pack_frame_wire(*emissions[s.name])
 
 
+_AGGREGATE_OPS = ("rms", "max", "min", "max_all", "min_all", "iavg_c")
+
+
 def finalize_aggregates(states: dict[str, Any], specs: list[StreamSpec],
-                        sampled_steps: int) -> dict[str, np.ndarray]:
+                        sampled_steps: int, compressed_frames: int = 0
+                        ) -> dict[str, np.ndarray]:
     """Post-processing of aggregate buffers (BaseOutputStream::postProcess,
-    BaseOutputStream.cpp:160-180: rms scaled by 1/(Nt-s) and sqrt'd)."""
+    BaseOutputStream.cpp:160-180: rms scaled by 1/(Nt-s) and sqrt'd; IAvgC divided by
+    the number of completed frames, IndexOutputStream.cpp:482-490)."""
     out = {}
     for s in specs:
         if s.op == "rms":
             out[s.name] = sampling.post_rms(states[s.name], sampled_steps).cpu().numpy()
         elif s.op in ("max", "min", "max_all", "min_all"):
             out[s.name] = states[s.name].cpu().numpy()
+        elif s.op == "iavg_c":
+            out[s.name] = states[s.name].cpu().numpy() / max(compressed_frames, 1)
     return out
 
 
 def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint (de)serialization of stream states
+# ---------------------------------------------------------------------------
+
+
+def stream_states_to_checkpoint(states: dict[str, Any], specs: list[StreamSpec],
+                                n_sensors: int
+                                ) -> dict[str, tuple[np.ndarray, Optional[np.ndarray]]]:
+    """Encoder accumulators -> the reference's Temp_<name>_1/2 flat buffers
+    (BaseOutputStream::checkpoint, BaseOutputStream.cpp:551-606): float mode stores
+    interleaved complex rows; 40-bit mode stores the packed 5-byte stream inside a
+    float32 buffer of ceil(1.25 N) * H floats."""
+    out = {}
+    for s in specs:
+        if s.op != "c":
+            continue
+        st = states[s.name]
+        if s.mode40:
+            def pack(k):
+                flat = encoder.frames_to_flat_40b(st["hdr" + k], st["mr" + k],
+                                                  st["mi" + k])
+                buf = np.zeros(int(np.ceil(n_sensors * 1.25)) * st["hdr" + k].shape[0],
+                               np.float32)
+                buf.view(np.uint8)[: flat.size] = flat
+                return buf
+
+            out[s.name] = (pack("1"), pack("2") if "hdr2" in st else None)
+        else:
+            out[s.name] = (
+                encoder.frames_to_flat_float(st["acc1_re"], st["acc1_im"]),
+                encoder.frames_to_flat_float(st["acc2_re"], st["acc2_im"])
+                if "acc2_re" in st else None,
+            )
+    return out
+
+
+def restore_stream_states(states: dict[str, Any],
+                          coeffs: dict[str, tuple[np.ndarray, Optional[np.ndarray]]],
+                          specs: list[StreamSpec], sampled_steps_done: int, o_size: int
+                          ) -> dict[str, Any]:
+    """Inverse of `stream_states_to_checkpoint` + counter reseeding
+    (loadCheckpointCompressionCoefficients, BaseOutputStream.cpp:528-544;
+    mCompressedTimeStep reseed, IndexOutputStream.cpp:207-210). The planes go to the
+    device of the state they replace."""
+    from kwave_tpu_torch.oracle import bytes_to_soa
+
+    new = dict(states)
+    for s in specs:
+        if s.op != "c" or s.name not in coeffs:
+            continue
+        st = dict(states[s.name])
+        first = st["hdr1" if s.mode40 else "acc1_re"]
+        (h, n), device = first.shape, first.device
+        b1, b2 = coeffs[s.name]
+
+        def put(a):  # sensor-major [N, H] on the host -> [H, N] on the device
+            return torch.from_numpy(np.ascontiguousarray(a.reshape(n, h).T)).to(device)
+
+        if s.mode40:
+            def unpack(buf):
+                raw = np.ascontiguousarray(
+                    np.asarray(buf, np.float32).reshape(-1)).view(np.uint8)[: 5 * n * h]
+                return tuple(put(a.astype(np.int32))
+                             for a in bytes_to_soa(np.ascontiguousarray(raw)))
+
+            st["hdr1"], st["mr1"], st["mi1"] = unpack(b1)
+            if b2 is not None and "hdr2" in st:
+                st["hdr2"], st["mr2"], st["mi2"] = unpack(b2)
+        else:
+            def unflat(buf):
+                c = np.asarray(buf, np.float32).reshape(n, h, 2)
+                return put(c[..., 0]), put(c[..., 1])
+
+            st["acc1_re"], st["acc1_im"] = unflat(b1)
+            if b2 is not None and "acc2_re" in st:
+                st["acc2_re"], st["acc2_im"] = unflat(b2)
+        st["sampled_step"] = int(sampled_steps_done)
+        st["compressed_step"] = int(sampled_steps_done) // o_size
+        new[s.name] = st
+    return new
+
+
+def restore_aggregates_from_file(states: dict[str, Any], specs: list[StreamSpec],
+                                 h5file, sampled_steps_done: int) -> dict[str, Any]:
+    """Aggregates are flushed RAW (pre-postProcess) to the output file at a checkpoint
+    and reloaded on reopen (IndexOutputStream::reopen, IndexOutputStream.cpp:213-231);
+    finalization (rms sqrt/scale, the IAvgC divide) happens only on the last leg."""
+    new = dict(states)
+    if sampled_steps_done <= 0:
+        return new
+    for s in specs:
+        if s.op in _AGGREGATE_OPS:
+            new[s.name] = torch.from_numpy(read_flat(h5file[s.name])).to(
+                states[s.name].device)
+    return new
+
+
+def raw_aggregates(states: dict[str, Any], specs: list[StreamSpec]
+                   ) -> dict[str, np.ndarray]:
+    """Un-finalized aggregate buffers for a checkpoint-leg flush."""
+    return {s.name: _host(states[s.name]) for s in specs if s.op in _AGGREGATE_OPS}
 
 
 # ---------------------------------------------------------------------------
@@ -249,7 +403,12 @@ class StreamWriter:
     ``cuboid_shapes`` [(cx, cy, cz), ...] switches raw/compressed/aggregate streams to
     the reference's cuboid layout: a group per stream with per-cuboid 4D datasets "1",
     "2", ... (CuboidOutputStream.cpp:656-722); the device still samples the linearized
-    point list, and the writer splits each row back into cuboid blocks."""
+    point list, and the writer splits each row back into cuboid blocks.
+
+    ``reopen`` attaches to the existing datasets of a checkpointed run and seeks each
+    stream to its resume position (IndexOutputStream::reopen,
+    IndexOutputStream.cpp:202-246: raw rows = ``rows_done`` sampled steps, compressed
+    rows = floor(rows_done / oSize)). Streams with ``save=False`` own no dataset."""
 
     def __init__(
         self,
@@ -261,15 +420,27 @@ class StreamWriter:
         compression_level: int = 0,
         cuboid_shapes: Optional[list[tuple[int, int, int]]] = None,
         field_shape: Optional[tuple[int, ...]] = None,
+        reopen: bool = False,
+        rows_done: int = 0,
     ):
         self.specs = {s.name: s for s in specs}
         self.basis = basis
         self.n_sensors = n_sensors
         self.cuboid_shapes = cuboid_shapes
-        self.rows = {s.name: 0 for s in specs}
+        o = basis.o_size if basis is not None else 1
+        self.rows = {
+            s.name: (rows_done if s.op == "raw" else rows_done // o) if reopen else 0
+            for s in specs
+        }
         self.datasets = {}
         self.groups: set[str] = set()  # streams written as per-cuboid groups
+        if reopen:
+            self.datasets = {s.name: h5file[s.name] for s in specs if s.save}
+            self.groups = {name for name, ds in self.datasets.items() if is_group(ds)}
+            return
         for s in specs:
+            if not s.save:
+                continue
             attrs = None
             if s.op == "c":
                 attrs = CompressionAttrs(
@@ -291,7 +462,7 @@ class StreamWriter:
                 self.datasets[s.name] = create_compressed_dataset(
                     h5file, s.name, n_sensors, sampled_steps, attrs, compression_level
                 )
-            elif s.op in ("rms", "max", "min"):
+            elif s.op in ("rms", "max", "min", "iavg_c"):
                 if cuboid_shapes is not None:
                     self.datasets[s.name] = create_cuboid_group(
                         h5file, s.name, cuboid_shapes, 1,
@@ -348,6 +519,8 @@ class StreamWriter:
             if data is None:
                 continue
             spec = self.specs[name]
+            if not spec.save:  # hidden dependency stream (doNotSave)
+                continue
             ds = self.datasets[name]
             if spec.op == "raw":
                 rows = _host(data)

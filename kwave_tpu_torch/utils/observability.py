@@ -5,7 +5,8 @@
 - `PhaseTimers`: wall-clock phase timing (Utils/TimeMeasure.h:54-140), split into
   sampling vs non-sampling iteration buckets (printStatistics :2742-2780).
 - `write_run_info`: the output-file attribute block the reference writes per run
-  (writeOutputDataInfo, KSpaceFirstOrderSolver.cpp:1100-1169).
+  (writeOutputDataInfo, KSpaceFirstOrderSolver.cpp:1100-1169); phase times are cumulated
+  over checkpoint legs (`read_cumulated_times` + `PhaseTimers.restore_cumulated`).
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ class PhaseTimers:
     def __init__(self):
         self._start: dict[str, float] = {}
         self._elapsed: dict[str, float] = {p: 0.0 for p in self.PHASES}
+        self._cumulated: dict[str, float] = {p: 0.0 for p in self.PHASES}
         self.sampling_time = 0.0
         self.sampling_iters = 0
         self.non_sampling_time = 0.0
@@ -73,6 +75,15 @@ class PhaseTimers:
 
     def elapsed(self, phase: str) -> float:
         return self._elapsed[phase]
+
+    def cumulated(self, phase: str) -> float:
+        """This leg + previous legs (restored via `restore_cumulated`)."""
+        return self._cumulated[phase] + self._elapsed[phase]
+
+    def restore_cumulated(self, values: dict[str, float]) -> None:
+        for k, v in values.items():
+            if k in self._cumulated:
+                self._cumulated[k] = float(v)
 
     def add_iteration(self, seconds: float, sampled: bool) -> None:
         if sampled:
@@ -101,11 +112,11 @@ def write_run_info(h5file, timers: PhaseTimers, device: torch.device,
     from kwave_tpu_torch.io import names
     from kwave_tpu_torch.io.hdf5 import write_attr
 
-    write_attr(h5file, names.TOTAL_EXECUTION_TIME, timers.elapsed("total"))
-    write_attr(h5file, names.DATA_LOAD_TIME, timers.elapsed("data_load"))
-    write_attr(h5file, names.PREPROCESSING_TIME, timers.elapsed("preprocessing"))
-    write_attr(h5file, names.SIMULATION_TIME, timers.elapsed("simulation"))
-    write_attr(h5file, names.POSTPROCESSING_TIME, timers.elapsed("postprocessing"))
+    write_attr(h5file, names.TOTAL_EXECUTION_TIME, timers.cumulated("total"))
+    write_attr(h5file, names.DATA_LOAD_TIME, timers.cumulated("data_load"))
+    write_attr(h5file, names.PREPROCESSING_TIME, timers.cumulated("preprocessing"))
+    write_attr(h5file, names.SIMULATION_TIME, timers.cumulated("simulation"))
+    write_attr(h5file, names.POSTPROCESSING_TIME, timers.cumulated("postprocessing"))
     if timers.sampling_iters:
         write_attr(h5file, "average_sampling_iteration_time",
                    timers.sampling_time / timers.sampling_iters)
@@ -124,3 +135,19 @@ def write_run_info(h5file, timers: PhaseTimers, device: torch.device,
     write_attr(h5file, names.NUMBER_OF_CORES, os.cpu_count() or 1)
     if file_path is not None and os.path.exists(file_path):
         write_attr(h5file, "output_file_size_MB", os.path.getsize(file_path) / (1 << 20))
+
+
+def read_cumulated_times(h5file) -> dict[str, float]:
+    """Reload previous legs' cumulated phase times from an output file
+    (loadElapsedTimeFromOutputFile, KSpaceFirstOrderSolver.cpp:2898)."""
+    from kwave_tpu_torch.io import names
+
+    mapping = {
+        "total": names.TOTAL_EXECUTION_TIME,
+        "data_load": names.DATA_LOAD_TIME,
+        "preprocessing": names.PREPROCESSING_TIME,
+        "simulation": names.SIMULATION_TIME,
+        "postprocessing": names.POSTPROCESSING_TIME,
+    }
+    return {phase: float(h5file.attrs[attr]) for phase, attr in mapping.items()
+            if attr in h5file.attrs}

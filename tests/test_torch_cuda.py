@@ -639,3 +639,32 @@ def test_fused_step_on_the_card_matches_unfused():
         out.append(st.p)
     assert sum(zfuse.LAUNCHES.values()) - before == 1 + 6 * 6
     assert float((out[1] - out[0]).abs().max()) <= 2e-4 * float(out[0].abs().max())
+
+
+@pytest.mark.parametrize("n", [96, 101, 128])
+def test_postproc_spectral_ops_on_the_card_match_the_cpu(n):
+    """The half-step time shift and the Q term's derivative multiply the Nyquist bin (even
+    lengths) by an imaginary factor; cuFFT's c2r transform does not drop that part as the
+    CPU's does, so the tables zero it: card == CPU == float64 numpy to 1e-6 of the peak."""
+    from kwave_tpu_torch import postproc
+
+    dev = require_cuda()
+    rng = np.random.default_rng(n)
+    u = rng.standard_normal((n, 64)).astype(np.float32)
+    shift = (np.arange(n // 2 + 1) + n // 2) % n - n // 2
+    want = np.fft.irfft(np.fft.rfft(u.astype(np.float64), axis=0)
+                        * np.exp(1j * np.pi * shift / n)[:, None], n=n, axis=0)
+    for device in ("cpu", dev):
+        got = postproc.time_shift_half_step(torch.from_numpy(u).to(device)).cpu().numpy()
+        assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max(), device
+
+    # spikes, as the scattered sensor intensities are: the spectrum is full up to Nyquist
+    fields = [np.where(rng.random((8, n, n)) < 0.05,
+                       rng.standard_normal((8, n, n)), 0.0).astype(np.float32)
+              for _ in range(3)]
+    on_cpu = postproc.q_term(*(torch.from_numpy(f) for f in fields), 1e-4, 1e-4, 1e-4)
+    on_card = postproc.q_term(*(torch.from_numpy(f).to(dev) for f in fields),
+                              1e-4, 1e-4, 1e-4).cpu()
+    # of the size of the terms that the derivative sums: k_max |I|max
+    assert (on_card - on_cpu).abs().max() <= 1e-6 * np.pi / 1e-4 * max(
+        np.abs(f).max() for f in fields)

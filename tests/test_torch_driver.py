@@ -219,12 +219,55 @@ def test_tiny_record_emits_one_partial_frame(tmp_path):
 
 
 def test_unported_flags_are_refused_with_their_roadmap_item(tmp_path, capsys):
-    for flag, dest in (("--I_avg", "I_avg"), ("--checkpoint_file=x.h5", "checkpoint_file"),
-                       ("--devices=2", "devices")):
+    assert set(UNPORTED) == {"devices", "distributed", "coordinator", "num_processes",
+                             "process_id"}
+    for flag, dest in (("--devices=2", "devices"), ("--distributed", "distributed"),
+                       ("--num_processes=2", "num_processes")):
         with pytest.raises(SystemExit):
             cli.main(["-i", "in.h5", "-o", "out.h5", flag])
         err = capsys.readouterr().err
         assert "ROADMAP" in err and UNPORTED[dest] in err, err
+
+
+def test_cli_fft_knobs_are_accepted_and_high_precision_is_refused(tmp_path, capsys):
+    """The reference's spectral-engine flags parse: ``auto`` / ``highest`` and the mxfft
+    switches change nothing here (cuFFT in full fp32), and a run with them equals the
+    run without; ``--fft_precision high`` is refused with the reason. Every other flag
+    of `kwave_tpu.params.build_parser` is known to the port's parser too."""
+    from kwave_tpu.params import build_parser as jbuild
+    from kwave_tpu_torch.params import args_to_run_config, build_parser
+
+    p = build_parser()
+    base = ["-i", "x.h5", "-o", "y.h5", "--p_raw"]
+    plain = args_to_run_config(p.parse_args(base))
+    for extra in (["--fft_precision", "highest", "--mxfft", "--fft_direct_base", "256"],
+                  ["--no-mxfft"], ["--fft_precision", "auto"]):
+        assert args_to_run_config(p.parse_args(base + extra)) == plain, extra
+    assert p.parse_args(base + ["--mxfft"]).matmul_fft is True
+    assert p.parse_args(base + ["--no-mxfft"]).matmul_fft is False
+    with pytest.raises(SystemExit):
+        cli.main(base + ["--fft_precision", "high"])
+    err = capsys.readouterr().err
+    assert "Not ported, on purpose" in err and "ROADMAP" in err, err
+    with pytest.raises(SystemExit):
+        p.parse_args(base + ["--fft_precision", "low"])
+    capsys.readouterr()
+
+    def options(parser):
+        return {o for a in parser._actions for o in a.option_strings}
+
+    assert options(jbuild()) <= options(p)
+    # and they reach a run: the same output with and without them
+    inp = str(tmp_path / "in.h5")
+    _write_input(inp, PERIOD + 2)
+    outs = [str(tmp_path / "a.h5"), str(tmp_path / "b.h5")]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv(cli.DEVICE_ENV, "cpu")
+        assert cli.main(["-i", inp, "-o", outs[0], "--p_raw"]) == 0
+        assert cli.main(["-i", inp, "-o", outs[1], "--p_raw", "--fft_precision", "highest",
+                         "--no-mxfft", "--fft_direct_base", "128"]) == 0
+    with h5py.File(outs[0]) as fa, h5py.File(outs[1]) as fb:
+        np.testing.assert_array_equal(np.asarray(fa["p"]), np.asarray(fb["p"]))
 
 
 def test_cuda_device_without_a_card_raises(monkeypatch):

@@ -71,3 +71,16 @@ for name in BLOCKED + ("kwave_tpu.basis",):
     assert {"kwave_tpu_torch.basis", "kwave_tpu_torch.oracle",
             "kwave_tpu_torch.ops.encode_series", "kwave_tpu_torch.ops.zfuse"} \
         <= set(proc.stdout.split())
+
+
+def test_checkpoint_and_postproc_import_without_jax_and_without_h5py():
+    """The checkpoint-leg and post-processing modules are among those walked, and they
+    (with every other module of the port, and chip_smoke) also import where h5py is
+    absent: it is imported only inside the function that opens a file on disk."""
+    proc = _run(_SCRIPT.replace("print(len(names))", "print(' '.join(names))"))
+    assert proc.returncode == 0, proc.stderr
+    assert {"kwave_tpu_torch.io.checkpoint", "kwave_tpu_torch.postproc"} \
+        <= set(proc.stdout.split())
+    proc = _run(_SCRIPT.replace('BLOCKED = ("jax", "jaxlib", "kwave_tpu")',
+                                'BLOCKED = ("jax", "jaxlib", "kwave_tpu", "h5py")'))
+    assert proc.returncode == 0, proc.stderr
