@@ -3,7 +3,8 @@
 sources in this checkout, holds each against its plain PyTorch version and the NumPy
 oracle, then drives the port's paths: the simulation at 128^3 with 16384 index sensors,
 the codec round trip, the whole-record exact encode, the 256^3 simulation with the
-fused z stage, and a run in checkpoint legs with the intensity and Q-term outputs.
+fused z stage, a run in checkpoint legs with the intensity and Q-term outputs, and the
+acceptance sweep's inputs on the card against the port on the CPU.
 
     python3 chip_smoke.py
 
@@ -35,7 +36,10 @@ the final ok line):
    and 3D, K6) under torch.profiler runs its one kernel on the device and nothing else. The synthesis decode (K4, both
    entries) on the same frames and on five boundary cases, against plain (1e-6 of the
    peak) and `kwave_tpu_torch.oracle.reconstruct` on 256 sensors (4e-6). Kernel and plain
-   times at the full shape from CUDA events, and wall time per call;
+   times at the full shape from CUDA events, and wall time per call; beside them one
+   PyTorch call for each kernel's function (K5 and K6 an einsum over the series'
+   overlapping windows, K4 a transposed convolution), held to the kernel (1e-4 of the
+   peak) and timed, used nowhere in the port;
 6. codec round trip: `kwave_tpu_torch.bench` at bench.py's shape (GB/s,
    actual_bytes_value, ceiling, fraction, the err < 0.02 guard), one encode and one
    decode launch per round trip; a shorter chain through the 3D entries; the same
@@ -78,6 +82,21 @@ the final ok line):
    is also held to float64 numpy at 96 steps. Prints ms/step of A and B, seconds per
    checkpoint write and per resume, seconds of the post-processing, and the device time
    by kind of kernel of one profiled window of the loop.
+10. the acceptance inputs on the card: (a) every input of the CPU acceptance sweep
+   (tests/acceptance_cases.py: 2D, p sources in modes 0/1/2 with one series and many, u
+   sources, a transducer, nonuniform maps, nonlinear and absorbing media, cuboids, tiny
+   and one-window records, legs, ``--post``; and, the card's alone, nz = 100 with the
+   fused z stage, the dense K7 inside a real run) run by the port on the card and on
+   the CPU in this process: every dataset's name, layout and attributes equal, data
+   within rel L2 1e-4, 40-bit rows decoded first (where they are above it, each
+   coefficient within 2o steps of the word's absolute quantum, and the line names them),
+   and the CPU's p series encoded on the card to the CPU's p_c bytes; (b) phase 9's input at full width (128^3, 16384
+   sensors, 2 windows and a 5-step tail) with ``--p_raw --u_non_staggered_raw --p_c
+   --u_non_staggered_c --40-bit_complex --I_avg --Q_term --p_max --p_rms``, card
+   against CPU likewise (the shifted velocity's Nyquist bin at the size users run);
+   (c) `solver.simulate` on the card: the standing wave (2D, 3D, 3D fused: radix K7)
+   against its closed form (5e-3) and acoustic reciprocity (1e-4 of the peak). Prints
+   the window kernels' and K7's launches (radix and dense).
 Then one JSON line with every kernel's numbers (its time beside its bound: the larger of
 its bytes over 3.35 TB/s and its fp32 operations over 67 TFLOP/s; for the 40-bit kernels
 also ``issue_ms``, the machine instructions that this run's build spends on their steps,
@@ -700,21 +719,61 @@ def _codec_main_checks(x, frames, rec, basis, lo, hi, tab4, results, k6_err):
     }
     bounds["encode_frames"] = bounds["encode_frames_flat"]
     bounds["reconstruct_series"] = bounds["reconstruct_series_flat"]
+    library, lib_errs = _codec_library_calls(x, frames, rec, lo, hi, tab4, o)
     parts = []
     for key, (kern, plain) in timed.items():
         ms, wall = _time_per_call(kern, iters=50, warmup=5)
         plain_ms, plain_wall = _time_per_call(plain, iters=10, warmup=2)
-        # no single PyTorch call computes a kernel's function (the projection is an
-        # einsum plus a shifted add, the synthesis two einsums and an overlap-add)
+        lib_ms, _ = _time_per_call(library[key], iters=10, warmup=2)
         results[key] = dict(max_abs_err=errs[key], ms=ms, plain_ms=plain_ms, **bounds[key],
-                            library_ms=None)
+                            library_ms=lib_ms)
         parts.append(f"{key} {ms * 1e3:.1f} us (wall {wall * 1e3:.1f} us), plain "
-                     f"{plain_ms * 1e3:.1f} us (wall {plain_wall * 1e3:.1f} us)")
-    return (f"; each encode entry's call is one kernel on the device and nothing else "
+                     f"{plain_ms * 1e3:.1f} us (wall {plain_wall * 1e3:.1f} us), library "
+                     f"{lib_ms * 1e3:.1f} us")
+    return (f"; library calls off the kernels by {lib_errs} of the peak; "
+            f"each encode entry's call is one kernel on the device and nothing else "
             f"(torch.profiler); K4 off oracle {dec_orc:.2e} ({ORACLE_SENSORS} sensors); 5 "
             f"boundary cases "
             f"flat == 3D, worst {worst_case:.2e} off plain/oracle; dyadic K5 and K4 == plain "
             f"bit for bit; device time per call: " + "; ".join(parts))
+
+
+LIBRARY_TOL = 1e-4  # a library call vs the kernel, of the peak: the same function
+
+
+def _codec_library_calls(x, frames, rec, lo, hi, tab4, o):
+    """One PyTorch call for each codec kernel's function, timed beside it and used nowhere
+    in the port: K5 an einsum over the series' overlapping 2o-sample windows (frames 1 on;
+    frame 0 is the mirror), K6 the same einsum over one window, K4 a transposed
+    convolution (the product with the table and the overlap-add in one call; it covers
+    the whole windows). Each is held to the kernel's result (LIBRARY_TOL of the peak).
+    Returns LAUNCHES key -> call, and the errors."""
+    import torch
+    import torch.nn.functional as F
+
+    h2 = lo.shape[1]
+    tab = torch.cat([lo, hi])  # [2o, 2H]
+    win = x[o:3 * o]  # the samples of frame 2
+    fold = tab4 * (o / 2.0)  # the normalisation undo, as the kernel folds it
+    weight = torch.cat([fold[:, h2:], fold[:, :h2]]).t().unsqueeze(1).contiguous()
+    calls = {
+        "encode_frames_flat": lambda: torch.einsum("knu,uj->kjn", x.unfold(0, 2 * o, o), tab),
+        "wfloat_projection": lambda: torch.einsum("un,uj->jn", win, tab),
+        "reconstruct_series_flat": lambda: F.conv_transpose1d(frames.permute(2, 1, 0), weight,
+                                                              stride=o),
+    }
+    k = frames.shape[0]
+    errs = {
+        "K5": _rel_err(calls["encode_frames_flat"](), frames[1:]),
+        "K6": _rel_err(calls["wfloat_projection"](), frames[2]),
+        "K4": _rel_err(calls["reconstruct_series_flat"]()[:, 0, o:(k + 1) * o].t(),
+                       rec[:k * o]),
+    }
+    _require(max(errs.values()) <= LIBRARY_TOL,
+             f"a library call computes another function: {errs}")
+    calls["encode_frames"] = calls["encode_frames_flat"]
+    calls["reconstruct_series"] = calls["reconstruct_series_flat"]
+    return calls, {k: float(f"{v:.2e}") for k, v in errs.items()}
 
 
 def codec_round_trip_phase(float_out, float_steps):
@@ -1237,7 +1296,7 @@ def _input(nt: int, n: int = GRID_N):
 
 
 def _run(flags: list[str], windows: int, tail: int, data=None, out=None, resume_from=None,
-         **run_fields):
+         device="cuda", **run_fields):
     """One `run_simulation` through the CLI's parser into an in-memory group (``out``, or
     a new one); ``run_fields`` sets RunConfig fields that have no flag
     (compact_operators, fuse_z) or that take a group here (checkpoint_file). Returns the
@@ -1258,7 +1317,7 @@ def _run(flags: list[str], windows: int, tail: int, data=None, out=None, resume_
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     legs = {} if resume_from is None else {"resume_from": resume_from}
-    summary = run_simulation(data, run, out, device="cuda", **legs)
+    summary = run_simulation(data, run, out, device=device, **legs)
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0, data.grid.nt, summary
 
@@ -1553,6 +1612,159 @@ def legs_phase(smi):
     return launches_a
 
 
+# phase 10: the acceptance inputs on the card against the port on the CPU
+FULL_FLAGS = ["--p_raw", "--u_non_staggered_raw", "--p_c", "--u_non_staggered_c",
+              "--40-bit_complex", "--I_avg", "--Q_term", "--p_max", "--p_rms"]
+FULL_WINDOWS, FULL_TAIL = 2, 5
+STANDING_WAVE_ATOL = 5e-3  # tests/test_solver.py's closed form, of the unit amplitude
+RECIPROCITY_TOL = 1e-4  # of the peak, as tests/test_solver.py
+
+
+def _acceptance_cases():
+    """tests/acceptance_cases.py: the sweep's inputs and checks (numpy and the port)."""
+    tests = str(ROOT / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import acceptance_cases
+
+    return acceptance_cases
+
+
+def _run_case(ac, c, device):
+    """One acceptance case through the port as its CLI runs it (flags through its parser,
+    ``--benchmark``, legs resumed from a checkpoint, then ``--post``), every file an
+    in-memory group; ``--copy_sensor_mask`` is the CLI's own edit of a file on disk and
+    is left out on both devices. A ``fuse_z`` case takes the fused z stage on the card."""
+    import dataclasses
+
+    from kwave_tpu_torch import params
+    from kwave_tpu_torch.driver import _corners_to_indices, run_simulation
+    from kwave_tpu_torch.postproc import post_process_output_file
+
+    data = ac.port_input(c)
+    args = params.build_parser().parse_args(["-i", "-", "-o", "-", *c.flags])
+    if args.benchmark is not None:
+        data.grid = dataclasses.replace(data.grid, nt=min(args.benchmark, data.grid.nt))
+    run = params.args_to_run_config(args, dt=data.grid.dt)
+    if not any(run.flags.values()) and not (args.I_avg or args.I_avg_c or args.Q_term
+                                            or args.Q_term_c):
+        run.flags["p_raw"] = True  # the CLI's default output
+    if c.fuse_z and device == "cuda":
+        run = dataclasses.replace(run, fuse_z=True, compact_operators=True)
+    out, resume = MemGroup(), None
+    if c.legs:
+        run = dataclasses.replace(run, checkpoint_file=MemGroup())
+    for _ in range(100):
+        summary = run_simulation(data, run, out, device=device, resume_from=resume)
+        if "__checkpointed_at__" not in summary:
+            break
+        resume = run.checkpoint_file
+    if c.post:
+        post = params.build_parser().parse_args(["-i", "-", "-o", "-", "--post", *c.post])
+        mask = data.sensor_mask_index
+        if mask is None:
+            mask = _corners_to_indices(data.sensor_mask_corners, data.grid)
+        for from_coeffs, i_avg, q_term in ((False, post.I_avg, post.Q_term),
+                                           (True, post.I_avg_c, post.Q_term_c)):
+            if i_avg or q_term:
+                post_process_output_file(out, data.grid, mask, want_i_avg=i_avg,
+                                         want_q_term=q_term, from_coeffs=from_coeffs,
+                                         block_size=post.block_size, device=device)
+    return out
+
+
+def _hold_card_to_cpu(ac, c, card, cpu, device="cuda") -> tuple[dict, set, str]:
+    """Every dataset of the card's output against the CPU's (the sweep's tolerances), and
+    the CPU's p_c bytes against the card's encoding of the CPU's p series (exact: the
+    port's encoders are the oracle's bit for bit on both devices)."""
+    errs, floored = ac.compare_outputs(cpu, card)
+    fed = ac.p_c_fed_the_series(cpu, c, device=device)
+    if fed is None:
+        return errs, floored, "-"
+    mine, stored, _ = fed
+    _require(np.array_equal(mine, stored),
+             f"{c.name}: p_c of the CPU's series encoded on the card != the CPU's p_c")
+    return errs, floored, "equal"
+
+
+def acceptance_phase(smi):
+    """Phase 10: (a) every input of the acceptance sweep, (b) phase 9's input at full
+    width, each run by the port on the card and on the CPU in this process and held to
+    each other; (c) `simulate` on the card against the standing wave's closed form and
+    acoustic reciprocity. Returns the launches of (a) and (b) by LAUNCHES key."""
+    from kwave_tpu_torch.ops import encode_window as ew
+    from kwave_tpu_torch.ops import zfuse
+
+    ac = _acceptance_cases()
+    t0 = time.perf_counter()
+    ew.reset_launch_counts()
+    zfuse.reset_launch_counts()
+    cards = {c.name: _run_case(ac, c, "cuda") for c in ac.CASES}
+    launches = {**ew.LAUNCHES, **zfuse.LAUNCHES}
+    k7 = dict(zfuse.KERNEL_LAUNCHES)
+    card_s = time.perf_counter() - t0
+    _require(k7["dense"] > 0, f"no run launched the dense z-stage kernel: {k7}")
+    worst, fed, faults, floors = {}, 0, [], []
+    for c in ac.CASES:
+        try:
+            errs, floored, p_c = _hold_card_to_cpu(ac, c, cards[c.name],
+                                                   _run_case(ac, c, "cpu"))
+        except AssertionError as e:  # every case is checked; all faults are reported
+            faults.append(f"{c.name}: {e}")
+            continue
+        worst[c.name] = max(v for k, v in errs.items() if k not in floored)
+        floors += [f"{c.name}/{k} {errs[k]:.2e}" for k in sorted(floored)]
+        fed += p_c == "equal"
+    _require(not faults, "card != CPU in " + " | ".join(faults))
+    name = max(worst, key=worst.get)
+    print(f"[10 acceptance] (a) {len(ac.CASES)} inputs of the acceptance sweep, card vs "
+          f"the port on the CPU: every dataset's name, layout and attributes equal, data "
+          f"within rel L2 {ac.REL_L2:g} (worst {worst[name]:.2e}, {name}; 40-bit rows "
+          f"held by the quantum floor: {floors or 'none'}); p_c of the "
+          f"CPU's series encoded on the card == the CPU's bytes in {fed} runs; card runs "
+          f"{card_s:.1f} s; window kernels launched "
+          f"{ {k: v for k, v in launches.items() if k in ew.LAUNCHES and v} }, "
+          f"K7 {k7} (dense: {ac.case('fused_dense_nz100').name})", flush=True)
+
+    steps = FULL_WINDOWS * O_SIZE + FULL_TAIL
+    data = _input(steps)
+    ew.reset_launch_counts()
+    zfuse.reset_launch_counts()
+    card, secs, _, _ = _run(FULL_FLAGS, FULL_WINDOWS, FULL_TAIL, data=data)
+    for k, v in ew.LAUNCHES.items():
+        launches[k] += v
+    t2 = time.perf_counter()
+    cpu, _, _, _ = _run(FULL_FLAGS, FULL_WINDOWS, FULL_TAIL, data=data, device="cpu")
+    cpu_s = time.perf_counter() - t2
+    errs, floored, p_c = _hold_card_to_cpu(
+        ac, ac.Case("full_width", "card", tuple(FULL_FLAGS)), card, cpu)
+    shifted = max(v for k, v in errs.items() if "non_staggered" in k and "_c" not in k)
+    top = sorted(errs, key=errs.get)[-3:][::-1]
+    print(f"[10 acceptance] (b) {' '.join(FULL_FLAGS)}: {GRID_N}^3, {N_SENSORS} sensors, "
+          f"{steps} steps ({FULL_WINDOWS} windows + {FULL_TAIL}-step tail), card vs CPU in "
+          f"{len(errs)} datasets: worst rel L2 "
+          + ", ".join(f"{k} {errs[k]:.2e}" for k in top)
+          + f" (held by the quantum floor: {sorted(floored) or 'none'}), u*_non_staggered "
+          f"{shifted:.2e}; p_c bytes {p_c}; card {secs:.2f} s, CPU {cpu_s:.1f} s ({smi})",
+          flush=True)
+
+    ew.reset_launch_counts()
+    zfuse.reset_launch_counts()
+    waves = {(dim, fused): ac.standing_wave_error(dim, fused, "cuda")
+             for dim, fused in ((2, False), (3, False), (3, True))}
+    recip = ac.reciprocity_error("cuda")
+    _require(max(waves.values()) <= STANDING_WAVE_ATOL and recip <= RECIPROCITY_TOL,
+             f"simulate on the card: standing wave {waves}, reciprocity {recip:.3g}")
+    _require(zfuse.KERNEL_LAUNCHES["radix"] > 0, "the fused standing wave launched no K7")
+    print(f"[10 acceptance] (c) simulate on the card: standing wave off cos(w t) cos(kx) by "
+          f"{waves[(2, False)]:.2e} (2D), {waves[(3, False)]:.2e} (3D), "
+          f"{waves[(3, True)]:.2e} (3D, fused z stage: K7 {dict(zfuse.KERNEL_LAUNCHES)}), "
+          f"allowed {STANDING_WAVE_ATOL:g}; reciprocity |G(A->B) - G(B->A)| "
+          f"{recip:.2e} of the peak, allowed {RECIPROCITY_TOL:g}; phase 10 in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def readings_phase(readings: int, tree: Path) -> int:
     """``--main-path-readings``: phase 4's first run (128^3, 16384 sensors, 8 windows and a
     5-step tail, 40-bit overlap) ``readings`` times in this process, after the build and
@@ -1615,6 +1827,7 @@ def main(argv: list[str]) -> int:
     fused, fused_launches = fused_phase()
     legs_launches = legs_phase(smi)
     _require(legs_launches["w40_overlap"] > 0, "phase 9 launched no window kernel")
+    acceptance_launches = acceptance_phase(smi)
 
     rows = [dict(name=key, route="cuda", source="kwave_tpu_torch/csrc/encode_window.cu",
                  replaces=VARIANTS[key][2], launches=launches[key], **kernels[key])
@@ -1628,9 +1841,11 @@ def main(argv: list[str]) -> int:
     rows += [dict(name=key, route="cuda", source="kwave_tpu_torch/csrc/zfuse.cu",
                   replaces="kwave_tpu/ops/zfuse.py:113", launches=fused_launches[key],
                   **fused[key]) for key in ZFUSE_KERNELS]
-    for r in rows:  # the window kernels' launches on phase 9's path, beside the main path's
+    for r in rows:  # launches on phase 9's and phase 10's paths, beside the main path's
         if r["name"] in legs_launches:
             r["launches_legs_path"] = legs_launches[r["name"]]
+        if r["name"] in acceptance_launches:
+            r["launches_acceptance_path"] = acceptance_launches[r["name"]]
     lanes = {key: n for key, (_, n) in _issue_kernels().items()}
     for r in rows:  # the 40-bit kernels' steps at this build's instructions per step and lane
         count, steps = per_step.get(r["name"]), r.pop("steps", 0)

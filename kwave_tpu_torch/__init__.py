@@ -12,3 +12,5 @@ The CLI (`kwave_tpu_torch.cli`) takes its device from ``KWAVE_TPU_TORCH_DEVICE``
 """
 
 __version__ = "0.1.0"
+
+from kwave_tpu_torch.basis import CompressionBasis, find_period, generate_basis  # noqa: F401

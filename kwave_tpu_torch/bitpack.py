@@ -213,6 +213,15 @@ def pack_words(header: torch.Tensor, mr: torch.Tensor, mi: torch.Tensor) -> torc
     return g[..., 0] | (g[..., 1] << 8) | (g[..., 2] << 16) | (g[..., 3] << 24)
 
 
+def words_to_bytes(words) -> bytes:
+    """Host side: packed words (a tensor or an array, int32 or uint32) as the wire byte
+    stream, little-endian."""
+    if isinstance(words, torch.Tensor):
+        words = words.cpu().numpy()
+    words = np.asarray(words)
+    return words.astype(f"<{words.dtype.kind}4", copy=False).tobytes()
+
+
 def pack_frame_wire(hdr: torch.Tensor, mr: torch.Tensor, mi: torch.Tensor) -> torch.Tensor:
     """One coefficient frame's ``[H, N]`` planes -> wire-format int32 words, on the device,
     in the writer's point-major order pH = i*H + ih, padded to the 4-coefficient group of
@@ -232,9 +241,7 @@ def frame_wire_bytes(words, n_coeffs: int) -> np.ndarray:
     """Host-side inverse of `pack_frame_wire`: words -> the frame's 5-byte/coeff stream
     (numpy uint8 of length ``5*n_coeffs``). Fails loudly when the payload does not cover
     the expected coefficient count."""
-    if isinstance(words, torch.Tensor):
-        words = words.cpu().numpy()
-    raw = np.ascontiguousarray(words).astype("<i4", copy=False).view(np.uint8)
+    raw = np.frombuffer(words_to_bytes(words), np.uint8)
     need = 5 * n_coeffs
     if raw.size < need or raw.size >= need + 20:  # 20 B = one 4-coeff pad group
         raise ValueError(

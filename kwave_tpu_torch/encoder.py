@@ -156,6 +156,17 @@ def encode_chunk(state, x_chunk: torch.Tensor, cfg: EncoderConfig, tables):
     return _emit(state, cfg)
 
 
+def encode_chunks(state, chunks: torch.Tensor, cfg: EncoderConfig, tables):
+    """`encode_chunk` over ``chunks[C, o, N]`` in order: one launch of the window op a
+    chunk (K1 in 40-bit mode, K2 in float, on a CUDA tensor). Returns (state, frames):
+    the frame planes each stacked to ``[C, H, N]``."""
+    frames = []
+    for c in range(chunks.shape[0]):
+        state, frame = encode_chunk(state, chunks[c], cfg, tables)
+        frames.append(frame)
+    return state, tuple(torch.stack(planes) for planes in zip(*frames))
+
+
 def accumulate_chunk(state, x_chunk: torch.Tensor, cfg: EncoderConfig, tables):
     """Accumulate a partial trailing window (fewer than oSize steps) with NO emission.
 

@@ -145,6 +145,13 @@ def write_file_header(f, file_type: str, major: str = "1", minor: str = "1") -> 
     write_attr(f, names.HOST_NAMES, socket.gethostname())
 
 
+def read_file_type(target) -> str:
+    """The root ``file_type`` attribute ("input", "output", "checkpoint") of a path or an
+    open group-like object."""
+    with open_group(target, "r") as f:
+        return read_attr(f, names.FILE_TYPE)
+
+
 #: File versions the reader accepts, matching the reference (major "1", minor "0"/"1",
 #: Hdf5/Hdf5FileHeader.h:201-348).
 SUPPORTED_MAJOR = "1"

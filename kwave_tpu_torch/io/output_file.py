@@ -18,6 +18,8 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
+
 from kwave_tpu_torch.io import names
 from kwave_tpu_torch.io.hdf5 import create_dataset, write_attr, write_file_header
 
@@ -142,3 +144,29 @@ def create_cuboid_group(
         if attrs is not None:
             attrs.write(grp, str(i + 1))
     return grp
+
+
+def write_frame(ds, row: int, data) -> None:
+    """One row at compressed / sampled step ``row`` of a stream's dataset (an h5py dataset
+    or any object with its ``shape`` and item assignment): the (1, steps, mSize) layout
+    of an index mask, or a cuboid's 4D one (IndexOutputStream::flushBufferToFile,
+    IndexOutputStream.cpp:583-591)."""
+    if len(ds.shape) == 3:
+        ds[0, row, :] = np.asarray(data).reshape(-1)
+    else:
+        ds[row, ...] = np.asarray(data).reshape(ds.shape[1:])
+
+
+def write_frames(ds, start_row: int, data) -> None:
+    """A contiguous block of rows from ``start_row`` (``data`` leads with the rows)."""
+    data = np.asarray(data)
+    n = data.shape[0]
+    if len(ds.shape) == 3:
+        ds[0, start_row:start_row + n, :] = data.reshape(n, -1)
+    else:
+        ds[start_row:start_row + n, ...] = data.reshape((n,) + tuple(ds.shape[1:]))
+
+
+def write_aggregate(ds, data) -> None:
+    """An aggregate (rms / max / min / final / whole-domain) into its dataset's shape."""
+    ds[...] = np.asarray(data).reshape(ds.shape)

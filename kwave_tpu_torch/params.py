@@ -25,11 +25,11 @@ STREAM_FLAGS = (
 
 # flag (argparse dest) -> the ROADMAP item that ports it
 UNPORTED = {
-    "devices": "queue 1 item 6 (parallel)",
-    "distributed": "queue 1 item 6 (parallel)",
-    "coordinator": "queue 1 item 6 (parallel)",
-    "num_processes": "queue 1 item 6 (parallel)",
-    "process_id": "queue 1 item 6 (parallel)",
+    "devices": "queue 1 item 2 (parallel)",
+    "distributed": "queue 1 item 2 (parallel)",
+    "coordinator": "queue 1 item 2 (parallel)",
+    "num_processes": "queue 1 item 2 (parallel)",
+    "process_id": "queue 1 item 2 (parallel)",
 }
 
 

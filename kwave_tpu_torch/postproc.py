@@ -38,6 +38,7 @@ from kwave_tpu_torch.io.hdf5 import (
     open_group,
     read_flat,
 )
+from kwave_tpu_torch.solver.step import real_at_nyquist
 
 
 def _signed_freq_index(n_bins: int, n: int) -> np.ndarray:
@@ -49,17 +50,12 @@ def _signed_freq_index(n_bins: int, n: int) -> np.ndarray:
 
 def _complex(re: np.ndarray, im: np.ndarray, n: int, device) -> torch.Tensor:
     """complex64 multiplier for the rfft bins of a length-``n`` real axis, on ``device``,
-    from float64 tables, each cast to float32 first.
-
-    For even ``n`` the last bin is the Nyquist one. It is real for a real series, and what
-    a multiplier adds to its imaginary part belongs to no real series: the CPU's c2r
-    transform drops it, cuFFT's does not. So the table's imaginary part is zeroed there,
-    and both devices compute what the CPU always did."""
-    if n % 2 == 0:
-        im = im.copy()
-        im[-1] = 0.0
-    return torch.complex(torch.from_numpy(re.astype(np.float32)),
-                         torch.from_numpy(im.astype(np.float32))).to(device)
+    from float64 tables, each cast to float32 first, real at the Nyquist bin of an even
+    ``n`` (`solver.step.real_at_nyquist`: cuFFT's c2r transform keeps what the CPU's
+    drops)."""
+    table = torch.complex(torch.from_numpy(re.astype(np.float32)),
+                          torch.from_numpy(im.astype(np.float32)))
+    return real_at_nyquist(table, n).to(device)
 
 
 def time_shift_half_step(u_series: torch.Tensor) -> torch.Tensor:

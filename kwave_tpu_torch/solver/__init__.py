@@ -1,5 +1,6 @@
 """k-space pseudospectral fluid solver in PyTorch (port of `kwave_tpu.solver`): operators
-built once on the host (`make_operators`), one pure `step` per timestep."""
+built once on the host (`make_operators`), one pure `step` per timestep, and the main
+loop `simulate` as a host loop over it."""
 
 from kwave_tpu_torch.solver.operators import Grid, Medium, Operators, make_operators
 from kwave_tpu_torch.solver.step import (
@@ -8,7 +9,10 @@ from kwave_tpu_torch.solver.step import (
     Sources,
     add_initial_pressure,
     init_state,
+    make_p0_init,
+    make_simulate_fn,
     shifted_velocity,
+    simulate,
     step,
 )
 
@@ -22,6 +26,9 @@ __all__ = [
     "Sources",
     "add_initial_pressure",
     "init_state",
+    "make_p0_init",
+    "make_simulate_fn",
     "shifted_velocity",
+    "simulate",
     "step",
 ]

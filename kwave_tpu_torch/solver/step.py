@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -366,6 +366,20 @@ def step(state: SimState, t: int, ops: Operators, src: Sources, cfg: SolverConfi
     return new
 
 
+def real_at_nyquist(op: torch.Tensor, n: int) -> torch.Tensor:
+    """A complex multiplier for the rfft bins of a length-``n`` real axis, with its
+    imaginary part zeroed at the Nyquist bin (the last one, for even ``n``).
+
+    That bin of a real field is real, and what a multiplier adds to its imaginary part
+    belongs to no real field: the CPU's c2r transform drops it, cuFFT's does not (the
+    half-cell shift's table is exp(i*pi/2) = i there, and `postproc`'s derivative and
+    time-shift tables are imaginary there too). Zeroed, both devices compute what the CPU
+    always did, bit for bit on the CPU."""
+    if n % 2:
+        return op
+    return torch.cat([op[:-1], op[-1:].real.to(op.dtype)])
+
+
 def shifted_velocity(state: SimState, ops: Operators):
     """Velocities shifted back onto the regular grid via per-axis spectral half-cell
     shifts (computeShiftedVelocity, KSpaceFirstOrderSolver.cpp:2714-2735). Returns
@@ -377,7 +391,7 @@ def shifted_velocity(state: SimState, ops: Operators):
         shape = [1] * ndim
         shape[axis] = op.shape[0]
         uk = torch.fft.rfft(u, dim=axis)
-        return torch.fft.irfft(uk * op.reshape(shape), n=n, dim=axis)
+        return torch.fft.irfft(uk * real_at_nyquist(op, n).reshape(shape), n=n, dim=axis)
 
     ux = shift(state.ux_sgx, ops.shift_x_neg, ndim - 1)
     uy = shift(state.uy_sgy, ops.shift_y_neg, ndim - 2)
@@ -407,3 +421,61 @@ def add_initial_pressure(state: SimState, ops: Operators, p0: torch.Tensor,
         rho_y=rho_part.clone(),
         rho_z=rho_part.clone() if is3d else None,
     )
+
+
+def make_p0_init(grid: Grid, ops: Operators, p0,
+                 spectral_multi: Optional[Callable] = None) -> SimState:
+    """The peeled t==0 state: addInitialPressureSource's result does not depend on the
+    running state, so the full state after step 0 is exactly this, and the loop steps on
+    from t0 = 1 with ``p0_source_flag=False`` (the driver's peel). ``p0`` (a tensor or an
+    array) goes to the operators' device. No two leaves share storage."""
+    device = ops.ddx_pos.device
+    p0 = torch.as_tensor(p0, dtype=torch.float32).to(device)
+    return add_initial_pressure(init_state(grid, device), ops, p0, spectral_multi)
+
+
+# ---------------------------------------------------------------------------
+# Main loop
+# ---------------------------------------------------------------------------
+
+
+def _stack(rows: list):
+    """The per-step outputs of ``sample_fn`` stacked along a new leading axis: a tensor,
+    or a tuple or list of them (as ``lax.scan`` stacks a pytree)."""
+    if isinstance(rows[0], (tuple, list)):
+        return type(rows[0])(torch.stack(col) for col in zip(*rows))
+    return torch.stack(rows)
+
+
+def make_simulate_fn(ops: Operators, src: Sources, cfg: SolverConfig, n_steps: int,
+                     sample_fn: Optional[Callable[[SimState], Any]] = None,
+                     spectral_multi: Optional[Callable] = None):
+    """The main loop as a function ``run(state, t0) -> (state, samples)``: ``n_steps``
+    calls of `step` from time index ``t0`` (a host integer, so a checkpoint leg or a
+    lead-in resumes anywhere). ``sample_fn(state)`` runs after every step and its
+    outputs are stacked (`_stack`); ``samples`` is None without it. ``spectral_multi``
+    (`kwave_tpu_torch.ops.zfuse.make_pipeline`) takes every spectral multiply, as in
+    `step`. The fields stay on the operators' device throughout."""
+
+    def run(state: SimState, t0: int = 0):
+        rows = []
+        for i in range(n_steps):
+            state = step(state, int(t0) + i, ops, src, cfg, spectral_multi)
+            if sample_fn is not None:
+                rows.append(sample_fn(state))
+        return state, (_stack(rows) if rows else None)
+
+    return run
+
+
+def simulate(state: SimState, ops: Operators, src: Sources, cfg: SolverConfig,
+             n_steps: int, sample_fn: Optional[Callable[[SimState], Any]] = None,
+             t0: int = 0, spectral_multi: Optional[Callable] = None):
+    """Run ``n_steps`` iterations from time index ``t0``; returns (state, samples).
+
+    ``sample_fn(state)`` is evaluated after every step and its outputs are stacked, one
+    row a step from ``t0`` on (the reference skips storage before the sampling start,
+    KSpaceFirstOrderSolver.cpp:1060-1068: callers slice ``[cfg.sampling_start_index -
+    t0:]``). Checkpoint / restart is a second call with the carried state and ``t0`` =
+    the steps done (main.cpp:147-169)."""
+    return make_simulate_fn(ops, src, cfg, n_steps, sample_fn, spectral_multi)(state, t0)

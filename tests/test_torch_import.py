@@ -84,3 +84,84 @@ def test_checkpoint_and_postproc_import_without_jax_and_without_h5py():
     proc = _run(_SCRIPT.replace('BLOCKED = ("jax", "jaxlib", "kwave_tpu")',
                                 'BLOCKED = ("jax", "jaxlib", "kwave_tpu", "h5py")'))
     assert proc.returncode == 0, proc.stderr
+
+
+# What of kwave_tpu has no counterpart in the port, on purpose, each with its reason: a
+# module ("path") or one top-level name of a module ("path::name"). ROADMAP.md's "Not
+# ported, on purpose" and queue 1 say more.
+NOT_PORTED = {
+    "native/__init__.py": "the C++ oracle (-ffp-contract=off): one more reference of the "
+                          "tests, not a part of the port",
+    "native/build.py": "builds that C++ oracle",
+    "ops/mxfft.py": "the matmul FFT exists because XLA's FFT is slow on a TPU; cuFFT does "
+                    "that job on the card",
+    "parallel/__init__.py": "queue 1 item 2 (parallel): the next slice",
+    "parallel/distributed.py": "queue 1 item 2 (parallel): the next slice",
+    "parallel/fft.py": "queue 1 item 2 (parallel): the next slice",
+    "parallel/mesh.py": "queue 1 item 2 (parallel): the next slice",
+    "driver.py::make_window_fn": "the jitted window program (scan strategy, donation); the "
+                                 "port's window is a host loop over eager ops",
+    "encoder.py::USE_PALLAS": "the TPU kernel switch; the port picks the kernel by the "
+                              "tensor's device",
+    "ops/fastpath.py::LANE": "the TPU's 128-lane tile",
+    "ops/zfuse.py::LANE": "the TPU's 128-lane tile",
+    "ops/zfuse.py::BY": "the TPU kernel's y block",
+    "ops/encode_pallas.py::LANE": "the TPU's 128-lane tile",
+    "solver/operators.py::cvec": "packed (re, im) planes are a TPU layout; the port keeps "
+                                 "complex64",
+    "solver/operators.py::pack_complex": "the same packed layout",
+    "solver/step.py::FftOps": "the pencil FFT's hook: goes with parallel (queue 1 item 2)",
+    "solver/step.py::LOCAL_FFT": "the same hook's single-device default",
+}
+# A module of the JAX package whose names the port spreads over other modules.
+COUNTERPARTS = {"ops/encode_pallas.py": ("ops/encode_window.py", "ops/encode_series.py")}
+
+
+def _top_level(path, public_only, reexports):
+    """Top-level names a module defines or assigns (with ``reexports``, also those it
+    imports from elsewhere, as an ``__init__`` exports them); read with ``ast``, nothing
+    imported."""
+    import ast
+
+    names = set()
+    for node in ast.parse(open(path).read()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            names.add(node.target.id)
+        elif reexports and isinstance(node, (ast.Import, ast.ImportFrom)) and \
+                getattr(node, "module", None) != "__future__":
+            names |= {a.asname or a.name.split(".")[0] for a in node.names}
+    return {n for n in names if not (public_only and n.startswith("_"))}
+
+
+def test_every_public_name_of_kwave_tpu_has_a_counterpart():
+    """Each public top-level name of each kwave_tpu module (an ``__init__``'s re-exports
+    included) is bound at the top level of its counterpart in kwave_tpu_torch, or stands
+    on NOT_PORTED with its reason; and NOT_PORTED names nothing the port has since got."""
+    import pathlib
+
+    ref, port = pathlib.Path(REPO, "kwave_tpu"), pathlib.Path(REPO, "kwave_tpu_torch")
+    missing, stale = [], []
+    for path in sorted(ref.rglob("*.py")):
+        rel = path.relative_to(ref).as_posix()
+        names = _top_level(path, True, path.name == "__init__.py")
+        others = [port / c for c in COUNTERPARTS.get(rel, (rel,))]
+        have = set()
+        for other in others:
+            if other.exists():
+                have |= _top_level(other, False, True)
+        if rel in NOT_PORTED:
+            if have:
+                stale.append(rel)
+            continue
+        for name in sorted(names - have):
+            if f"{rel}::{name}" not in NOT_PORTED:
+                missing.append(f"{rel}::{name}")
+        stale += [k for k in NOT_PORTED if k.startswith(f"{rel}::")
+                  and k.split("::")[1] in have]
+    assert not missing, f"not in the port and not on NOT_PORTED: {missing}"
+    assert not stale, f"on NOT_PORTED but present in the port: {stale}"
+    assert all(reason for reason in NOT_PORTED.values())

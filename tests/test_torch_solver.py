@@ -110,3 +110,47 @@ def test_shifted_velocity_and_initial_pressure_match_jax():
     for a, b in zip(solver.shifted_velocity(st, ops), jsolver.shifted_velocity(jst, jops)):
         b = np.asarray(b)
         assert np.linalg.norm(a.numpy() - b) <= 1e-6 * np.linalg.norm(b)
+
+
+@pytest.mark.parametrize("n", [7, 8, 15, 16, 33])
+def test_shift_multiplier_is_real_at_the_nyquist_bin_of_even_axes_only(n):
+    """`real_at_nyquist` zeroes the imaginary part of the last rfft bin for even n and
+    leaves every other entry, and every odd-n table, as it was."""
+    from kwave_tpu_torch.solver.operators import make_shift_neg
+    from kwave_tpu_torch.solver.step import real_at_nyquist
+
+    op = torch.from_numpy(make_shift_neg(n, 1e-4, True))
+    got = real_at_nyquist(op, n)
+    assert got.dtype == op.dtype and got.shape == op.shape
+    if n % 2 == 0:
+        assert op[-1].imag != 0 and got[-1].imag == 0 and got[-1].real == op[-1].real
+        assert torch.equal(got[:-1], op[:-1])
+    else:
+        assert torch.equal(got, op)
+
+
+@pytest.mark.parametrize("shape", [(16, 24, 32), (15, 21, 27), (24, 32), (21, 27)])
+def test_shifted_velocity_on_the_cpu_is_unchanged_by_the_nyquist_table(shape):
+    """On the CPU the c2r transform drops the Nyquist bin's imaginary part, so the shift
+    with the repaired table equals the shift with the table as built, bit for bit."""
+    grid = solver.Grid(nx=shape[-1], ny=shape[-2], nz=shape[0] if len(shape) == 3 else 1,
+                       dx=1e-4, dy=1e-4, dz=1e-4, dt=2e-8, nt=8)
+    ops = solver.make_operators(grid, solver.Medium(c0=1500.0, rho0=1000.0), (4, 4, 4),
+                                (2.0,) * 3, need_shift=True)
+    p0 = np.zeros(shape, np.float32)
+    p0[tuple(s // 2 for s in shape)] = 1e5
+    state, _ = solver.simulate(solver.init_state(grid), ops,
+                               solver.Sources(p0=torch.from_numpy(p0)),
+                               solver.SolverConfig(p0_source_flag=True), 3)
+    fields = (state.ux_sgx, state.uy_sgy, state.uz_sgz)
+    tables = (ops.shift_x_neg, ops.shift_y_neg, ops.shift_z_neg)
+    axes = (len(shape) - 1, len(shape) - 2, 0)
+    for got, u, op, axis in zip(solver.shifted_velocity(state, ops), fields, tables, axes):
+        if u is None:
+            assert got is None
+            continue
+        bshape = [1] * len(shape)
+        bshape[axis] = op.shape[0]
+        as_built = torch.fft.irfft(torch.fft.rfft(u, dim=axis) * op.reshape(bshape),
+                                   n=u.shape[axis], dim=axis)
+        assert torch.equal(got, as_built)

@@ -70,3 +70,14 @@ def require_cuda() -> torch.device:
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; run on the GPU machine")
     return torch.device("cuda")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a module's tests on one torch thread: its tensors are small, and with several
+    test workers on one machine, idle intra-op threads spinning on every core cost more
+    than they give. A module opts in by importing this fixture."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
