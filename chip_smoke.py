@@ -3,8 +3,9 @@
 sources in this checkout, holds each against its plain PyTorch version and the NumPy
 oracle, then drives the port's paths: the simulation at 128^3 with 16384 index sensors,
 the codec round trip, the whole-record exact encode, the 256^3 simulation with the
-fused z stage, a run in checkpoint legs with the intensity and Q-term outputs, and the
-acceptance sweep's inputs on the card against the port on the CPU.
+fused z stage, a run in checkpoint legs with the intensity and Q-term outputs, the
+acceptance sweep's inputs on the card against the port on the CPU, and the mesh
+(`kwave_tpu_torch.parallel`) on the one card.
 
     python3 chip_smoke.py
 
@@ -97,6 +98,32 @@ the final ok line):
    (c) `solver.simulate` on the card: the standing wave (2D, 3D, 3D fused: radix K7)
    against its closed form (5e-3) and acoustic reciprocity (1e-4 of the peak). Prints
    the window kernels' and K7's launches (radix and dense).
+11. the mesh on the one card (in-process meshes list `cuda:0` S times): (a) phase 8's
+   256^3 input with ``--p_raw --p_c --40-bit_complex --p_max_all --p_final``, 2 windows
+   and a 5-step tail, after a 3-step warm-up of each layout, on one device and on 4, 2
+   and 1 shards: K1a launched once a window and once for the tail on every shard; p and
+   p_max_all within rtol 2e-5 / atol 2e-6 of their own peaks of the one-device run
+   (tests/test_dist_step.py's), p_final within atol 5e-6 of its own (FINAL_ATOL: the
+   pencil's and the 3D transforms' roundings, read against two witnesses below), p_c
+   decoded within 1e-3 of its peak, and the mesh run's p re-encoded on one device == its
+   p_c bytes; ms/step of each; 4 and 2 shards against the unsharded pencil (1 shard)
+   within 2e-6 of each peak, p_final too, and whether they are equal bit for bit; the
+   one-device run against itself with p0 tripled (its fields' own rounding), and two
+   faults that the p_final check must catch (fp16, a slab out of order); (b) the pencil
+   FFT alone at 256^3 on 2 and 4 shards against torch.fft (1e-5 of the peak: rfftn, the
+   round trip, a kappa multiply) and the bytes and device time of one z-for-y trade; (c)
+   every spectral multiplier of the step (ddk_pos / ddk_neg with kappa, the nablas,
+   source_kappa) and the three half-cell shifts, one axis at a time, on 4 shards against
+   one device at 128^3 and 256^3 (rel L2 1e-5: a Nyquist bin that cuFFT keeps shows as
+   0.07), and a 128^3 run with ``--u_non_staggered_raw --I_avg --Q_term`` on 4 shards
+   against one device (rel L2 1e-4; Q within 1e-6 of k_max |I|max, as phase 9); (d)
+   `initialize` at world size 1 over NCCL, `make_mesh()` a process mesh, (a)'s input
+   through it cold (the group's first run) and warm against (a)'s one-device run, and
+   one profiled window of it and of the one-shard in-process mesh (kernel time by kind,
+   the host's busiest operations); (e) the 4-shard run in one leg and in four (a
+   checkpoint every window), bit for bit, and its first checkpoint resumed on one device
+   against the one-leg run. Every part runs and reports before the phase fails on any of
+   them.
 Then one JSON line with every kernel's numbers (its time beside its bound: the larger of
 its bytes over 3.35 TB/s and its fp32 operations over 67 TFLOP/s; for the 40-bit kernels
 also ``issue_ms``, the machine instructions that this run's build spends on their steps,
@@ -109,6 +136,10 @@ card computes in full fp32.
 phases: it builds the kernels and prints N readings of phase 4's first run as one JSON
 line, with the package of DIR where that is given. Two commits are compared by running
 it for each in turns, several processes a commit, in one session on one card.
+
+``python3 chip_smoke.py --mesh-processes N`` (N cards) runs none of the phases either:
+phase 11 (a)'s input at 256^3 and 512^3 as N processes over NCCL, one card each, held
+to card 0 alone, with the ms/step of both.
 """
 
 from __future__ import annotations
@@ -410,7 +441,7 @@ def kernel_phase():
     from kwave_tpu_torch import bitpack, encoder
     from kwave_tpu_torch.ops import encode_window as ew
 
-    results = {}
+    results, worst_lib = {}, {}
     for key, (mode40, overlap, _) in VARIANTS.items():
         worst = 0.0
         if mode40:
@@ -485,19 +516,48 @@ def kernel_phase():
                 # sums per sensor and step; the 40-bit requantisation is integer work
                 bound = _bound(_nbytes(chunk, tabs, *planes, *planes),
                                8.0 * O_SIZE * N_SENSORS)
+                lib_ms = None
+                if not mode40:  # the float window as one library call: planes + tab^T x
+                    lib_ms, lib_err = _window_library_call(args, kern, overlap, h)
+                    worst_lib[key] = lib_err
         if mode40:
             _edge_window_check(key, overlap)
         results[key] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, **bound,
-                            library_ms=None, steps=O_SIZE * N_SENSORS)
+                            library_ms=lib_ms, steps=O_SIZE * N_SENSORS)
         print(f"[3 kernel] {key}: bit-exact vs plain (H=1,2,3; N={N_SENSORS} and "
               f"{N_SENSORS - RAGGED}; parity 0/1, mirror 0/1, a window of {O_SIZE - 5} steps"
               + (f"; also {', '.join(others)}; and a window of values below, inside and "
                  f"above the word's range" if others else "") + f") and "
               f"vs oracle ({ORACLE_SENSORS} sensors, 3 windows, H=1,2); per window at "
               f"o={O_SIZE} H=1 N={N_SENSORS}, device time: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms; wall per call: kernel {wall:.4f} ms, plain "
-              f"{plain_wall:.4f} ms", flush=True)
+              f"{plain_ms:.4f} ms" + ("" if lib_ms is None else
+                                    f", one torch.addmm {lib_ms:.4f} ms (off the kernel by "
+                                    f"{worst_lib[key]:.1e} of the peak)")
+              + f"; wall per call: kernel {wall:.4f} ms, plain {plain_wall:.4f} ms",
+              flush=True)
     return results
+
+
+def _window_library_call(args, kern, overlap: bool, h: int):
+    """K2's function as one PyTorch call, timed and used nowhere in the port: the planes
+    stacked [4H, N] (2H without overlap) plus the window's table rows transposed times the
+    chunk (`torch.addmm`; without overlap the two half-tables summed first, so the two
+    adds of the kernel become one, a difference of fp32 rounding). Held to the kernel
+    within LIBRARY_TOL of the peak. Returns (device ms, error)."""
+    import torch
+
+    chunk, tabs, planes, parity = args[0], args[1], args[2], args[3]
+    o = tabs.shape[0] // 2
+    rows = tabs[parity * o: parity * o + chunk.shape[0]]
+    if not overlap:
+        rows = rows[:, :2 * h] + rows[:, 2 * h:]
+    rows_t = rows.t().contiguous()
+    stacked = torch.cat(planes).contiguous()
+    lib = torch.addmm(stacked, rows_t, chunk)
+    err = _rel_err(lib, torch.cat(kern(*args)))
+    _require(err <= LIBRARY_TOL, f"the window's library call is off the kernel by {err:.3g}")
+    ms, _ = _time_per_call(lambda: torch.addmm(stacked, rows_t, chunk), iters=200, warmup=20)
+    return ms, err
 
 
 CODEC_KERNELS = {
@@ -1024,14 +1084,47 @@ def series_phase():
         # the K*o steps read and the table in; the frames and all state planes out
         f0, s0 = kern()
         flops = 8.0 * k_total * o * CODEC_N * CODEC_H
+        lib_ms = None
+        if not mode40:
+            lib_ms, lib_err = _series_library_call(head, tables, f0, o, overlap)
+            line += (f"; one torch.einsum over the windows {lib_ms:.4f} ms (off the kernel "
+                     f"by {lib_err:.1e} of the peak)")
         results[key] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                             **_bound(_nbytes(x[:k_total * o], tabs, *f0, *s0), flops),
-                            library_ms=None, steps=k_total * o * CODEC_N * CODEC_H)
+                            library_ms=lib_ms, steps=k_total * o * CODEC_N * CODEC_H)
         del f0, s0, frames, st
         print(line + f"; device time per call: kernel {ms:.4f} ms (wall {wall:.4f} ms), "
               f"plain {plain_ms:.1f} ms (one call); bound "
               f"{results[key]['bound_ms']:.4f} ms by {results[key]['bound_by']}", flush=True)
     return results, launches
+
+
+def _series_library_call(x, tables, frames, o: int, overlap: bool):
+    """K3b's function as one PyTorch call, timed and used nowhere in the port: with overlap
+    an einsum over the series' overlapping 2o-sample windows (`Tensor.unfold`, K5's call:
+    frames 1 on; frame 0 is the mirror), without it over the o-sample windows on the
+    summed half-tables. Held to the kernel's frames within LIBRARY_TOL of the peak.
+    Returns (device ms, error)."""
+    import torch
+
+    k = x.shape[0] // o
+    tab = torch.cat([tables["be_re"], tables["be_im"]], dim=1)  # [2o, 2H]
+    got = torch.cat(frames, dim=1)  # [K, 2H, N]
+    if overlap:
+        def call():
+            return torch.einsum("knu,uj->kjn", x[:k * o].unfold(0, 2 * o, o), tab)
+        want = got[1:]
+    else:
+        half = tab[:o] + tab[o:]
+        windows = x[:k * o].reshape(k, o, -1)
+
+        def call():
+            return torch.einsum("kun,uj->kjn", windows, half)
+        want = got
+    err = _rel_err(call(), want)
+    _require(err <= LIBRARY_TOL, f"the record's library call is off the kernel by {err:.3g}")
+    ms, _ = _time_per_call(call, iters=20, warmup=2)
+    return ms, err
 
 
 def _zfuse_cases(ops, n_ops):
@@ -1177,18 +1270,20 @@ def _zfuse_small_spectra():
 SETUP_COPIES = "host-to-device copies"  # the operators' upload: set-up, not the step
 
 # kernel-name fragment -> what the kernel is, for the profile line (first match wins)
-KERNEL_GROUPS = (("zfuse_", "K7 zfuse"), ("fft", "cuFFT"), ("w40_window", "K1a encode"),
+KERNEL_GROUPS = (("nccl", "NCCL"), ("zfuse_", "K7 zfuse"), ("fft", "cuFFT"), ("w40_window", "K1a encode"),
                  ("elementwise", "elementwise"), ("index", "gather/scatter"),
                  ("HtoD", SETUP_COPIES), ("DtoH", "device-to-host copies"),
                  ("copy", "device copies"), ("Memcpy", "device copies"),
                  ("Memset", "memset"))
 
 
-def _profile_window(data, flags, **run_fields):
+def _profile_window(data, flags, host_top=0, **run_fields):
     """Device time by kind of kernel over one profiled window of `run_simulation` (16
     steps): (device ms per step, [(kind, share), ...], ms of host-to-device copies, which
-    are the run's set-up and are left out of both). Only kernel events count: the operator
-    events above them carry the same time again."""
+    are the run's set-up and are left out of both, [(host op, self ms per step), ...] of
+    the ``host_top`` host events with the most time of their own). Only kernel events
+    count: the operator events above them carry the same time again. The run's set-up
+    (operators, sharding, the first window's plans) is inside the window."""
     import dataclasses
 
     from torch.profiler import ProfilerActivity, profile
@@ -1197,8 +1292,10 @@ def _profile_window(data, flags, **run_fields):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _run(flags, 1, 0, data=short, **run_fields)
     groups: dict[str, float] = {}
+    host = []
     for e in prof.key_averages():
         if not str(e.device_type).endswith("CUDA"):
+            host.append((e.key, e.self_cpu_time_total / 1e3 / O_SIZE))
             continue
         t = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
         kind = next((g for frag, g in KERNEL_GROUPS if frag in e.key), "other")
@@ -1207,7 +1304,8 @@ def _profile_window(data, flags, **run_fields):
     total = sum(groups.values())
     _require(total > 0, "the profiler saw no device time")
     top = sorted(groups.items(), key=lambda r: -r[1])
-    return total / 1e3 / O_SIZE, [(k, t / total) for k, t in top], setup_ms
+    host = sorted(host, key=lambda r: -r[1])[:host_top]
+    return total / 1e3 / O_SIZE, [(k, t / total) for k, t in top], setup_ms, host
 
 
 def fused_phase():
@@ -1265,7 +1363,7 @@ def fused_phase():
           f"{ms_step['compact']:.3f}", flush=True)
     for name, fields in (("compact", dict(compact_operators=True)),
                          ("fused", dict(compact_operators=True, fuse_z=True))):
-        dev_ms, top, setup_ms = _profile_window(data, flags, **fields)
+        dev_ms, top, setup_ms, _ = _profile_window(data, flags, **fields)
         print(f"[8 profile] {name}: {dev_ms:.3f} ms of kernel time per step over one "
               f"window; " + "; ".join(f"{k} {share:.1%}" for k, share in top)
               + f"; set-up uploads {setup_ms:.1f} ms, left out; idle share against the "
@@ -1296,7 +1394,7 @@ def _input(nt: int, n: int = GRID_N):
 
 
 def _run(flags: list[str], windows: int, tail: int, data=None, out=None, resume_from=None,
-         device="cuda", **run_fields):
+         device="cuda", mesh=None, **run_fields):
     """One `run_simulation` through the CLI's parser into an in-memory group (``out``, or
     a new one); ``run_fields`` sets RunConfig fields that have no flag
     (compact_operators, fuse_z) or that take a group here (checkpoint_file). Returns the
@@ -1317,7 +1415,7 @@ def _run(flags: list[str], windows: int, tail: int, data=None, out=None, resume_
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     legs = {} if resume_from is None else {"resume_from": resume_from}
-    summary = run_simulation(data, run, out, device=device, **legs)
+    summary = run_simulation(data, run, out, device=device, mesh=mesh, **legs)
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0, data.grid.nt, summary
 
@@ -1604,7 +1702,7 @@ def legs_phase(smi):
           f"and Q_term from the stored series, Q_term_c)", flush=True)
     # the window loop alone: the outputs computed after the run are left out
     loop_flags = [f for f in LEGS_FLAGS if f not in ("--I_avg", "--Q_term", "--Q_term_c")]
-    dev_ms, top, setup_ms = _profile_window(data, loop_flags)
+    dev_ms, top, setup_ms, _ = _profile_window(data, loop_flags)
     print(f"[9 profile] {' '.join(loop_flags)}: {dev_ms:.3f} ms of kernel time per step "
           f"over one window; " + "; ".join(f"{k} {share:.1%}" for k, share in top)
           + f"; set-up uploads {setup_ms:.1f} ms, left out; idle share against run A's "
@@ -1765,6 +1863,516 @@ def acceptance_phase(smi):
     return launches
 
 
+# phase 11: the mesh (kwave_tpu_torch.parallel) on the one card
+MESH_FLAGS = ["--p_raw", "--p_c", "--40-bit_complex", "--p_max_all", "--p_final"]
+MESH_WINDOWS, MESH_TAIL = 2, 5
+MESH_RTOL, MESH_ATOL = 2e-5, 2e-6  # of each dataset's own peak: tests/test_dist_step.py's
+# p_final of a run through the pencil FFT against a run through the 3D transforms, of its
+# own peak. On an H100 at 256^3: 2.67e-6 on 1, 2 and 4 shards (37 steps; 4 and 2 shards
+# equal 1 bit for bit, so it is the two transforms' rounding, not the sharding) and
+# 3.68e-6 for (e)'s resume (53 steps); the faults of `_final_controls` read 2.43e-4
+# (fp16) and 1 (a slab out of order), and each must fail it.
+FINAL_ATOL = 5e-6
+PENCIL_TOL = 1e-5  # the pencil FFT vs torch.fft.rfftn on the card, of the peak
+AXIS_TOL = 1e-5  # a sharded spectral multiplier vs the single-device one, rel L2
+MESH_LEGS_WINDOWS = 3  # phase 11 (e): 3 windows and the tail, a leg a window
+
+
+def _mesh(s: int):
+    from kwave_tpu_torch.parallel import make_mesh
+
+    return make_mesh(s, devices=["cuda:0"] * s)
+
+
+def _hold_mesh_run(single, meshed, what: str, final_atol: float = FINAL_ATOL) -> dict:
+    """A mesh run's output against another run's of the same input (module docstring,
+    phase 11): p, p_max_all and p_final each to rtol / atol of its own peak (p_final's atol
+    ``final_atol``), the 40-bit p_c decoded to DECODE_TOL of the peak, and the mesh run's
+    own p series encoded on the card to its p_c bytes. Returns each one's largest error as
+    a share of its own peak."""
+    import torch
+
+    from kwave_tpu_torch import encoder, oracle
+    from kwave_tpu_torch.basis import generate_basis
+
+    errs = {}
+    for name in ("p", "p_max_all", "p_final"):
+        if name not in single.keys():
+            continue
+        a = np.asarray(single[name].data, np.float64)
+        b = np.asarray(meshed[name].data, np.float64)
+        peak = float(np.abs(a).max())
+        atol = final_atol if name == "p_final" else MESH_ATOL
+        bad = np.abs(b - a) > atol * peak + MESH_RTOL * np.abs(a)
+        _require(a.shape == b.shape and np.isfinite(b).all() and not bad.any(),
+                 f"{what}: {name} off the other run at {int(bad.sum())} points (max "
+                 f"{np.abs(b - a).max() / peak:.3g} of its peak, atol {atol:g})")
+        errs[name] = float(np.abs(b - a).max() / peak)
+
+    def coeffs(out):
+        rows = np.ascontiguousarray(out["p_c"].data[0]).view(np.uint8)
+        n = out["p"].data.shape[-1]
+        h, r, i = oracle.bytes_to_soa(np.ascontiguousarray(rows[:, : 5 * n]).reshape(-1))
+        return np.stack(oracle.decode40(h.reshape(-1, n, 1), r.reshape(-1, n, 1),
+                                        i.reshape(-1, n, 1), oracle.MAX_EXP_P))
+
+    ca, cb = coeffs(single), coeffs(meshed)
+    err = float(np.abs(ca - cb).max() / np.abs(ca).max())
+    _require(err <= DECODE_TOL, f"{what}: decoded p_c off by {err:.3g} of the peak")
+    errs["p_c decoded"] = err
+    series = np.asarray(meshed["p"].data[0])
+    frames, _ = encoder.encode_series_exact(
+        torch.from_numpy(series).cuda(), generate_basis(float(O_SIZE), 1, 1, normalize=True),
+        mode40=True, total_steps=series.shape[0])
+    mine = encoder.frames_to_flat_40b(*frames)
+    stored = np.ascontiguousarray(meshed["p_c"].data[0]).view(np.uint8)[:, : mine.shape[1]]
+    _require(np.array_equal(mine, stored),
+             f"{what}: its p series encoded on one device != its p_c bytes")
+    return errs
+
+
+def _same_bits(a, b) -> list[str]:
+    """The datasets of two runs' outputs that differ in a bit."""
+    a, b = dict(_datasets(a)), dict(_datasets(b))
+    return [k for k in a if k not in b or not np.array_equal(
+        np.ascontiguousarray(a[k]).view(np.uint8), np.ascontiguousarray(b[k]).view(np.uint8))]
+
+
+def _rounding_witness(data, one) -> dict:
+    """The one-device run ``one`` against the same run with p0 tripled, its fields divided
+    by 3: one linear problem through other roundings. How far p, p_max_all and p_final
+    move, each of its own peak: the fields' own rounding at this size, which the mesh's
+    gap from the one-device run is read against."""
+    import dataclasses
+
+    tripled, _, _, _ = _run(MESH_FLAGS, MESH_WINDOWS, MESH_TAIL, compact_operators=True,
+                            data=dataclasses.replace(data, p0=data.p0 * np.float32(3)))
+    errs = {}
+    for name in ("p", "p_max_all", "p_final"):
+        a = np.asarray(one[name].data, np.float64)
+        b = np.asarray(tripled[name].data, np.float64) / 3
+        errs[name] = float(np.abs(b - a).max() / np.abs(a).max())
+    return errs
+
+
+def _final_controls(single, meshed, s: int) -> dict:
+    """Two faults the p_final check (FINAL_ATOL) must catch, with each one's reading of the
+    peak: the mesh run's p_final rounded to fp16, and its z-slabs one shard out of
+    order."""
+    a = np.asarray(single["p_final"].data, np.float64)
+    b = np.asarray(meshed["p_final"].data, np.float32)
+    peak = float(np.abs(a).max())
+    faults = {"fp16": (b / np.float32(peak)).astype(np.float16).astype(np.float64) * peak,
+              "a slab out of order": np.roll(b.reshape(BIG_N, -1), BIG_N // s,
+                                             axis=0).reshape(b.shape).astype(np.float64)}
+    out = {}
+    for name, got in faults.items():
+        bad = np.abs(got - a) > FINAL_ATOL * peak + MESH_RTOL * np.abs(a)
+        _require(bad.any(), f"the p_final check passes a fault: {name}")
+        out[name] = float(np.abs(got - a).max() / peak)
+    return out
+
+
+def _per_axis(n: int, s: int) -> dict:
+    """Every spectral multiplier of the step on a mesh of s shards at n^3, one axis at a
+    time, against the single-device step on the card: the pressure gradient (ddk_pos *
+    kappa), the velocity divergence terms (ddk_neg * kappa), the absorbing nablas, the
+    additive source's source_kappa and the velocity's half-cell shifts. Returns name ->
+    rel L2."""
+    import torch
+
+    from kwave_tpu_torch.parallel import field_sharding, pencil_fft, shard_operators
+    from kwave_tpu_torch.solver import Grid, Medium, make_operators, shifted_velocity
+    from kwave_tpu_torch.solver.step import SimState, _grad_fields, _irfftn, _rfftn
+
+    grid = Grid(nx=n, ny=n, nz=n, dx=1e-4, dy=1e-4, dz=1e-4, dt=1e-8, nt=1)
+    medium = Medium(c0=1500.0, rho0=1000.0, alpha_coeff=0.75, alpha_power=1.5)
+    ops = make_operators(grid, medium, (10, 10, 10), (2.0,) * 3, absorbing=True,
+                         need_source_kappa=True, need_shift=True, device="cuda")
+    mesh = _mesh(s)
+    ops_s = shard_operators(ops, 3, mesh, grid=grid)
+    fft = pencil_fft(mesh, n)
+    gen = torch.Generator(device="cuda").manual_seed(n + s)
+    f = [torch.randn(grid.shape, device="cuda", generator=gen) for _ in range(3)]
+    fs = [field_sharding(mesh, x) for x in f]
+
+    def whole(x):
+        return torch.cat(x.shards, dim=0)
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    out = {}
+    for sign in ("pos", "neg"):
+        dds = [getattr(ops, f"dd{a}_{sign}") for a in "xyz"]
+        dds_s = [getattr(ops_s, f"dd{a}_{sign}") for a in "xyz"]
+        one = _grad_fields(f[0], ops, *dds, grid.shape)
+        many = _grad_fields(fs[0], ops_s, *dds_s, fs[0].shards[0].shape, fft=fft)
+        for a, x, y in zip("xyz", one, many):
+            out[f"dd{a}_{sign}"] = rel(whole(y), x)
+    shape_s = fs[0].shards[0].shape
+    for name, op, op_s in (("nabla1", ops.absorb_nabla1, ops_s.absorb_nabla1),
+                           ("nabla2", ops.absorb_nabla2, ops_s.absorb_nabla2),
+                           ("source_kappa", ops.source_kappa, ops_s.source_kappa)):
+        one = _irfftn(_rfftn(f[1]) * op, grid.shape)
+        out[name] = rel(whole(fft.irfftn(fft.rfftn(fs[1]) * op_s, shape_s)), one)
+    zero = torch.zeros(grid.shape, device="cuda")
+    state = SimState(p=zero, ux_sgx=f[0], uy_sgy=f[1], uz_sgz=f[2], rho_x=zero,
+                        rho_y=zero, rho_z=zero)
+    zs = field_sharding(mesh, zero)
+    state_s = SimState(p=zs, ux_sgx=fs[0], uy_sgy=fs[1], uz_sgz=fs[2], rho_x=zs,
+                          rho_y=zs, rho_z=zs)
+    for a, x, y in zip("xyz", shifted_velocity(state, ops),
+                       shifted_velocity(state_s, ops_s, fft)):
+        out[f"shift_{a}"] = rel(whole(y), x)
+    return out
+
+
+def _transpose_time(n: int, s: int) -> tuple[float, float, float]:
+    """(bytes, device ms, GB/s) of one z-for-y trade of an n^3 spectrum over s shards on
+    the card: every shard's slab read once and written once."""
+    import torch
+
+    from kwave_tpu_torch.parallel import field_sharding
+    from kwave_tpu_torch.parallel import fft as dfft
+
+    mesh = _mesh(s)
+    xk = torch.fft.rfft(torch.randn(n, n, n, device="cuda"), dim=2)
+    parts = field_sharding(mesh, xk)
+    ms, _ = _time_per_call(lambda: dfft.z_to_y(parts, mesh), iters=20, warmup=3)
+    n_bytes = 2.0 * xk.numel() * xk.element_size()
+    return n_bytes, ms, n_bytes / ms / 1e6
+
+
+def _pencil_alone(n: int) -> list[str]:
+    """Phase 11 (b): the pencil FFT at n^3 on 2 and 4 shards against torch.fft on the
+    card, and a multiply by the step's kappa; one trade's bytes and time. The multiplier
+    is a real one that is even in k, as every multiplier of the step: it keeps the
+    product the spectrum of a real field. A random multiplier does not (it breaks the
+    Hermitian symmetry of the kx = 0 and Nyquist planes), and cuFFT's 3D c2r and the
+    pencil's 2D c2r then each drop a different part of what belongs to no real field
+    (0.027 of the peak at 256^3, where the CPU's transforms agree)."""
+    import torch
+
+    from kwave_tpu_torch.parallel import field_sharding
+    from kwave_tpu_torch.parallel import fft as dfft
+    from kwave_tpu_torch.solver import Grid, Medium, make_operators
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn(n, n, n, device="cuda", generator=gen)
+    grid = Grid(nx=n, ny=n, nz=n, dx=1e-4, dy=1e-4, dz=1e-4, dt=1e-8, nt=1)
+    kap = make_operators(grid, Medium(c0=1500.0, rho0=1000.0), (10, 10, 10), (2.0,) * 3,
+                         device="cuda").kappa
+    ref = torch.fft.rfftn(x)
+    ref_op = torch.fft.irfftn(ref * kap, s=x.shape)
+    lines = []
+    for s in (2, 4):
+        mesh = _mesh(s)
+        xs = field_sharding(mesh, x)
+        k = dfft.dist_rfftn(xs, mesh)
+        fwd = float((torch.cat(k.shards, 1) - ref).abs().max() / ref.abs().max())
+        back = torch.cat(dfft.dist_irfftn(k, n, mesh).shards, 0)
+        rt = float((back - x).abs().max() / x.abs().max())
+        op = torch.cat(dfft.dist_irfftn(k * dfft.spectral_sharding(mesh, kap), n,
+                                        mesh).shards, 0)
+        mul = float((op - ref_op).abs().max() / ref_op.abs().max())
+        _require(max(fwd, rt, mul) <= PENCIL_TOL,
+                 f"pencil FFT at {n}^3 on {s} shards: rfftn {fwd:.3g}, round trip {rt:.3g}, "
+                 f"kappa multiply {mul:.3g} of the peak")
+        n_bytes, ms, rate = _transpose_time(n, s)
+        lines.append(f"S={s}: rfftn off torch.fft.rfftn {fwd:.2e}, round trip {rt:.2e}, "
+                     f"kappa multiply {mul:.2e} of the peak; one z-for-y trade "
+                     f"{n_bytes / 1e6:.1f} MB in {ms:.4f} ms ({rate:.0f} GB/s)")
+    return lines
+
+
+def mesh_phase(smi):
+    """Phase 11: kwave_tpu_torch.parallel on the one card (module docstring). Every part
+    runs and reports; a part that fails is printed as a FAULT, and the phase then fails
+    with all of them. Returns the window kernels' launches on the mesh path (the S = 4,
+    2 and 1 runs)."""
+    import copy
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from kwave_tpu_torch.ops import encode_window as ew
+    from kwave_tpu_torch.parallel import make_mesh
+    from kwave_tpu_torch.parallel.comm import ProcessGroup
+    from kwave_tpu_torch.parallel.distributed import WriterGather, initialize
+
+    t_phase = time.perf_counter()
+    steps = MESH_WINDOWS * O_SIZE + MESH_TAIL
+    data = _input(steps, BIG_N)
+    compact = dict(compact_operators=True)
+    faults: list[str] = []
+
+    def part(fn, *args):
+        try:
+            return fn(*args)
+        except AssertionError as e:
+            faults.append(str(e))
+            print(f"[11 mesh] FAULT: {e}", flush=True)
+            return None
+
+    # (a) full width: one device (key 0), then 4, 2 and 1 shards on it
+    outs, ms_step, launches = {}, {}, {}
+
+    def full_width(s):
+        # warm-up: the CUDA context, the build and the cuFFT plans of this layout (3 steps)
+        short = dataclasses.replace(data, grid=dataclasses.replace(data.grid, nt=3))
+        _run(MESH_FLAGS, 0, 3, data=short, mesh=_mesh(s) if s else None, **compact)
+        ew.reset_launch_counts()
+        out, secs, _, _ = _run(MESH_FLAGS, MESH_WINDOWS, MESH_TAIL, data=data,
+                               mesh=_mesh(s) if s else None, **compact)
+        launches[s] = dict(ew.LAUNCHES)
+        outs[s] = out
+        ms_step[s] = float(out.attrs["simulation_phase_execution_time"]) / steps * 1e3
+        on = f"S={s}" if s else "one device"
+        print(f"[11 mesh] (a) {' '.join(MESH_FLAGS)}: {BIG_N}^3, {N_SENSORS} sensors, "
+              f"{steps} steps, {on}: {ms_step[s]:.3f} ms/step in the simulation phase, "
+              f"{secs / steps * 1e3:.3f} end to end; K1a (w40_overlap) launched "
+              f"{launches[s]['w40_overlap'] / max(s, 1):g}x on each of the {max(s, 1)} "
+              f"shards ({smi})", flush=True)
+        want = max(s, 1) * (MESH_WINDOWS + 1)  # every shard a window and the tail
+        _require(launches[s] == {k: (want if k == "w40_overlap" else 0) for k in ew.LAUNCHES},
+                 f"{on}: window-encode launches {launches[s]}, expected {want} of w40")
+        if s:
+            errs = _hold_mesh_run(outs[0], out, on)
+            print(f"[11 mesh] (a) {on} against one device, of each one's own peak: "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+                  + "; its p re-encoded on one device == its p_c bytes", flush=True)
+
+    for s in (0, 4, 2, 1):
+        part(full_width, s)
+
+    def witnesses():
+        # the shards against the one-shard pencil: what sharding itself adds
+        for s in (4, 2):
+            errs = _hold_mesh_run(outs[1], outs[s], f"S={s} against S=1", MESH_ATOL)
+            differ = _same_bits(outs[1], outs[s])
+            print(f"[11 mesh] (a) S={s} against S=1 (the pencil unsharded): "
+                  + (f"differs in {differ}, of each one's own peak: " + ", ".join(
+                      f"{k} {v:.3g}" for k, v in errs.items()) if differ
+                     else "equal bit for bit in every dataset"), flush=True)
+        # the one-device run against itself through other roundings, and two faults
+        errs = _rounding_witness(data, outs[0])
+        ctrl = _final_controls(outs[0], outs[4], 4)
+        print(f"[11 mesh] (a) one device against itself with p0 x3 (fields / 3), of each "
+              f"one's own peak: " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+              + f"; p_final faults the check (atol {FINAL_ATOL:g}) catches: " + ", ".join(
+                  f"{k} {v:.3g}" for k, v in ctrl.items()), flush=True)
+
+    part(witnesses)
+
+    def pencil():  # (b) the pencil FFT alone
+        for line in _pencil_alone(BIG_N):
+            print(f"[11 mesh] (b) pencil FFT at {BIG_N}^3, {line} ({smi})", flush=True)
+
+    part(pencil)
+
+    # (c) every spectral multiplier per axis, at 128^3 and 256^3; then the velocity shift
+    # and the Q term through runs at 128^3
+    def axes(n):
+        errs = _per_axis(n, 4)
+        print(f"[11 mesh] (c) {n}^3, S=4 against one device, rel L2 per multiplier and "
+              f"axis: " + ", ".join(f"{k} {v:.1e}" for k, v in errs.items()), flush=True)
+        worst = max(errs, key=errs.get)
+        _require(errs[worst] <= AXIS_TOL, f"per-axis multipliers at {n}^3: {worst} "
+                 f"{errs[worst]:.3g}")
+
+    for n in (GRID_N, BIG_N):
+        part(axes, n)
+
+    def q_run():
+        q_flags = ["--p_raw", "--u_non_staggered_raw", "--I_avg", "--Q_term"]
+        q_data = _input(steps)
+        q_one, _, _, _ = _run(q_flags, MESH_WINDOWS, MESH_TAIL, data=q_data)
+        q_mesh, _, _, _ = _run(q_flags, MESH_WINDOWS, MESH_TAIL, data=q_data, mesh=_mesh(4))
+        errs, got = {}, dict(_datasets(q_mesh))
+        # the Q term is a sum of terms up to k_max |I| that cancel (phase 9): it is held
+        # to Q_TOL of k_max |I|max, the rest to rel L2 1e-4
+        i_max = max(float(np.abs(v).max()) for k, v in got.items() if k.endswith("_avg"))
+        q_scale = np.pi / min(q_data.grid.dx, q_data.grid.dy, q_data.grid.dz) * i_max
+        for name, a in _datasets(q_one):
+            a64, b64 = np.asarray(a, np.float64), np.asarray(got[name], np.float64)
+            errs[name] = float(np.abs(b64 - a64).max() / q_scale) if name == "Q_term" \
+                else float(np.linalg.norm(b64 - a64) / np.linalg.norm(a64))
+        print(f"[11 mesh] (c) {' '.join(q_flags)}: {GRID_N}^3, S=4 against one device: "
+              f"rel L2 " + ", ".join(f"{k} {v:.1e}" for k, v in errs.items()
+                                     if k != "Q_term")
+              + f"; Q_term {errs['Q_term']:.1e} of k_max |I|max", flush=True)
+        bad = {k: v for k, v in errs.items() if v > (Q_TOL if k == "Q_term" else 1e-4)}
+        _require(not bad, f"128^3 S=4 run off one device: {bad}")
+
+    part(q_run)
+
+    def nccl():  # (d) the process communicator at world size 1 over NCCL
+        probe = __import__("socket").socket()
+        probe.bind(("localhost", 0))
+        port = probe.getsockname()[1]
+        probe.close()
+        initialize(f"localhost:{port}", 1, 0, "cuda")
+        try:
+            _require(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+            pg = make_mesh()
+            _require(isinstance(pg.comm, ProcessGroup) and pg.size == 1
+                     and WriterGather()._nproc == 1, f"process mesh {pg}")
+            # cold: the group's first run, then the same run again
+            ms_pg = {}
+            for when in ("cold", "warm"):
+                out, _, _, _ = _run(MESH_FLAGS, MESH_WINDOWS, MESH_TAIL, data=data,
+                                    mesh=pg, **compact)
+                ms_pg[when] = float(out.attrs["simulation_phase_execution_time"]) / steps * 1e3
+            print(f"[11 mesh] (d) process group over NCCL, world size 1 (make_mesh() -> "
+                  f"{pg}): {ms_pg['cold']:.3f} ms/step cold, {ms_pg['warm']:.3f} warm, "
+                  f"against S=1 in one process {ms_step.get(1, float('nan')):.3f} and one "
+                  f"device {ms_step.get(0, float('nan')):.3f} ({smi})", flush=True)
+            errs = _hold_mesh_run(outs[0], out, "NCCL world 1")
+            differ = _same_bits(outs[1], out)
+            for name, mesh in (("NCCL world 1", pg), ("S=1 in one process", _mesh(1))):
+                dev_ms, top, _, host = _profile_window(data, MESH_FLAGS, host_top=6,
+                                                       mesh=mesh, **compact)
+                print(f"[11 mesh] (d) profile, {name}, one {O_SIZE}-step run with its "
+                      f"set-up: {dev_ms:.3f} ms of kernel time per step; " + "; ".join(
+                          f"{k} {share:.1%}" for k, share in top)
+                      + "; host self ms per step: " + ", ".join(
+                          f"{k} {t:.3f}" for k, t in host), flush=True)
+        finally:
+            dist.destroy_process_group()
+        print(f"[11 mesh] (d) against one device, of each one's own peak: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in errs.items()) + "; against S=1 in one process: "
+            + (f"differs in {differ}" if differ else "equal bit for bit"), flush=True)
+
+    part(nccl)
+
+    def legs():  # (e) the S = 4 run in one leg and in four; a checkpoint on one device
+        leg_steps = MESH_LEGS_WINDOWS * O_SIZE + MESH_TAIL
+        leg_data = _input(leg_steps, BIG_N)
+        one_leg, _, _, _ = _run(MESH_FLAGS, MESH_LEGS_WINDOWS, MESH_TAIL, data=leg_data,
+                                mesh=_mesh(4), **compact)
+        out_b, ckpt, resume, stops, first = MemGroup(), MemGroup(), None, [], None
+        while True:
+            _, _, _, summary = _run(MESH_FLAGS, MESH_LEGS_WINDOWS, MESH_TAIL,
+                                    data=leg_data, out=out_b, resume_from=resume,
+                                    mesh=_mesh(4), checkpoint_file=ckpt,
+                                    checkpoint_interval_steps=O_SIZE, **compact)
+            stops.append(summary.get("__checkpointed_at__"))
+            if first is None:
+                first = (copy.deepcopy(ckpt), copy.deepcopy(out_b))
+            if stops[-1] is None:
+                break
+            resume = ckpt
+            _require(len(stops) < 10, f"the mesh run in legs does not end: {stops}")
+        _require(len(stops) == MESH_LEGS_WINDOWS + 1, f"legs stopped at {stops}")
+        differing = _same_bits(one_leg, out_b) + _same_bits(out_b, one_leg)
+        _require(not differing, f"S=4 in {len(stops)} legs != one leg in {differing}")
+        print(f"[11 mesh] (e) {BIG_N}^3 S=4, {leg_steps} steps: {len(stops)} legs "
+              f"(checkpoints at {[x[0] for x in stops if x]}) == one leg bit for bit in "
+              f"all {len(dict(_datasets(one_leg)))} datasets", flush=True)
+        resumed = first[1]
+        _run(MESH_FLAGS, MESH_LEGS_WINDOWS, MESH_TAIL, data=leg_data, out=resumed,
+             resume_from=first[0], **compact)
+        errs = _hold_mesh_run(one_leg, resumed, "S=4 checkpoint resumed on one device")
+        print(f"[11 mesh] (e) the first checkpoint resumed on one device, against the "
+              f"one-leg mesh run, of each one's own peak: " + ", ".join(
+                  f"{k} {v:.3g}" for k, v in errs.items()), flush=True)
+
+    part(legs)
+    torch.cuda.empty_cache()
+    print(f"[11 mesh] phase 11 in {time.perf_counter() - t_phase:.1f} s, {len(faults)} "
+          f"faults", flush=True)
+    _require(not faults, "phase 11: " + " | ".join(faults))
+    return {k: sum(launches[s][k] for s in (4, 2, 1)) for k in launches[4]}
+
+
+CARDS_GRIDS = (BIG_N, 512)  # --mesh-processes: phase 11 (a) at these n^3 across the cards
+
+
+def _rank_phase(rank: int, world: int, port: int) -> int:
+    """One rank of ``--mesh-processes``: phase 11 (a)'s input at each of CARDS_GRIDS through
+    `run_simulation` on a mesh of one shard a process (NCCL, card ``rank``). Rank 0 also
+    runs the same input on its card alone and holds the mesh run to it."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from kwave_tpu_torch.parallel import make_mesh
+    from kwave_tpu_torch.parallel.distributed import initialize
+
+    initialize(f"localhost:{port}", world, rank, "cuda")
+    try:
+        mesh = make_mesh()
+        steps = MESH_WINDOWS * O_SIZE + MESH_TAIL
+        for n in CARDS_GRIDS:
+            data = _input(steps, n)
+            short = dataclasses.replace(data, grid=dataclasses.replace(data.grid, nt=3))
+            _run(MESH_FLAGS, 0, 3, data=short, mesh=mesh, compact_operators=True)
+            out, secs, _, _ = _run(MESH_FLAGS, MESH_WINDOWS, MESH_TAIL, data=data,
+                                   mesh=mesh, compact_operators=True)
+            if rank == 0:
+                ms = float(out.attrs["simulation_phase_execution_time"]) / steps * 1e3
+                _run(MESH_FLAGS, 0, 3, data=short, compact_operators=True)
+                one, one_secs, _, _ = _run(MESH_FLAGS, MESH_WINDOWS, MESH_TAIL, data=data,
+                                           compact_operators=True)
+                ms_one = float(one.attrs["simulation_phase_execution_time"]) / steps * 1e3
+                errs = _hold_mesh_run(one, out, f"{world} processes at {n}^3")
+                print(f"[cards] {n}^3, {N_SENSORS} sensors, {steps} steps, "
+                      f"{' '.join(MESH_FLAGS)}: {world} processes over NCCL, one card "
+                      f"each: {ms:.3f} ms/step in the simulation phase ({secs / steps * 1e3:.3f} "
+                      f"end to end); card 0 alone {ms_one:.3f} ({one_secs / steps * 1e3:.3f}); "
+                      f"against it, of the peak: " + ", ".join(
+                          f"{k} {v:.2e}" for k, v in errs.items()), flush=True)
+            mesh.comm.barrier()
+            del data, out
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def cards_phase(world: int) -> int:
+    """``--mesh-processes N``: phase 11 (a) as N processes over NCCL, one card each (the
+    kernels built once first); every rank's output is printed, and any rank's failure
+    fails the run."""
+    import socket
+
+    import torch
+
+    name, smi = device_phase()
+    have = torch.cuda.device_count()
+    _require(have >= world, f"--mesh-processes {world} needs {world} cards; {have} present")
+    build_phase()
+    probe = socket.socket()
+    probe.bind(("localhost", 0))
+    port = probe.getsockname()[1]
+    probe.close()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
+                               str(r), "--mesh-processes", str(world), "--port", str(port)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append((p.communicate(timeout=900)[0], p.returncode))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (text, rc) in enumerate(outs):
+        print(f"--- rank {r} (exit {rc}) ---", flush=True)
+        print("\n".join(line for line in text.splitlines() if "progress" not in line),
+              flush=True)
+    _require(all(rc == 0 for _, rc in outs), f"ranks exited {[rc for _, rc in outs]}")
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+    return 0
+
+
 def readings_phase(readings: int, tree: Path) -> int:
     """``--main-path-readings``: phase 4's first run (128^3, 16384 sensors, 8 windows and a
     5-step tail, 40-bit overlap) ``readings`` times in this process, after the build and
@@ -1793,6 +2401,11 @@ def main(argv: list[str]) -> int:
     parser.add_argument("--package-from", type=Path, default=ROOT, metavar="DIR",
                         help="with --main-path-readings: the checkout whose "
                              "kwave_tpu_torch is read (another commit, for a comparison)")
+    parser.add_argument("--mesh-processes", type=int, default=0, metavar="N",
+                        help="instead of the phases: phase 11 (a) as N processes over "
+                             "NCCL, one card each (needs N cards)")
+    parser.add_argument("--mesh-rank", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--port", type=int, default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     tree = args.package_from.resolve()
     if not (tree / "kwave_tpu_torch").is_dir():
@@ -1811,6 +2424,10 @@ def main(argv: list[str]) -> int:
     torch.set_float32_matmul_precision("highest")
     if args.main_path_readings:
         return readings_phase(args.main_path_readings, tree)
+    if args.mesh_rank is not None:
+        return _rank_phase(args.mesh_rank, args.mesh_processes, args.port)
+    if args.mesh_processes:
+        return cards_phase(args.mesh_processes)
 
     name, smi = device_phase()
     print(f"[1 device] allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
@@ -1828,6 +2445,7 @@ def main(argv: list[str]) -> int:
     legs_launches = legs_phase(smi)
     _require(legs_launches["w40_overlap"] > 0, "phase 9 launched no window kernel")
     acceptance_launches = acceptance_phase(smi)
+    mesh_launches = mesh_phase(smi)
 
     rows = [dict(name=key, route="cuda", source="kwave_tpu_torch/csrc/encode_window.cu",
                  replaces=VARIANTS[key][2], launches=launches[key], **kernels[key])
@@ -1846,6 +2464,8 @@ def main(argv: list[str]) -> int:
             r["launches_legs_path"] = legs_launches[r["name"]]
         if r["name"] in acceptance_launches:
             r["launches_acceptance_path"] = acceptance_launches[r["name"]]
+        if mesh_launches.get(r["name"]):
+            r["launches_mesh_path"] = mesh_launches[r["name"]]
     lanes = {key: n for key, (_, n) in _issue_kernels().items()}
     for r in rows:  # the 40-bit kernels' steps at this build's instructions per step and lane
         count, steps = per_step.get(r["name"]), r.pop("steps", 0)

@@ -4,6 +4,11 @@
 
 The device comes from ``KWAVE_TPU_TORCH_DEVICE`` (``cuda`` by default, ``cpu`` for the
 tests); asking for CUDA where it is not available raises.
+
+On a mesh: ``--devices N`` z-shards the run over N cards of this process (N shards on the
+CPU); ``--coordinator HOST:PORT --num_processes N --process_id R`` (or ``--distributed``
+under torchrun) runs one shard a process, over NCCL on the card or gloo on the CPU.
+Process 0 alone writes the output file.
 """
 
 from __future__ import annotations
@@ -52,11 +57,56 @@ def main(argv=None) -> int:
         parser.error("; ".join(refused))
     Logger.level = args.verbose
     device = device_from_env()
+    import torch.distributed as dist
 
+    ours = not dist.is_initialized()  # a process group this call starts, it also ends
+    mesh = mesh_from_args(parser, args, device)
+    try:
+        return _run(args, device, mesh)
+    finally:
+        if ours and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def mesh_from_args(parser, args, device: torch.device):
+    """The run's mesh from the mesh flags (None: one device), as `kwave_tpu.cli` builds
+    it: a process group first when one is asked for (``--num_processes`` needs
+    ``--coordinator`` and ``--process_id``), whose mesh spans every rank (``--devices``,
+    when given, must equal the world size); else ``--devices N`` shards in this process,
+    on N cards, or N times the CPU."""
+    import torch.distributed as dist
+
+    from kwave_tpu_torch.parallel import make_mesh
+    from kwave_tpu_torch.parallel.distributed import initialize
+
+    if args.num_processes is not None:
+        if args.num_processes > 1 and (args.coordinator is None or args.process_id is None):
+            parser.error("--num_processes requires --coordinator HOST:PORT and "
+                         "--process_id R (or use bare --distributed under torchrun)")
+        if args.coordinator is not None:
+            initialize(args.coordinator, args.num_processes, args.process_id, device)
+    elif args.distributed:
+        initialize(device=device)
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        world = dist.get_world_size()
+        if args.devices is not None and args.devices != world:
+            parser.error(f"--devices {args.devices} under a multi-process launch must equal "
+                         f"the number of processes ({world}): one shard a process")
+        return make_mesh()
+    if args.devices is not None and args.devices > 1:
+        return make_mesh(args.devices, devices=[device] * args.devices
+                         if device.type == "cpu" else None)
+    return None
+
+
+def _run(args, device: torch.device, mesh) -> int:
+    writer = mesh is None or mesh.is_writer
     t0 = time.time()
     data = read_input_file(args.input_file)
 
     if args.post:
+        if not writer:
+            return 0  # only process 0 touches the output file
         # --post: post-processing only on an existing output file (main.cpp --post); the
         # c_* attributes are read from the datasets themselves
         from kwave_tpu_torch.postproc import post_process_output_file
@@ -93,10 +143,11 @@ def main(argv=None) -> int:
         data, run, args.output_file, device=device,
         resume_from=args.checkpoint_file
         if args.checkpoint_file and _checkpoint_exists(args.checkpoint_file) else None,
+        mesh=mesh,
     )
     sim_s = time.time() - t1
 
-    if args.copy_sensor_mask:
+    if args.copy_sensor_mask and writer:
         # carry the mask into the output file (1-based on disk, as in the input format)
         import h5py
 
@@ -111,7 +162,8 @@ def main(argv=None) -> int:
             ds = f.create_dataset(name, data=arr.astype(np.uint64) + 1)
             tag_dataset(ds, data=dn.DATA_LONG)
 
-    print(f"[kwave_tpu_torch] {device}: load {load_s:.2f}s  simulate+store {sim_s:.2f}s")
+    where = device if mesh is None else mesh
+    print(f"[kwave_tpu_torch] {where}: load {load_s:.2f}s  simulate+store {sim_s:.2f}s")
     for name, shape in summary.items():
         print(f"  {name}: {shape}")
     return 0

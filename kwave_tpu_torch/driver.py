@@ -1,4 +1,4 @@
-"""Simulation driver: the single-device main loop in aligned oSize-step windows (port of
+"""Simulation driver: the main loop in aligned oSize-step windows (port of
 `kwave_tpu.driver`, restructuring KSpaceFirstOrderSolver::compute/computeMainLoop,
 KSpaceFirstOrderSolver.cpp:268-943).
 
@@ -9,13 +9,17 @@ The host appends window w's emissions to the output file after window w+1 has be
 dispatched (the reference's delayed flush, KSpaceFirstOrderSolver.cpp:1060-1093, at
 window granularity).
 
+On a mesh (`kwave_tpu_torch.parallel.make_mesh`) the fields are z-sharded and every
+spectral transform is the pencil FFT; each shard samples and encodes the sensors of its
+own slab (the codec state is per sensor), and process 0 alone assembles the emissions in
+the mask's order (`parallel.distributed.WriterGather`) and writes the file.
+
 Covered: the lead-in before sampling starts (-s), the t==0 initial-pressure peel, the
 trailing partial window, the tiny-record lastStep rule, the auto no-overlap rule,
 `detect_period` with its attribute cache, checkpoint legs (a run that stops at a window
 boundary, writes its state and continues in a later call with ``resume_from``), and the
 intensity / Q-term outputs (I_avg, Q_term from the stored raw series after the run;
-I_avg_c, Q_term_c accumulated on the fly from the coefficient frames). Not ported:
-meshes / multi-process.
+I_avg_c, Q_term_c accumulated on the fly from the coefficient frames).
 """
 
 from __future__ import annotations
@@ -28,11 +32,12 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from kwave_tpu_torch import encoder, streams
+from kwave_tpu_torch import bitpack, encoder, sampling, streams
 from kwave_tpu_torch.basis import CompressionBasis, find_period, generate_basis
 from kwave_tpu_torch.io import checkpoint as ckpt_io
 from kwave_tpu_torch.io.input_file import InputData
 from kwave_tpu_torch.io.output_file import create_output_file
+from kwave_tpu_torch.parallel.sharded import Sharded
 from kwave_tpu_torch.sampling import sample_index
 from kwave_tpu_torch.solver import (
     SimState,
@@ -44,6 +49,7 @@ from kwave_tpu_torch.solver import (
     shifted_velocity,
     step,
 )
+from kwave_tpu_torch.solver.step import LOCAL_FFT, FftOps
 from kwave_tpu_torch.streams import StreamSpec, StreamWriter
 from kwave_tpu_torch.utils.observability import (
     Logger,
@@ -107,7 +113,7 @@ def detect_period(data: InputData, run: RunConfig) -> Optional[float]:
     if sig.ndim == 2:
         sig = sig[sig.shape[0] // 2]
     period = float(find_period(np.asarray(sig[-500:], np.float32)))
-    if from_p_source and data.source_path is not None:
+    if from_p_source and data.source_path is not None and _rank() == 0:
         import h5py
 
         from kwave_tpu_torch.io import names
@@ -119,6 +125,13 @@ def detect_period(data: InputData, run: RunConfig) -> Optional[float]:
         except OSError:
             pass  # read-only input file: detection simply runs again next run
     return period
+
+
+def _rank() -> int:
+    """This process's rank in the process group (0 without one)."""
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
 
 
 def _corners_to_indices(corners: np.ndarray, grid) -> np.ndarray:
@@ -134,7 +147,8 @@ def _corners_to_indices(corners: np.ndarray, grid) -> np.ndarray:
     return np.concatenate(idx).astype(np.int64)
 
 
-def _gather_sources(state: SimState, ops, mask, wanted: list[str]) -> dict[str, Any]:
+def _gather_sources(state: SimState, ops, mask, wanted: list[str], fft=LOCAL_FFT
+                    ) -> dict[str, Any]:
     row = {}
     shifted = None
     for name in wanted:
@@ -142,7 +156,7 @@ def _gather_sources(state: SimState, ops, mask, wanted: list[str]) -> dict[str, 
             row[name] = sample_index(getattr(state, name).reshape(-1), mask)
         else:  # "u?_shifted"
             if shifted is None:
-                shifted = shifted_velocity(state, ops)
+                shifted = shifted_velocity(state, ops, fft)
             ax = {"ux_shifted": 0, "uy_shifted": 1, "uz_shifted": 2}[name]
             row[name] = sample_index(shifted[ax].reshape(-1), mask)
     return row
@@ -190,46 +204,60 @@ def _summary(writer: StreamWriter) -> dict[str, Any]:
 
 @dataclasses.dataclass
 class _Run:
-    """What every window of one run shares."""
+    """What every window of one run shares. The stream states, tables and emissions are
+    lists with one entry a shard of this process (one entry on a single device)."""
 
     specs: list[StreamSpec]
     basis: Optional[CompressionBasis]
-    tables: Optional[dict]
+    tables: Optional[list]
     ops: Any
     src: Sources
     cfg: SolverConfig
-    mask: torch.Tensor
+    mask: Any  # a tensor, or the shards' local indices (`Sharded`)
     wanted: list[str]
     whole_domain: list[StreamSpec]
     spectral_multi: Optional[Any] = None  # the fused z-stage pipeline, when fuse_z is on
+    fft: FftOps = LOCAL_FFT  # the pencil FFT on a mesh
 
 
-def _run_window(r: _Run, sim_state: SimState, stream_states, t0: int, steps: int,
+def _shard(x, k: int):
+    """Shard k of a `Sharded` value; a plain tensor is its own only shard."""
+    return x.shards[k] if isinstance(x, Sharded) else x
+
+
+def _run_window(r: _Run, sim_state: SimState, stream_states: list, t0: int, steps: int,
                 emit: bool, peel_p0: bool, stepwise: bool = False):
     """``steps`` solver steps from time index t0, the sensor gather after each, then one
-    `process_chunk`. With ``peel_p0`` the first step (t0 == 0) is the state-independent
-    initial-pressure result (the reference applies p0 once,
+    `process_chunk` a shard. With ``peel_p0`` the first step (t0 == 0) is the
+    state-independent initial-pressure result (the reference applies p0 once,
     KSpaceFirstOrderSolver.cpp:925-928). ``stepwise`` marks rows that start inside a
     window (see `streams.process_chunk`)."""
     rows: dict[str, list] = {w: [] for w in r.wanted}
-    stream_states = dict(stream_states)
+    states = [dict(st) for st in stream_states]
     for i in range(steps):
         if peel_p0 and i == 0:
-            sim_state = add_initial_pressure(sim_state, r.ops, r.src.p0, r.spectral_multi)
+            sim_state = add_initial_pressure(sim_state, r.ops, r.src.p0, r.spectral_multi,
+                                             r.fft)
         else:
-            sim_state = step(sim_state, t0 + i, r.ops, r.src, r.cfg, r.spectral_multi)
-        for w, v in _gather_sources(sim_state, r.ops, r.mask, r.wanted).items():
+            sim_state = step(sim_state, t0 + i, r.ops, r.src, r.cfg, r.spectral_multi,
+                             r.fft)
+        for w, v in _gather_sources(sim_state, r.ops, r.mask, r.wanted, r.fft).items():
             rows[w].append(v)
         # whole-domain extrema fold every sampled step's state (cudaSampleAll)
         for s in r.whole_domain:
             field = getattr(sim_state, s.source).reshape(-1)
             fold = torch.maximum if s.op == "max_all" else torch.minimum
-            stream_states[s.name] = fold(stream_states[s.name], field)
-    chunks = {w: torch.stack(v) for w, v in rows.items()}
-    stream_states, emissions = streams.process_chunk(
-        stream_states, chunks, r.specs, r.basis, r.tables, emit=emit, stepwise=stepwise
-    )
-    return sim_state, stream_states, emissions
+            for k, st in enumerate(states):
+                st[s.name] = fold(st[s.name], _shard(field, k))
+    out_states, emissions = [], []
+    for k, st in enumerate(states):
+        chunks = {w: torch.stack([_shard(v, k) for v in vs]) for w, vs in rows.items()}
+        st, em = streams.process_chunk(st, chunks, r.specs, r.basis, r.tables[k]
+                                       if r.tables is not None else None, emit=emit,
+                                       stepwise=stepwise)
+        out_states.append(st)
+        emissions.append(em)
+    return sim_state, out_states, emissions
 
 
 def require_device(device: torch.device) -> None:
@@ -240,9 +268,103 @@ def require_device(device: torch.device) -> None:
         raise ValueError(f"unsupported device {device}")
 
 
+class _Edge:
+    """The host edge of a run: what crosses from the shards to the writer. On one device
+    the values go to the writer as they are; on a mesh each value is gathered
+    (`WriterGather`: point to point to process 0 when there are several processes) and
+    put in the mask's order, and only the writer gets a result (None elsewhere)."""
+
+    def __init__(self, mesh, sensors, specs, basis):
+        self.mesh, self.sensors, self.specs, self.basis = mesh, sensors, specs, basis
+        self._gather = None
+
+    def close(self) -> None:
+        if self._gather is not None:
+            self._gather.close()
+            self._gather = None
+
+    def _host(self, tree):
+        if self._gather is None:
+            from kwave_tpu_torch.parallel.distributed import WriterGather
+
+            self._gather = WriterGather()
+        return self._gather.gather(tree)
+
+    def _pieces(self, parts: list, axis: int) -> Sharded:
+        return Sharded(parts, ids=self.mesh.shard_ids, axis=axis)
+
+    def emissions(self, emissions: list) -> Optional[dict]:
+        """One window's emissions (one dict a shard) -> the writer's dict."""
+        if self.mesh is None:
+            return emissions[0]
+        h = self.basis.harmonics if self.basis is not None else 0
+        tree = {}
+        for s in self.specs:
+            if not s.save or emissions[0].get(s.name) is None:
+                continue  # a hidden stream's frames fed the shard's intensity already
+            got = [em[s.name] for em in emissions]
+            if s.op == "c" and s.mode40:
+                # the wire words of each shard -> its sensors' 5H-byte records
+                tree[s.name] = self._pieces([torch.from_numpy(np.array(
+                    bitpack.frame_wire_bytes(w, n * h).reshape(n, 5 * h)))
+                    for w, n in zip(got, self._counts())], 0)
+            elif s.op == "c":
+                tree[s.name] = tuple(self._pieces(list(p), -1) for p in zip(*got))
+            else:
+                tree[s.name] = self._pieces(got, -1)
+        tree = self._host(tree)
+        if tree is None:
+            return None
+        out = {}
+        for name, v in tree.items():
+            spec = next(s for s in self.specs if s.name == name)
+            if spec.op == "c" and spec.mode40:
+                flat = sampling.in_mask_order(v, self.sensors, axis=0).reshape(-1)
+                words = np.zeros((flat.size + 3) // 4 * 4, np.uint8)
+                words[: flat.size] = flat
+                out[name] = words.view("<u4")
+            elif isinstance(v, tuple):
+                out[name] = tuple(sampling.in_mask_order(a, self.sensors) for a in v)
+            else:
+                out[name] = sampling.in_mask_order(v, self.sensors)
+        return out
+
+    def _counts(self) -> list[int]:
+        """This process's shards' sensor counts."""
+        return [self.sensors.counts[k] for k in self.mesh.shard_ids]
+
+    def states(self, states: list) -> Optional[dict]:
+        """The stream states -> one global state dict (writer only on a mesh)."""
+        if self.mesh is None:
+            return states[0]
+        got = self._host(streams.state_pieces(states, self.specs, self.mesh.shard_ids))
+        return None if got is None else streams.join_states(got, self.specs, self.sensors)
+
+    def aggregates(self, finals: list) -> Optional[dict]:
+        """Finalized aggregates (one dict a shard) -> the writer's dict."""
+        if self.mesh is None:
+            return finals[0]
+        whole = {s.name for s in self.specs if s.op in ("max_all", "min_all")}
+        tree = {name: self._pieces([torch.from_numpy(np.ascontiguousarray(f[name]))
+                                    for f in finals], 0 if name in whole else -1)
+                for name in finals[0]}
+        tree = self._host(tree)
+        if tree is None:
+            return None
+        return {name: v if name in whole else sampling.in_mask_order(v, self.sensors)
+                for name, v in tree.items()}
+
+    def fields(self, fields: dict) -> Optional[dict]:
+        """Fields (z-slabs on a mesh) -> whole fields on the writer."""
+        if self.mesh is None:
+            return fields
+        return self._host({k: None if v is None else self._pieces(v.shards, 0)
+                           for k, v in fields.items()})
+
+
 def run_simulation(data: InputData, run: RunConfig, output,
                    device: torch.device | str = "cuda",
-                   resume_from=None) -> dict[str, Any]:
+                   resume_from=None, mesh=None) -> dict[str, Any]:
     """Full compute(): preprocess -> windowed main loop -> aggregates -> output.
 
     ``output`` is the output file's path, or an open group-like object that receives
@@ -253,9 +375,25 @@ def run_simulation(data: InputData, run: RunConfig, output,
     first met wins) the run stops at the next window boundary, writes its state there
     and returns with ``"__checkpointed_at__": (t,)`` in the summary. A later call with
     ``resume_from`` set to that checkpoint and the same ``output`` continues it: the
-    legs' output equals a single run's. Returns dataset names -> shapes."""
-    device = torch.device(device)
-    require_device(device)
+    legs' output equals a single run's. Returns dataset names -> shapes.
+
+    With ``mesh`` (`kwave_tpu_torch.parallel.make_mesh`; 3D grids whose nz and ny divide
+    by its size) the run is sharded: z-slabs of the fields on the mesh's devices (then
+    ``device`` is not used), the pencil FFT, each shard's sensors sampled and encoded on
+    it. Under a process group every process makes the same call; process 0 alone opens,
+    writes and post-processes ``output`` and writes the checkpoint, and the others return
+    ``{}`` (a checkpointed leg: the ``__checkpointed_at__`` entry alone). A resumed leg
+    reads the checkpoint and the output on every process (a shared filesystem), and a
+    checkpoint resumes on one device or on a mesh, whichever wrote it."""
+    if mesh is None:
+        device = torch.device(device)
+        require_device(device)
+    else:
+        for d in mesh.devices:
+            require_device(d)
+        device = mesh.devices[0]
+    is_writer = mesh is None or mesh.is_writer
+    multiproc = mesh is not None and mesh.comm.n_processes > 1
     timers = PhaseTimers()
     timers.start("total")
     timers.set_elapsed("data_load", run.data_load_seconds)
@@ -263,6 +401,15 @@ def run_simulation(data: InputData, run: RunConfig, output,
 
     grid, medium = data.grid, data.medium
     is3d = grid.dim == 3
+    if mesh is not None:
+        if not is3d:
+            # z-sharded fields and the pencil FFT are 3D only; 2D grids are small and run
+            # on one device
+            raise ValueError("multi-device meshes require a 3D grid (z-sharded fields + "
+                             "pencil FFT); this input is 2D: run without --devices / mesh")
+        if grid.nz % mesh.size or grid.ny % mesh.size:
+            raise ValueError(f"a mesh of {mesh.size} shards needs nz and ny divisible by "
+                             f"{mesh.size}; this grid has nz = {grid.nz}, ny = {grid.ny}")
     specs = _stream_specs(run, is3d)
     if not specs:
         raise ValueError("no output stream requested")
@@ -291,11 +438,20 @@ def run_simulation(data: InputData, run: RunConfig, output,
         need_source_kappa=bool(need_additive),
         need_shift=streams.needs_shifted_velocity(specs),
         nonuniform=data.nonuniform_maps if data.nonuniform else None,
-        device=device,
+        device=device if mesh is None else "cpu",
         compact=bool(compact),
     )
     spectral_multi = None
-    if run.fuse_z:
+    fft = LOCAL_FFT
+    if mesh is not None:
+        from kwave_tpu_torch.parallel import pencil_fft, shard_operators
+
+        ops = shard_operators(ops, grid.dim, mesh, grid=grid)
+        fft = pencil_fft(mesh, grid.nx)
+        if run.fuse_z:
+            # as in kwave_tpu: only the single-device run builds the fused z stage
+            Logger.log(Logger.BASIC, "WARNING: fuse_z is not used on a mesh; ignored")
+    elif run.fuse_z:
         if compact and is3d:
             from kwave_tpu_torch.ops import zfuse
 
@@ -317,25 +473,7 @@ def run_simulation(data: InputData, run: RunConfig, output,
         transducer_source_flag=data.transducer_source_flag,
         sampling_start_index=run.sampling_start,
     )
-
-    def put(a, dtype):
-        return None if a is None else torch.as_tensor(np.asarray(a), dtype=dtype,
-                                                      device=device)
-
-    f32, i64 = torch.float32, torch.int64
-    src = Sources(
-        p0=put(data.p0, f32),
-        p_index=put(data.p_source_index, i64),
-        p_signal=put(data.p_source_input, f32),
-        u_index=put(data.u_source_index, i64),
-        ux_signal=put(data.ux_source_input, f32),
-        uy_signal=put(data.uy_source_input, f32),
-        uz_signal=put(data.uz_source_input, f32),
-        transducer_index=put(data.u_source_index, i64) if data.transducer_source_flag
-        else None,
-        transducer_signal=put(data.transducer_source_input, f32),
-        delay_mask=put(data.delay_mask, i64),
-    )
+    src = _sources(data, device, mesh)
 
     cuboid_shapes = None
     if data.sensor_mask_index is not None:
@@ -348,22 +486,36 @@ def run_simulation(data: InputData, run: RunConfig, output,
             (int(x2 - x1 + 1), int(y2 - y1 + 1), int(z2 - z1 + 1))
             for x1, y1, z1, x2, y2, z2 in data.sensor_mask_corners
         ]
-    mask = torch.as_tensor(mask_np, dtype=torch.int64, device=device)
-    n_sensors = int(mask.shape[0])
+    n_sensors = int(mask_np.shape[0])
+    sensors = None
+    if mesh is None:
+        mask = torch.as_tensor(mask_np, dtype=torch.int64, device=device)
+        counts, slab = [n_sensors], grid.n_elements
+    else:
+        # each shard gathers the sensors of its own slab (slab-local indices)
+        sensors = sampling.split_sensors(mask_np, grid.shape, mesh.size)
+        mask = Sharded([torch.as_tensor(sensors.local[k], dtype=torch.int64, device=d)
+                        for k, d in zip(mesh.shard_ids, mesh.devices)])
+        counts, slab = [sensors.counts[k] for k in mesh.shard_ids], \
+            grid.n_elements // mesh.size
+    devices = [device] if mesh is None else mesh.devices
 
     sampled_steps = grid.nt - run.sampling_start
     o = basis.o_size if basis is not None else min(max(sampled_steps, 1), 64)
+    tables = None
+    if basis is not None:
+        by_device = {d: streams.encoder_tables(basis, d) for d in set(devices)}
+        tables = [by_device[d] for d in devices]
     r = _Run(
-        specs=specs, basis=basis,
-        tables=streams.encoder_tables(basis, device) if basis is not None else None,
-        ops=ops, src=src, cfg=cfg, mask=mask,
+        specs=specs, basis=basis, tables=tables, ops=ops, src=src, cfg=cfg, mask=mask,
         wanted=streams.needed_sources(specs),
         whole_domain=[s for s in specs if s.op in ("max_all", "min_all")],
-        spectral_multi=spectral_multi,
+        spectral_multi=spectral_multi, fft=fft,
     )
-    sim_state = init_state(grid, device)
-    stream_states = streams.init_stream_states(specs, n_sensors, grid.n_elements, basis,
-                                               device)
+    sim_state = _zero_state(grid, device, mesh)
+    stream_states = [streams.init_stream_states(specs, n, slab, basis, d)
+                     for n, d in zip(counts, devices)]
+    edge = _Edge(mesh, sensors, specs, basis)
 
     t0 = 0
     ck = None
@@ -384,7 +536,8 @@ def run_simulation(data: InputData, run: RunConfig, output,
             )
         fd = ck["fields"]
         sim_state = SimState(**{
-            attr: put(fd[dname].reshape(grid.shape), f32) if dname in fd else None
+            attr: _put_field(fd[dname].reshape(grid.shape), device, mesh)
+            if dname in fd else None
             for attr, dname in ckpt_io._FIELD_NAMES
         })
     # the initial pressure is applied once, by whichever leg covers step 0
@@ -394,6 +547,15 @@ def run_simulation(data: InputData, run: RunConfig, output,
     own_file = isinstance(output, (str, os.PathLike))
     if not own_file:
         f = output
+    elif not is_writer:
+        # another process writes the file; a resumed leg reads it here too (a shared
+        # filesystem), without the lock that the writer's r+ open takes
+        if ck is not None:
+            import h5py
+
+            f = h5py.File(os.fspath(output), "r", locking=False)
+        else:
+            f = None
     elif ck is not None:
         import h5py
 
@@ -401,6 +563,7 @@ def run_simulation(data: InputData, run: RunConfig, output,
     else:
         f = create_output_file(os.fspath(output))
     try:
+        writer = None
         if ck is not None:
             # the output must belong to the same interrupted run: its raw datasets are
             # sized for the full record and must cover the rows already produced
@@ -419,16 +582,25 @@ def run_simulation(data: InputData, run: RunConfig, output,
                             f"checkpoint expects {sampled_steps} total ({sampled_done} "
                             "done): output/checkpoint mismatch"
                         )
-            writer = StreamWriter(f, specs, n_sensors, sampled_steps, basis,
-                                  run.compression_level, cuboid_shapes=cuboid_shapes,
-                                  field_shape=grid.shape, reopen=True,
-                                  rows_done=sampled_done)
-            stream_states = streams.restore_stream_states(
-                stream_states, ck["stream_coeffs"], specs, sampled_done, o)
-            stream_states = streams.restore_aggregates_from_file(
-                stream_states, specs, f, sampled_done)
+            if is_writer:
+                writer = StreamWriter(f, specs, n_sensors, sampled_steps, basis,
+                                      run.compression_level, cuboid_shapes=cuboid_shapes,
+                                      field_shape=grid.shape, reopen=True,
+                                      rows_done=sampled_done)
+            # the whole run's stream state, restored where the checkpoint and the output
+            # hold it, then split over the shards
+            whole = streams.init_stream_states(specs, n_sensors, grid.n_elements, basis,
+                                               device if mesh is None else "cpu")
+            whole = streams.restore_stream_states(whole, ck["stream_coeffs"], specs,
+                                                  sampled_done, o)
+            whole = streams.restore_aggregates_from_file(whole, specs, f, sampled_done)
+            stream_states = [whole] if mesh is None else \
+                streams.split_states(whole, specs, sensors, mesh)
             timers.restore_cumulated(read_cumulated_times(f))
-        else:
+            if not is_writer and own_file:
+                f.close()  # read; the writer's file from here on
+                f = None
+        elif is_writer:
             writer = StreamWriter(f, specs, n_sensors, sampled_steps, basis,
                                   run.compression_level, cuboid_shapes=cuboid_shapes,
                                   field_shape=grid.shape)
@@ -441,19 +613,27 @@ def run_simulation(data: InputData, run: RunConfig, output,
             Logger.log(Logger.ADVANCED,
                        "  compression: period=%.4g mos=%d harmonics=%d oSize=%d mode40=%s",
                        basis.period, basis.mos, basis.harmonics, basis.o_size, run.mode40)
+        if mesh is not None:
+            Logger.log(Logger.ADVANCED, "  mesh: %s", mesh)
         timers.stop("preprocessing")
         timers.start("simulation")
         wall0 = _time.time()
+
+        def flush(emissions):
+            got = edge.emissions(emissions)  # a collective on a mesh: every process joins
+            if writer is not None:
+                writer.flush_emissions(got)
 
         # lead-in: steps before sampling starts (the reference skips storage until
         # t >= s, KSpaceFirstOrderSolver.cpp:1060-1068)
         for t in range(t0, run.sampling_start):
             t_it = _time.time()
             if peel_pending:  # t == 0
-                sim_state = add_initial_pressure(sim_state, ops, src.p0, spectral_multi)
+                sim_state = add_initial_pressure(sim_state, ops, src.p0, spectral_multi,
+                                                 fft)
                 peel_pending = False
             else:
-                sim_state = step(sim_state, t, ops, src, cfg, spectral_multi)
+                sim_state = step(sim_state, t, ops, src, cfg, spectral_multi, fft)
             timers.add_iteration(_time.time() - t_it, sampled=False)
         t = max(t0, run.sampling_start)
 
@@ -466,7 +646,7 @@ def run_simulation(data: InputData, run: RunConfig, output,
                 r, sim_state, stream_states, t, steps,
                 emit=steps == o - sampled_done % o, peel_p0=False, stepwise=True
             )
-            writer.flush_emissions(emissions)
+            flush(emissions)
             for _ in range(steps):
                 timers.add_iteration((_time.time() - t_it) / steps, sampled=True)
             t += steps
@@ -481,45 +661,60 @@ def run_simulation(data: InputData, run: RunConfig, output,
             )
             peel_pending = False
             if pending is not None:
-                writer.flush_emissions(pending)
+                flush(pending)
             pending = emissions
             dt_it = _time.time() - t_it
             for _ in range(o):
                 timers.add_iteration(dt_it / o, sampled=True)
             t += o
             Logger.progress(t - t0, grid.nt - t0, wall0, run.progress_interval)
-            if run.checkpoint_file is not None and t < grid.nt and (
+            stop = run.checkpoint_file is not None and t < grid.nt and (
                 (run.checkpoint_interval_steps is not None
                  and t - t0 >= run.checkpoint_interval_steps)
                 or (run.checkpoint_interval_seconds is not None
                     and _time.time() - wall0 >= run.checkpoint_interval_seconds)
-            ):
+            )
+            if multiproc and run.checkpoint_file is not None:
+                # every process stops at the same window: the first to reach its
+                # wall-time interval decides
+                flag = torch.tensor([float(stop)], device=mesh.devices[0])
+                stop = bool(mesh.comm.all_reduce([flag], "max")[0].item())
+            if stop:
                 # checkpoint leg boundary: elapsed-seconds or step-count trigger, first
                 # met wins (isTimeToCheckpoint, Parameters.cpp:683; window granularity
                 # keeps the encoder state frame-aligned)
                 interrupted = True
                 break
         if pending is not None:
-            writer.flush_emissions(pending)
+            flush(pending)
 
         def write_checkpoint():
-            ckpt_io.write_checkpoint(
-                run.checkpoint_file, sim_state, t, (grid.nx, grid.ny, grid.nz),
-                stream_coeffs=streams.stream_states_to_checkpoint(stream_states, specs,
-                                                                  n_sensors),
-            )
+            host_states = edge.states(stream_states)
+            host_sim = edge.fields({attr: getattr(sim_state, attr)
+                                    for attr, _ in ckpt_io._FIELD_NAMES})
+            if is_writer:
+                ckpt_io.write_checkpoint(
+                    run.checkpoint_file, SimState(**host_sim), t,
+                    (grid.nx, grid.ny, grid.nz),
+                    stream_coeffs=streams.stream_states_to_checkpoint(host_states, specs,
+                                                                      n_sensors),
+                )
+            return host_states
 
         file_path = os.fspath(output) if own_file else None
         if interrupted:
             # aggregates are persisted RAW at leg boundaries; only the last leg
             # finalizes them (IndexOutputStream reopen/postProcess split)
-            writer.flush_aggregates(streams.raw_aggregates(stream_states, specs))
-            write_checkpoint()
-            summary = _summary(writer)
+            host_states = write_checkpoint()
+            summary = {}
+            if writer is not None:
+                writer.flush_aggregates(streams.raw_aggregates(host_states, specs))
+                summary = _summary(writer)
             summary["__checkpointed_at__"] = (t,)
             timers.stop("simulation")
             timers.stop("total")
-            write_run_info(f, timers, device, file_path=file_path)  # cumulated times
+            if writer is not None:
+                write_run_info(f, timers, device, file_path=file_path)  # cumulated times
             return summary
 
         # trailing steps (< one window): raw rows, aggregate folds and compressed
@@ -530,7 +725,7 @@ def run_simulation(data: InputData, run: RunConfig, output,
             sim_state, stream_states, tail = _run_window(
                 r, sim_state, stream_states, t, rem, emit=False, peel_p0=peel_pending
             )
-            writer.flush_emissions(tail)  # raw rows; `c` entries are None
+            flush(tail)  # raw rows; `c` entries are None
             t += rem
 
         # tiny-record lastStep rule (IndexOutputStream.cpp:454-456): when the whole
@@ -538,29 +733,35 @@ def run_simulation(data: InputData, run: RunConfig, output,
         # Nc=1 compressed dataset is not left empty. Strictly `< oSize`: at == oSize the
         # window loop already emitted.
         if basis is not None and 0 < sampled_steps < o:
-            partial = {}
-            for s in specs:
-                if s.op != "c":
-                    continue
-                ecfg = encoder.EncoderConfig.for_stream(basis, s.shifted_basis, s.mode40,
-                                                        s.overlap)
-                stream_states[s.name], partial[s.name] = encoder.emit_partial(
-                    stream_states[s.name], ecfg
-                )
-            streams.finalize_emissions(stream_states, partial, specs)
-            writer.flush_emissions(partial)
+            partials = []
+            for st in stream_states:
+                partial = {}
+                for s in specs:
+                    if s.op != "c":
+                        continue
+                    ecfg = encoder.EncoderConfig.for_stream(basis, s.shifted_basis,
+                                                            s.mode40, s.overlap)
+                    st[s.name], partial[s.name] = encoder.emit_partial(st[s.name], ecfg)
+                streams.finalize_emissions(st, partial, specs)
+                partials.append(partial)
+            flush(partials)
         timers.stop("simulation")
 
         timers.start("postprocessing")
-        writer.flush_aggregates(streams.finalize_aggregates(
-            stream_states, specs, sampled_steps, compressed_frames=sampled_steps // o))
-        writer.flush_final_fields(
-            {s.name: getattr(sim_state, s.source) for s in specs if s.op == "final"}
-        )
+        finals = edge.aggregates([streams.finalize_aggregates(
+            st, specs, sampled_steps, compressed_frames=sampled_steps // o)
+            for st in stream_states])
+        fields = edge.fields({s.name: getattr(sim_state, s.source)
+                              for s in specs if s.op == "final"})
+        if writer is not None:
+            writer.flush_aggregates(finals)
+            writer.flush_final_fields(fields)
         if run.checkpoint_file is not None:
             # the end-of-run checkpoint carries the stream accumulators too: the
             # reference persists them on every checkpoint (BaseOutputStream.cpp:551-606)
             write_checkpoint()
+        if writer is None:
+            return {}
         summary = _summary(writer)
 
         if run.i_avg or run.q_term:
@@ -587,5 +788,87 @@ def run_simulation(data: InputData, run: RunConfig, output,
             write_attr(f, "benchmark_time_steps", int(run.benchmark_steps))
         return summary
     finally:
-        if own_file:
+        # the side channel must not leak on an exception anywhere in the run
+        edge.close()
+        if own_file and f is not None:
             f.close()
+
+
+def _put_field(a, device, mesh):
+    """A whole field (host array) on the device, or z-sharded over the mesh."""
+    a = torch.as_tensor(np.asarray(a, np.float32))
+    if mesh is None:
+        return a.to(device)
+    from kwave_tpu_torch.parallel import field_sharding
+
+    return field_sharding(mesh, a)
+
+
+def _zero_state(grid, device, mesh) -> SimState:
+    """All-zero fields: on the device, or each shard's z-slab on its device."""
+    if mesh is None:
+        return init_state(grid, device)
+    shape = (grid.nz // mesh.size, grid.ny, grid.nx)
+
+    def z():
+        return Sharded([torch.zeros(shape, dtype=torch.float32, device=d)
+                        for d in mesh.devices])
+
+    return SimState(p=z(), ux_sgx=z(), uy_sgy=z(), uz_sgz=z(), rho_x=z(), rho_y=z(),
+                    rho_z=z())
+
+
+def _sources(data: InputData, device, mesh) -> Sources:
+    """The input's sources on the device; on a mesh p0 z-sharded, each point source's
+    indices (with their per-point signals and delays) split over the slabs, and the
+    signals shared by all points replicated."""
+    f32, i64 = np.float32, np.int64
+
+    def arr(a, dtype):
+        return None if a is None else np.asarray(a, dtype)
+
+    transducer_index = data.u_source_index if data.transducer_source_flag else None
+    if mesh is None:
+        def put(a, dtype):
+            return None if a is None else torch.as_tensor(arr(a, dtype), device=device)
+
+        return Sources(
+            p0=put(data.p0, f32),
+            p_index=put(data.p_source_index, i64),
+            p_signal=put(data.p_source_input, f32),
+            u_index=put(data.u_source_index, i64),
+            ux_signal=put(data.ux_source_input, f32),
+            uy_signal=put(data.uy_source_input, f32),
+            uz_signal=put(data.uz_source_input, f32),
+            transducer_index=put(transducer_index, i64),
+            transducer_signal=put(data.transducer_source_input, f32),
+            delay_mask=put(data.delay_mask, i64),
+        )
+    from kwave_tpu_torch.parallel.mesh import field_sharding, replicated, split_points
+
+    def rep(a, dtype):
+        return None if a is None else replicated(mesh, arr(a, dtype))
+
+    def points(index, many, *signals):
+        if index is None:
+            return (None,) * (1 + len(signals))
+        out = split_points(mesh, arr(index, i64), data.grid.shape,
+                           *(arr(s, f32) if many else None for s in signals))
+        return (out[0],) + tuple(o if many else rep(s, f32)
+                                 for o, s in zip(out[1:], signals))
+
+    p_index, p_signal = points(data.p_source_index, data.p_source_many,
+                               data.p_source_input)
+    u_index, ux, uy, uz = points(data.u_source_index, data.u_source_many,
+                                 data.ux_source_input, data.uy_source_input,
+                                 data.uz_source_input)
+    t_index, delays = (None, None) if transducer_index is None else split_points(
+        mesh, arr(transducer_index, i64), data.grid.shape, arr(data.delay_mask, i64))
+    return Sources(
+        p0=None if data.p0 is None else field_sharding(mesh, arr(data.p0, f32)),
+        p_index=p_index, p_signal=p_signal, u_index=u_index,
+        ux_signal=ux, uy_signal=uy, uz_signal=uz,
+        transducer_index=t_index,
+        transducer_signal=rep(data.transducer_source_input, f32),
+        delay_mask=delays,
+    )

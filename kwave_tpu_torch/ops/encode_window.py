@@ -263,6 +263,8 @@ def encode_window_40b_exact(chunk, tabs, planes, e_const: int, parity: int, mirr
     planes = tuple(planes)
     _check(chunk, tabs, planes, torch.int32, overlap, parity)
     check_e_const(e_const)
+    if chunk.shape[1] == 0:  # no sensor (a mesh shard whose slab holds none): no work
+        return planes
     if chunk.device.type == "cpu":
         return encode_window_40b_exact_plain(chunk, tabs, planes, e_const, parity, mirror,
                                              overlap)
@@ -316,6 +318,8 @@ def encode_window_float_exact(chunk, tabs, planes, parity: int, mirror: int,
     (acc1_re, acc1_im[, acc2_re, acc2_im]); returns the updated planes."""
     planes = tuple(planes)
     _check(chunk, tabs, planes, torch.float32, overlap, parity)
+    if chunk.shape[1] == 0:  # no sensor (a mesh shard whose slab holds none): no work
+        return planes
     if chunk.device.type == "cpu":
         return encode_window_float_exact_plain(chunk, tabs, planes, parity, mirror,
                                                overlap)

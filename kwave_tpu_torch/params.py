@@ -6,8 +6,10 @@ Same long-option names and semantics (`-s` is 1-based, `-c` is the output-file g
 ignored: the device comes from ``KWAVE_TPU_TORCH_DEVICE``. The spectral-engine knobs of
 `kwave_tpu.params` are accepted too: the FFT here is cuFFT in full fp32, so ``auto`` /
 ``highest`` and the mxfft switches change nothing, and ``--fft_precision high`` is
-refused (`refused_fft_flags`). Flags whose feature is not ported yet are parsed and
-refused by `unported_flags` with their ROADMAP item; none is silently ignored.
+refused (`refused_fft_flags`). A flag whose feature is not ported would be parsed and
+refused by `unported_flags` with its ROADMAP item (`UNPORTED`; none is left); none is
+silently ignored. The mesh flags (``--devices``, ``--distributed``, ``--coordinator``,
+``--num_processes``, ``--process_id``) go to `kwave_tpu_torch.cli.mesh_from_args`.
 """
 
 from __future__ import annotations
@@ -23,14 +25,8 @@ STREAM_FLAGS = (
     "u_min", "u_max_all", "u_min_all", "u_final",
 )
 
-# flag (argparse dest) -> the ROADMAP item that ports it
-UNPORTED = {
-    "devices": "queue 1 item 2 (parallel)",
-    "distributed": "queue 1 item 2 (parallel)",
-    "coordinator": "queue 1 item 2 (parallel)",
-    "num_processes": "queue 1 item 2 (parallel)",
-    "process_id": "queue 1 item 2 (parallel)",
-}
+# flag (argparse dest) -> the ROADMAP item that ports it; every flag is ported
+UNPORTED: dict[str, str] = {}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -61,10 +57,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint_interval", type=int, default=None, metavar="SECONDS")
     p.add_argument("--checkpoint_timesteps", type=int, default=None, metavar="STEPS")
 
-    # not ported yet: refused with their ROADMAP item (see UNPORTED)
-    p.add_argument("--devices", type=int, default=None, metavar="N")
-    p.add_argument("--distributed", action="store_true")
-    p.add_argument("--coordinator", default=None, metavar="HOST:PORT")
+    # the mesh (kwave_tpu_torch.parallel): shards in one process, or one a process
+    p.add_argument("--devices", type=int, default=None, metavar="N",
+                   help="z-shard the run over N devices of this process (the CPU: N "
+                        "shards on it)")
+    p.add_argument("--distributed", action="store_true",
+                   help="join the process group that torchrun's environment describes")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="the process group's rendezvous address (with --num_processes)")
     p.add_argument("--num_processes", type=int, default=None, metavar="N")
     p.add_argument("--process_id", type=int, default=None, metavar="R")
 

@@ -10,7 +10,9 @@ the reduces are the reference's templated kRms / kMax / kMin updates
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -119,3 +121,49 @@ def sample_all_max(buf: torch.Tensor, field_flat: torch.Tensor) -> torch.Tensor:
 
 def sample_all_min(buf: torch.Tensor, field_flat: torch.Tensor) -> torch.Tensor:
     return torch.minimum(buf, field_flat)
+
+
+# -- slab-local gathers: an index mask on the z-slabs of a mesh --------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SlabSensors:
+    """An index mask's sensors split over the z-slabs of S shards. The sensor at flat index
+    ``i`` lives on shard ``i // slab`` (``slab`` = (nz / S) * ny * nx points) at local
+    index ``i - shard * slab``. ``select[k]`` are the mask positions of shard k's sensors
+    (in mask order) and ``local[k]`` their local indices; ``perm`` = the concatenated
+    ``select``, so rows gathered shard after shard go back to the mask's order by
+    `in_mask_order` (None when they already are in it: a sorted mask)."""
+
+    select: tuple
+    local: tuple
+    perm: Optional[np.ndarray]
+
+    @property
+    def counts(self) -> list[int]:
+        return [len(s) for s in self.select]
+
+
+def split_sensors(mask, grid_shape, n_shards: int) -> SlabSensors:
+    """Precompute each shard's sensors of ``mask`` (flat indices, any order) once."""
+    mask = np.asarray(mask, np.int64)
+    if grid_shape[0] % n_shards:
+        raise ValueError(f"nz = {grid_shape[0]} does not divide by {n_shards} shards")
+    slab = grid_shape[0] // n_shards * int(np.prod(grid_shape[1:]))
+    owner = mask // slab
+    select = tuple(np.nonzero(owner == k)[0] for k in range(n_shards))
+    local = tuple(mask[sel] - k * slab for k, sel in enumerate(select))
+    perm = np.concatenate(select)
+    return SlabSensors(select, local, None if np.array_equal(perm, np.arange(mask.size))
+                       else perm)
+
+
+def in_mask_order(x: np.ndarray, sensors: SlabSensors, axis: int = -1) -> np.ndarray:
+    """Rows gathered shard after shard along ``axis`` -> the mask's sensor order."""
+    if sensors.perm is None:
+        return x
+    out = np.empty_like(x)
+    index = [slice(None)] * x.ndim
+    index[axis] = sensors.perm
+    out[tuple(index)] = x
+    return out

@@ -4,6 +4,8 @@ loop `simulate` as a host loop over it."""
 
 from kwave_tpu_torch.solver.operators import Grid, Medium, Operators, make_operators
 from kwave_tpu_torch.solver.step import (
+    LOCAL_FFT,
+    FftOps,
     SimState,
     SolverConfig,
     Sources,
@@ -17,6 +19,8 @@ from kwave_tpu_torch.solver.step import (
 )
 
 __all__ = [
+    "FftOps",
+    "LOCAL_FFT",
     "Grid",
     "Medium",
     "Operators",

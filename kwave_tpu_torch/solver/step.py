@@ -7,20 +7,22 @@ One `step` call reproduces one iteration of the reference main loop
   density update (linear|nonlinear) -> pressure source -> pressure update
   (lossless|absorbing x linear|nonlinear) -> [t==0: initial pressure source].
 
-The spectral work is ``torch.fft.rfftn``/``irfftn`` over the last ``ndim`` axes (cuFFT on
-the card), or, when the caller passes a ``spectral_multi`` pipeline
-(`kwave_tpu_torch.ops.zfuse.make_pipeline`), that pipeline for every transform of the
-step: x/y transforms around one kernel that does z-DFT, operator and z-IDFT. The
-elementwise updates are plain tensor expressions in the JAX package's order. Fields are float32 ``[nz, ny, nx]`` (``[ny, nx]`` in 2D), x fastest. The time
-index ``t`` is a host integer, so source gating is a host branch. No tensor is updated in
-place.
+The spectral work goes through an `FftOps` pair: `LOCAL_FFT` (``torch.fft.rfftn``/``irfftn``
+over the last ``ndim`` axes, cuFFT on the card) by default, the mesh's pencil FFT
+(`kwave_tpu_torch.parallel.pencil_fft`) on z-sharded fields; or, when the caller passes a
+``spectral_multi`` pipeline (`kwave_tpu_torch.ops.zfuse.make_pipeline`), that pipeline
+for every transform of the step: x/y transforms around one kernel that does z-DFT,
+operator and z-IDFT. The elementwise updates are plain tensor expressions in the JAX
+package's order; on a mesh they run shard by shard (`kwave_tpu_torch.parallel.Sharded`).
+Fields are float32 ``[nz, ny, nx]`` (``[ny, nx]`` in 2D), x fastest. The time index ``t``
+is a host integer, so source gating is a host branch. No tensor is updated in place.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -112,9 +114,25 @@ def _irfftn(xk: torch.Tensor, shape) -> torch.Tensor:
     return torch.fft.irfftn(xk, s=tuple(shape), dim=tuple(range(-len(shape), 0)))
 
 
+class FftOps(NamedTuple):
+    """The spectral transform pair of the step: `LOCAL_FFT` on one device, the pencil FFT
+    (`kwave_tpu_torch.parallel.pencil_fft`) on a mesh. ``irfftn`` takes the real shape
+    (of a shard, on a mesh). The JAX package's hooks for its matmul FFT (``shift_axis``,
+    ``batched``) are left out with that FFT. ``z_lines(fn, u)``, when set, applies ``fn``
+    along z of a z-sharded field (the mesh trades it to y-blocks and back): the z
+    half-cell shift of `shifted_velocity`."""
+
+    rfftn: Callable[[Any], Any]
+    irfftn: Callable[[Any, tuple[int, ...]], Any]
+    z_lines: Optional[Callable] = None
+
+
+LOCAL_FFT = FftOps(rfftn=_rfftn, irfftn=_irfftn)
+
+
 def _f32(value: float, like: torch.Tensor) -> torch.Tensor:
     """A float32 scalar on ``like``'s device (rounded to float32 as in the reference)."""
-    return torch.tensor(value, dtype=torch.float32, device=like.device)
+    return like.new_full((), value, dtype=torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -179,7 +197,7 @@ def _tau_eta_op(ops: Operators):
 
 
 def _grad_fields(field: torch.Tensor, ops: Operators, ddx, ddy, ddz, shape,
-                 spectral_multi: Optional[Callable] = None):
+                 spectral_multi: Optional[Callable] = None, fft: FftOps = LOCAL_FFT):
     """ifftn(dd*_k_shift * kappa * fftn(field)) for each axis: computePressureGradient
     (SolverCudaKernels.cu:1139-1199) and the shared pattern of the velocity gradient.
     With ``spectral_multi`` the three outputs come off one forward transform."""
@@ -192,20 +210,21 @@ def _grad_fields(field: torch.Tensor, ops: Operators, ddx, ddy, ddz, shape,
             dds.append(ddz)
         outs = spectral_multi(field, tuple(specs), tuple(dds), True)
         return outs[0], outs[1], (outs[2] if ddz is not None else None)
-    fk = _rfftn(field) * _kappa(ops, ndim)
-    gx = _irfftn(fk * _bc(ddx, 0, ndim), shape)
-    gy = _irfftn(fk * _bc(ddy, 1, ndim), shape)
-    gz = _irfftn(fk * _bc(ddz, 2, ndim), shape) if ddz is not None else None
+    fk = fft.rfftn(field) * _kappa(ops, ndim)
+    gx = fft.irfftn(fk * _bc(ddx, 0, ndim), shape)
+    gy = fft.irfftn(fk * _bc(ddy, 1, ndim), shape)
+    gz = fft.irfftn(fk * _bc(ddz, 2, ndim), shape) if ddz is not None else None
     return gx, gy, gz
 
 
-def _source_value(signal: torch.Tensor, t: int, many: bool, n: int) -> torch.Tensor:
+def _source_value(signal: torch.Tensor, t: int, many: bool,
+                  index: torch.Tensor) -> torch.Tensor:
     """Signal sample(s) at timestep t (clamped to the signal, as a JAX dynamic index):
-    scalar broadcast or per-point column."""
-    t = min(t, signal.shape[-1] - 1)
+    scalar broadcast over ``index``'s points or per-point column."""
+    t = min(t, signal.size(-1) - 1)
     if many:
         return signal[:, t]
-    return signal[t].expand(n)
+    return signal[t].expand_as(index)
 
 
 def _apply_point_source(field, index, value, mode: int):
@@ -219,16 +238,16 @@ def _apply_point_source(field, index, value, mode: int):
     return flat.reshape(field.shape)
 
 
-def _scale_additive_source(index, value, ops: Operators, shape):
+def _scale_additive_source(index, value, ops: Operators, shape, fft: FftOps = LOCAL_FFT):
     """Additive-mode source correction: scatter to the full grid, multiply by source_kappa
     in k-space, inverse transform (scaleSource, KSpaceFirstOrderSolver.cpp:2339-2354)."""
     n = 1
     for s in shape:
         n *= s
-    scaled = torch.zeros(n, dtype=torch.float32, device=value.device)
+    scaled = value.new_zeros(n, dtype=torch.float32)
     scaled[index] = value
-    return _irfftn(_rfftn(scaled.reshape(shape)) * _source_kappa_op(ops, len(shape)),
-                   shape)
+    return fft.irfftn(fft.rfftn(scaled.reshape(shape)) * _source_kappa_op(ops, len(shape)),
+                      shape)
 
 
 # ---------------------------------------------------------------------------
@@ -237,11 +256,12 @@ def _scale_additive_source(index, value, ops: Operators, shape):
 
 
 def step(state: SimState, t: int, ops: Operators, src: Sources, cfg: SolverConfig,
-         spectral_multi: Optional[Callable] = None) -> SimState:
+         spectral_multi: Optional[Callable] = None, fft: FftOps = LOCAL_FFT) -> SimState:
     """One main-loop iteration (computeMainLoop body, KSpaceFirstOrderSolver.cpp:885-935).
     ``spectral_multi`` (3D only; `kwave_tpu_torch.ops.zfuse.make_pipeline`), when given,
     takes every spectral multiply of the step: ``(field, op_specs, dd_vectors, use_kappa)
-    -> [real fields]``."""
+    -> [real fields]``. Otherwise ``fft`` does every transform: on a mesh, the pencil FFT
+    (`kwave_tpu_torch.parallel.pencil_fft`) with z-sharded fields and operators."""
     is3d = state.uz_sgz is not None
     shape = state.p.shape
     ndim = state.p.ndim
@@ -249,7 +269,7 @@ def step(state: SimState, t: int, ops: Operators, src: Sources, cfg: SolverConfi
     # -- velocity update (computeVelocity :2087-2119):
     # u = pml_sg * (pml_sg * u - dt/rho0_sg * ifft(ddk_pos * kappa * fft(p)))
     dpx, dpy, dpz = _grad_fields(state.p, ops, ops.ddx_pos, ops.ddy_pos, ops.ddz_pos,
-                                 shape, spectral_multi)
+                                 shape, spectral_multi, fft)
     pml_x_sg = _bc(ops.pml_x_sgx, 0, ndim)
     pml_y_sg = _bc(ops.pml_y_sgy, 1, ndim)
     ux = (state.ux_sgx * pml_x_sg - ops.dt_rho0_sgx * dpx) * pml_x_sg
@@ -262,9 +282,9 @@ def step(state: SimState, t: int, ops: Operators, src: Sources, cfg: SolverConfi
     # -- velocity source (addVelocitySource :2252-2303)
     if cfg.u_source_flag > 0 and t < cfg.u_source_flag:
         def add_u(u, signal):
-            val = _source_value(signal, t, cfg.u_source_many, src.u_index.shape[0])
+            val = _source_value(signal, t, cfg.u_source_many, src.u_index)
             if cfg.u_source_mode == ADDITIVE:
-                return u + _scale_additive_source(src.u_index, val, ops, shape)
+                return u + _scale_additive_source(src.u_index, val, ops, shape, fft)
             return _apply_point_source(u, src.u_index, val, cfg.u_source_mode)
 
         if src.ux_signal is not None:
@@ -288,10 +308,10 @@ def step(state: SimState, t: int, ops: Operators, src: Sources, cfg: SolverConfi
                                True)[0] if is3d else None
     else:
         kap = _kappa(ops, ndim)
-        duxdx = _irfftn(_rfftn(ux) * kap * _bc(ops.ddx_neg, 0, ndim), shape)
-        duydy = _irfftn(_rfftn(uy) * kap * _bc(ops.ddy_neg, 1, ndim), shape)
-        duzdz = _irfftn(_rfftn(uz) * kap * _bc(ops.ddz_neg, 2, ndim),
-                        shape) if is3d else None
+        duxdx = fft.irfftn(fft.rfftn(ux) * kap * _bc(ops.ddx_neg, 0, ndim), shape)
+        duydy = fft.irfftn(fft.rfftn(uy) * kap * _bc(ops.ddy_neg, 1, ndim), shape)
+        duzdz = fft.irfftn(fft.rfftn(uz) * kap * _bc(ops.ddz_neg, 2, ndim),
+                           shape) if is3d else None
     # non-uniform grid: scale gradients by the stretch maps
     if ops.dxudxn is not None:
         duxdx = duxdx * _bc(ops.dxudxn, 0, ndim)
@@ -318,9 +338,9 @@ def step(state: SimState, t: int, ops: Operators, src: Sources, cfg: SolverConfi
 
     # -- pressure source (addPressureSource :2310-2333): applied to the split densities
     if cfg.p_source_flag > 0 and t < cfg.p_source_flag:
-        val = _source_value(src.p_signal, t, cfg.p_source_many, src.p_index.shape[0])
+        val = _source_value(src.p_signal, t, cfg.p_source_many, src.p_index)
         if cfg.p_source_mode == ADDITIVE:
-            scaled = _scale_additive_source(src.p_index, val, ops, shape)
+            scaled = _scale_additive_source(src.p_index, val, ops, shape, fft)
             rx = rx + scaled
             ry = ry + scaled
             if is3d:
@@ -346,8 +366,8 @@ def step(state: SimState, t: int, ops: Operators, src: Sources, cfg: SolverConfi
                                       False)[0]
         else:
             nabla1, nabla2 = _absorb_nablas(ops, ndim)
-            tau_term = _irfftn(_rfftn(vel_grad_sum) * nabla1, shape)
-            eta_term = _irfftn(_rfftn(rho_sum) * nabla2, shape)
+            tau_term = fft.irfftn(fft.rfftn(vel_grad_sum) * nabla1, shape)
+            eta_term = fft.irfftn(fft.rfftn(rho_sum) * nabla2, shape)
         if cfg.nonlinear:
             nonlin = (ops.bona * rho_sum * rho_sum) / (2.0 * ops.rho0) + rho_sum
             p = c2 * (nonlin + tau * tau_term - eta * eta_term)
@@ -362,7 +382,7 @@ def step(state: SimState, t: int, ops: Operators, src: Sources, cfg: SolverConfi
     # -- initial pressure at t==0 (addInitialPressureSource :2359-2400); the driver peels
     # this out of its window loop and passes p0_source_flag=False
     if cfg.p0_source_flag and t == 0:
-        new = add_initial_pressure(new, ops, src.p0, spectral_multi)
+        new = add_initial_pressure(new, ops, src.p0, spectral_multi, fft)
     return new
 
 
@@ -380,10 +400,11 @@ def real_at_nyquist(op: torch.Tensor, n: int) -> torch.Tensor:
     return torch.cat([op[:-1], op[-1:].real.to(op.dtype)])
 
 
-def shifted_velocity(state: SimState, ops: Operators):
+def shifted_velocity(state: SimState, ops: Operators, fft: FftOps = LOCAL_FFT):
     """Velocities shifted back onto the regular grid via per-axis spectral half-cell
     shifts (computeShiftedVelocity, KSpaceFirstOrderSolver.cpp:2714-2735). Returns
-    (ux_shifted, uy_shifted, uz_shifted|None)."""
+    (ux_shifted, uy_shifted, uz_shifted|None). On z-sharded fields ``fft.z_lines`` makes
+    every z line whole for the z shift."""
     ndim = state.p.ndim
 
     def shift(u, op, axis):
@@ -397,12 +418,16 @@ def shifted_velocity(state: SimState, ops: Operators):
     uy = shift(state.uy_sgy, ops.shift_y_neg, ndim - 2)
     uz = None
     if state.uz_sgz is not None and ops.shift_z_neg is not None:
-        uz = shift(state.uz_sgz, ops.shift_z_neg, 0)
+        if fft.z_lines is None:
+            uz = shift(state.uz_sgz, ops.shift_z_neg, 0)
+        else:
+            uz = fft.z_lines(lambda u: shift(u, ops.shift_z_neg, 0), state.uz_sgz)
     return ux, uy, uz
 
 
 def add_initial_pressure(state: SimState, ops: Operators, p0: torch.Tensor,
-                         spectral_multi: Optional[Callable] = None) -> SimState:
+                         spectral_multi: Optional[Callable] = None,
+                         fft: FftOps = LOCAL_FFT) -> SimState:
     """p = p0; rho_i = p0/(dim*c^2); u_sg = 0.5 * dt/rho0_sg * ifft(ddk_pos*kappa*fft(p0))
     (addInitialPressureSource, KSpaceFirstOrderSolver.cpp:2359-2400). The result does not
     depend on ``state`` beyond its dimensionality."""
@@ -410,7 +435,7 @@ def add_initial_pressure(state: SimState, ops: Operators, p0: torch.Tensor,
     shape = p0.shape
     rho_part = p0 / (_f32(3.0 if is3d else 2.0, p0) * _c2_op(ops))
     gx, gy, gz = _grad_fields(p0, ops, ops.ddx_pos, ops.ddy_pos, ops.ddz_pos, shape,
-                              spectral_multi)
+                              spectral_multi, fft)
     half = _f32(0.5, p0)
     return SimState(
         p=p0.clone(),
@@ -424,14 +449,18 @@ def add_initial_pressure(state: SimState, ops: Operators, p0: torch.Tensor,
 
 
 def make_p0_init(grid: Grid, ops: Operators, p0,
-                 spectral_multi: Optional[Callable] = None) -> SimState:
+                 spectral_multi: Optional[Callable] = None,
+                 fft: FftOps = LOCAL_FFT) -> SimState:
     """The peeled t==0 state: addInitialPressureSource's result does not depend on the
     running state, so the full state after step 0 is exactly this, and the loop steps on
     from t0 = 1 with ``p0_source_flag=False`` (the driver's peel). ``p0`` (a tensor or an
-    array) goes to the operators' device. No two leaves share storage."""
-    device = ops.ddx_pos.device
-    p0 = torch.as_tensor(p0, dtype=torch.float32).to(device)
-    return add_initial_pressure(init_state(grid, device), ops, p0, spectral_multi)
+    array) goes to the operators' device; a sharded ``p0`` (z-slabs, with the mesh's
+    operators and ``fft``) is on its shards' devices already. No two leaves share
+    storage."""
+    if not hasattr(p0, "shards"):
+        p0 = torch.as_tensor(p0, dtype=torch.float32).to(ops.ddx_pos.device)
+    # only the state's dimensionality is read: a shape-only stand-in on the CPU
+    return add_initial_pressure(init_state(grid, "meta"), ops, p0, spectral_multi, fft)
 
 
 # ---------------------------------------------------------------------------
@@ -449,18 +478,19 @@ def _stack(rows: list):
 
 def make_simulate_fn(ops: Operators, src: Sources, cfg: SolverConfig, n_steps: int,
                      sample_fn: Optional[Callable[[SimState], Any]] = None,
-                     spectral_multi: Optional[Callable] = None):
+                     spectral_multi: Optional[Callable] = None, fft: FftOps = LOCAL_FFT):
     """The main loop as a function ``run(state, t0) -> (state, samples)``: ``n_steps``
     calls of `step` from time index ``t0`` (a host integer, so a checkpoint leg or a
     lead-in resumes anywhere). ``sample_fn(state)`` runs after every step and its
     outputs are stacked (`_stack`); ``samples`` is None without it. ``spectral_multi``
     (`kwave_tpu_torch.ops.zfuse.make_pipeline`) takes every spectral multiply, as in
-    `step`. The fields stay on the operators' device throughout."""
+    `step`; ``fft`` likewise (the pencil FFT on a mesh). The fields stay on the
+    operators' device throughout."""
 
     def run(state: SimState, t0: int = 0):
         rows = []
         for i in range(n_steps):
-            state = step(state, int(t0) + i, ops, src, cfg, spectral_multi)
+            state = step(state, int(t0) + i, ops, src, cfg, spectral_multi, fft)
             if sample_fn is not None:
                 rows.append(sample_fn(state))
         return state, (_stack(rows) if rows else None)
@@ -470,7 +500,8 @@ def make_simulate_fn(ops: Operators, src: Sources, cfg: SolverConfig, n_steps: i
 
 def simulate(state: SimState, ops: Operators, src: Sources, cfg: SolverConfig,
              n_steps: int, sample_fn: Optional[Callable[[SimState], Any]] = None,
-             t0: int = 0, spectral_multi: Optional[Callable] = None):
+             t0: int = 0, spectral_multi: Optional[Callable] = None,
+             fft: FftOps = LOCAL_FFT):
     """Run ``n_steps`` iterations from time index ``t0``; returns (state, samples).
 
     ``sample_fn(state)`` is evaluated after every step and its outputs are stacked, one
@@ -478,4 +509,5 @@ def simulate(state: SimState, ops: Operators, src: Sources, cfg: SolverConfig,
     KSpaceFirstOrderSolver.cpp:1060-1068: callers slice ``[cfg.sampling_start_index -
     t0:]``). Checkpoint / restart is a second call with the carried state and ``t0`` =
     the steps done (main.cpp:147-169)."""
-    return make_simulate_fn(ops, src, cfg, n_steps, sample_fn, spectral_multi)(state, t0)
+    return make_simulate_fn(ops, src, cfg, n_steps, sample_fn, spectral_multi,
+                            fft)(state, t0)

@@ -389,6 +389,87 @@ def raw_aggregates(states: dict[str, Any], specs: list[StreamSpec]
 
 
 # ---------------------------------------------------------------------------
+# Stream states on a mesh: one state dict a shard, over that shard's sensors (and slab)
+# ---------------------------------------------------------------------------
+
+_PER_SENSOR = ("rms", "max", "min", "iavg_c")
+_WHOLE_DOMAIN = ("max_all", "min_all")
+
+
+def state_pieces(states: list[dict[str, Any]], specs: list[StreamSpec],
+                 ids: list[int]) -> dict[str, Any]:
+    """This process's shards' stream states (one dict a shard, in shard order) as one
+    tree to gather: the per-sensor planes and buffers as `Sharded` values along the
+    sensor axis, the whole-domain buffers as `Sharded` slabs (`join_states` takes the
+    gathered tree)."""
+    from kwave_tpu_torch.parallel.sharded import Sharded
+
+    def pieces(get, axis):
+        return Sharded([get(st) for st in states], ids=ids, axis=axis)
+
+    out: dict[str, Any] = {}
+    for s in specs:
+        first = states[0][s.name]
+        if s.op == "c":
+            out[s.name] = {k: pieces(lambda st, k=k: st[s.name][k], -1)
+                           if isinstance(v, torch.Tensor) else v for k, v in first.items()}
+        elif s.op in _PER_SENSOR:
+            out[s.name] = pieces(lambda st: st[s.name], -1)
+        elif s.op in _WHOLE_DOMAIN:
+            out[s.name] = pieces(lambda st: st[s.name], 0)
+        else:
+            out[s.name] = None
+    return out
+
+
+def join_states(gathered: dict[str, Any], specs: list[StreamSpec], sensors
+                ) -> dict[str, Any]:
+    """A gathered `state_pieces` tree -> one state dict of host arrays, per-sensor values
+    in the mask's order (``sensors``: `sampling.SlabSensors`)."""
+    order = lambda a: sampling.in_mask_order(np.asarray(a), sensors)  # noqa: E731
+    out: dict[str, Any] = {}
+    for s in specs:
+        v = gathered[s.name]
+        if s.op == "c":
+            out[s.name] = {k: order(a) if isinstance(a, np.ndarray) else a
+                           for k, a in v.items()}
+        elif s.op in _PER_SENSOR:
+            out[s.name] = order(v)
+        else:
+            out[s.name] = v
+    return out
+
+
+def split_states(states: dict[str, Any], specs: list[StreamSpec], sensors, mesh
+                 ) -> list[dict[str, Any]]:
+    """One global state dict (tensors on any device, e.g. restored from a checkpoint) ->
+    this process's shards' state dicts, each on its shard's device: per-sensor values at
+    the shard's sensors, whole-domain buffers on its slab."""
+    out = []
+    for k, d in zip(mesh.shard_ids, mesh.devices):
+        sel = torch.as_tensor(sensors.select[k], dtype=torch.int64)
+
+        def at_sensors(a):
+            return a.index_select(-1, sel.to(a.device)).to(d)
+
+        st: dict[str, Any] = {}
+        for s in specs:
+            v = states[s.name]
+            if s.op == "c":
+                st[s.name] = {key: at_sensors(a) if isinstance(a, torch.Tensor) else a
+                              for key, a in v.items()}
+            elif s.op in _PER_SENSOR:
+                st[s.name] = at_sensors(v)
+            elif s.op in _WHOLE_DOMAIN:
+                slab = v.shape[0] // mesh.size
+                st[s.name] = v[k * slab:(k + 1) * slab].to(d)
+            else:
+                st[s.name] = v
+        out.append(st)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Host-side writer
 # ---------------------------------------------------------------------------
 

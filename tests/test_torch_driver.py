@@ -219,14 +219,85 @@ def test_tiny_record_emits_one_partial_frame(tmp_path):
 
 
 def test_unported_flags_are_refused_with_their_roadmap_item(tmp_path, capsys):
-    assert set(UNPORTED) == {"devices", "distributed", "coordinator", "num_processes",
-                             "process_id"}
-    for flag, dest in (("--devices=2", "devices"), ("--distributed", "distributed"),
-                       ("--num_processes=2", "num_processes")):
+    """Every flag of the reference's parser is ported now: none is on `UNPORTED`, and
+    `unported_flags` refuses none of the five mesh flags it used to."""
+    from kwave_tpu_torch.params import build_parser, unported_flags
+
+    assert UNPORTED == {}
+    args = build_parser().parse_args(["-i", "in.h5", "-o", "out.h5", "--devices", "2",
+                                      "--distributed", "--coordinator", "h:1",
+                                      "--num_processes", "2", "--process_id", "0"])
+    assert unported_flags(args) == []
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+@pytest.mark.parametrize("flag", ["devices", "distributed", "coordinator", "num_processes",
+                                  "process_id"])
+def test_mesh_flags_are_accepted_and_routed(flag, tmp_path, capsys, monkeypatch):
+    """Each mesh flag reaches its route: ``--devices 2`` an in-process mesh of two CPU
+    shards whose file equals `run_simulation(mesh=make_mesh(2, ...))`'s;
+    ``--distributed`` torchrun's environment and ``--coordinator`` (with
+    ``--num_processes 1 --process_id 0``) a process group of one rank, which the run ends;
+    ``--num_processes 2`` without ``--coordinator``, and without ``--process_id``, the
+    reference CLI's refusal."""
+    import torch.distributed as dist
+
+    from kwave_tpu_torch.driver import run_simulation
+    from kwave_tpu_torch.io.input_file import read_input_file
+    from kwave_tpu_torch.parallel import Mesh, make_mesh
+    from kwave_tpu_torch.params import args_to_run_config, build_parser
+
+    monkeypatch.setenv(cli.DEVICE_ENV, "cpu")
+    inp, out = str(tmp_path / "in.h5"), str(tmp_path / "out.h5")
+    base = ["-i", inp, "-o", out, "--p_raw", "--p_c", "--period", str(PERIOD)]
+    if flag == "num_processes":
         with pytest.raises(SystemExit):
-            cli.main(["-i", "in.h5", "-o", "out.h5", flag])
-        err = capsys.readouterr().err
-        assert "ROADMAP" in err and UNPORTED[dest] in err, err
+            cli.main(base + ["--num_processes", "2", "--process_id", "0"])
+        assert "--num_processes requires --coordinator" in capsys.readouterr().err
+        return
+    if flag == "process_id":
+        with pytest.raises(SystemExit):
+            cli.main(base + ["--num_processes", "2", "--coordinator", "localhost:1"])
+        assert "--process_id R" in capsys.readouterr().err
+        return
+    _write_input(inp, PERIOD + 3)
+    if flag == "devices":
+        args = build_parser().parse_args(base + ["--devices", "2"])
+        mesh = cli.mesh_from_args(build_parser(), args, torch.device("cpu"))
+        assert isinstance(mesh, Mesh) and mesh.size == 2 and mesh.devices == [
+            torch.device("cpu")] * 2
+        assert cli.main(base + ["--devices", "2"]) == 0
+        assert "2 shards (in one process) on cpu, cpu" in capsys.readouterr().out
+        ref = str(tmp_path / "ref.h5")
+        run_simulation(read_input_file(inp), args_to_run_config(args, dt=2e-8), ref,
+                       mesh=make_mesh(2, devices=["cpu", "cpu"]))
+        with h5py.File(out) as fa, h5py.File(ref) as fb:
+            for name in ("p", "p_c"):
+                np.testing.assert_array_equal(np.asarray(fa[name]), np.asarray(fb[name]))
+        return
+    port = str(_free_port())
+    if flag == "distributed":
+        for k, v in dict(RANK="0", WORLD_SIZE="1", MASTER_ADDR="localhost",
+                         MASTER_PORT=port).items():
+            monkeypatch.setenv(k, v)
+        extra = ["--distributed"]
+    else:
+        extra = ["--coordinator", f"localhost:{port}", "--num_processes", "1",
+                 "--process_id", "0"]
+    seen = []
+    monkeypatch.setattr(cli, "_run", lambda *a: seen.append(
+        (dist.is_initialized() and dist.get_world_size(), dist.get_backend())) or 0)
+    assert cli.main(base + extra) == 0
+    assert seen == [(1, "gloo")] and not dist.is_initialized()
 
 
 def test_cli_fft_knobs_are_accepted_and_high_precision_is_refused(tmp_path, capsys):

@@ -73,6 +73,20 @@ for name in BLOCKED + ("kwave_tpu.basis",):
         <= set(proc.stdout.split())
 
 
+def test_parallel_modules_import_without_jax_and_without_h5py():
+    """The mesh slice's modules are among those walked, and import with jax, kwave_tpu
+    and h5py blocked (torch.distributed is imported inside the functions that use it)."""
+    proc = _run(_SCRIPT.replace("print(len(names))", "print(' '.join(names))"))
+    assert proc.returncode == 0, proc.stderr
+    assert {"kwave_tpu_torch.parallel", "kwave_tpu_torch.parallel.mesh",
+            "kwave_tpu_torch.parallel.fft", "kwave_tpu_torch.parallel.comm",
+            "kwave_tpu_torch.parallel.distributed", "kwave_tpu_torch.parallel.sharded"} \
+        <= set(proc.stdout.split())
+    proc = _run(_SCRIPT.replace('BLOCKED = ("jax", "jaxlib", "kwave_tpu")',
+                                'BLOCKED = ("jax", "jaxlib", "kwave_tpu", "h5py")'))
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_checkpoint_and_postproc_import_without_jax_and_without_h5py():
     """The checkpoint-leg and post-processing modules are among those walked, and they
     (with every other module of the port, and chip_smoke) also import where h5py is
@@ -94,11 +108,9 @@ NOT_PORTED = {
                           "tests, not a part of the port",
     "native/build.py": "builds that C++ oracle",
     "ops/mxfft.py": "the matmul FFT exists because XLA's FFT is slow on a TPU; cuFFT does "
-                    "that job on the card",
-    "parallel/__init__.py": "queue 1 item 2 (parallel): the next slice",
-    "parallel/distributed.py": "queue 1 item 2 (parallel): the next slice",
-    "parallel/fft.py": "queue 1 item 2 (parallel): the next slice",
-    "parallel/mesh.py": "queue 1 item 2 (parallel): the next slice",
+                    "that job on the card, so the pencil FFT (parallel/fft.py, "
+                    "pencil_fft) takes no engine= and solver/step.py::FftOps has no "
+                    "shift_axis / batched hooks",
     "driver.py::make_window_fn": "the jitted window program (scan strategy, donation); the "
                                  "port's window is a host loop over eager ops",
     "encoder.py::USE_PALLAS": "the TPU kernel switch; the port picks the kernel by the "
@@ -110,8 +122,6 @@ NOT_PORTED = {
     "solver/operators.py::cvec": "packed (re, im) planes are a TPU layout; the port keeps "
                                  "complex64",
     "solver/operators.py::pack_complex": "the same packed layout",
-    "solver/step.py::FftOps": "the pencil FFT's hook: goes with parallel (queue 1 item 2)",
-    "solver/step.py::LOCAL_FFT": "the same hook's single-device default",
 }
 # A module of the JAX package whose names the port spreads over other modules.
 COUNTERPARTS = {"ops/encode_pallas.py": ("ops/encode_window.py", "ops/encode_series.py")}
