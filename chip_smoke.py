@@ -2,8 +2,8 @@
 """Smoke test of kwave_tpu_torch on one NVIDIA card: builds the CUDA kernels from the
 sources in this checkout, holds each against its plain PyTorch version and the NumPy
 oracle, then drives the port's paths: the simulation at 128^3 with 16384 index sensors,
-the codec round trip, the whole-record exact encode, the 256^3 simulation with the
-fused z stage, a run in checkpoint legs with the intensity and Q-term outputs, the
+the codec round trip, the whole-record exact encode, the 256^3 and 192^3 simulations
+with the fused z stage (K7's radix, mixed and dense kernels), a run in checkpoint legs with the intensity and Q-term outputs, the
 acceptance sweep's inputs on the card against the port on the CPU, and the mesh
 (`kwave_tpu_torch.parallel`) on the one card.
 
@@ -56,15 +56,21 @@ the final ok line):
    record of 13 windows (odd, no multiple of the 8 windows a thread) against the unsplit
    plain version and the window loop, and the same record cut at 3 windows a thread
    (chunks that start on odd and on even windows), bit for bit.
-8. fused z stage (path B): the K7 kernel at [256, 256, 129] with one op and with three
-   against a float64 FFT (2e-6 of the peak) and `apply_plain` (4e-6), timed beside the
-   unfused library route ``ifft(fft(s, 0) * op, 0)``, its launches counted as the radix
-   kernel's; small spectra (ny = 8) at nz = 64, 128, 512 (radix kernel) and nz = 100
-   (dense kernel) against the same two; then `run_simulation` at 256^3, 16384
-   sensors, ``--p_raw --p_c --40-bit_complex``, 2 windows and a 5-step tail, once with
-   compact operators alone and once with ``fuse_z``: p_raw of the two within 1e-4 of the
-   peak, each run's p_c bytes equal to the oracle's encoding of its own p_raw, ms/step
-   of both, and the device time by kernel of one profiled window of each.
+8. fused z stage (path B), K7's three kernels (radix: nz a power of two; mixed: other nz
+   with prime factors up to 7; dense: the rest): (a) K7 at the spectra of 256^3 (radix, and
+   mixed through a plan that names it), 192^3 (mixed and dense) and, with the operators
+   of a homogeneous medium of the same recipe, 384^3 (mixed and dense), 320^3 and 448^3
+   (mixed) and 176^3 (dense), one op and three, against a float64 FFT (2e-6 of the peak)
+   and `apply_plain` (4e-6), timed beside the plain version and the library route
+   ``ifft(fft(s, 0) * op, 0)``, its launches counted under the kernel that took them;
+   (b) small spectra (ny = 8) at nz = 64, 128, 512 (radix), 24, 60, 96, 100, 448, 1000,
+   1536 (mixed) and 110, 176 (dense) against the same two; (c) `run_simulation` at 256^3
+   and at 192^3, 16384 sensors, ``--p_raw --p_c --40-bit_complex``, 2 windows and a
+   5-step tail, once with compact operators alone and once with ``fuse_z``: p_raw of the
+   two within 1e-4 of the peak, each run's p_c bytes equal to the oracle's encoding of
+   its own p_raw, every K7 launch the radix (256) or the mixed (192) kernel's, ms/step of
+   both, and the device time by kernel of one profiled window of each; (d) the same pair
+   of runs on a 110 x 16 x 16 grid (2048 sensors), every K7 launch the dense kernel's.
 9. checkpoint legs and the intensity / Q-term outputs: `run_simulation` at phase 4's
    width (128^3, 16384 index sensors, period 16, H = 1) as ``--p_raw
    --u_non_staggered_raw --p_c --u_non_staggered_c --40-bit_complex --I_avg_c --Q_term_c
@@ -87,7 +93,7 @@ the final ok line):
    (tests/acceptance_cases.py: 2D, p sources in modes 0/1/2 with one series and many, u
    sources, a transducer, nonuniform maps, nonlinear and absorbing media, cuboids, tiny
    and one-window records, legs, ``--post``; and, the card's alone, nz = 100 with the
-   fused z stage, the dense K7 inside a real run) run by the port on the card and on
+   fused z stage, the mixed K7 inside a real run) run by the port on the card and on
    the CPU in this process: every dataset's name, layout and attributes equal, data
    within rel L2 1e-4, 40-bit rows decoded first (where they are above it, each
    coefficient within 2o steps of the word's absolute quantum, and the line names them),
@@ -97,7 +103,7 @@ the final ok line):
    against CPU likewise (the shifted velocity's Nyquist bin at the size users run);
    (c) `solver.simulate` on the card: the standing wave (2D, 3D, 3D fused: radix K7)
    against its closed form (5e-3) and acoustic reciprocity (1e-4 of the peak). Prints
-   the window kernels' and K7's launches (radix and dense).
+   the window kernels' and K7's launches (radix, mixed and dense).
 11. the mesh on the one card (in-process meshes list `cuda:0` S times): (a) phase 8's
    256^3 input with ``--p_raw --p_c --40-bit_complex --p_max_all --p_final``, 2 windows
    and a 5-step tail, after a 3-step warm-up of each layout, on one device and on 4, 2
@@ -908,6 +914,11 @@ SERIES_KERNELS = {
     "seriesf_no_overlap": (False, False, "kwave_tpu/ops/encode_pallas.py:554"),
 }
 ZFUSE_KERNELS = ("zfuse_1op", "zfuse_3op")  # LAUNCHES keys of ops.zfuse on path B
+MIXED_N = 192  # phase 8 (c): the mixed kernel's run (compact operators turn on here)
+# phase 8 (a): K7 alone at the spectra [n, n, n/2 + 1] of these grids, through these kernels
+K7_SPECTRA = ((384, ("mixed", "dense")), (320, ("mixed",)), (448, ("mixed",)),
+              (176, ("dense",)))
+DENSE_SHAPE = (110, 16, 16)  # phase 8 (d): (nz, ny, nx) of a run through the dense kernel
 
 
 def _bits_equal(a, b) -> bool:
@@ -1139,100 +1150,130 @@ def _zfuse_cases(ops, n_ops):
             ((zfuse.OpSpec("nabla", power=ops.alpha_power - 2.0),), (), False)]
 
 
-def zfuse_kernel_phase(ops):
-    """K7 at the 256^3 spectrum against plain and a float64 FFT, and its times."""
+def _kernel_plan(plan, kernel: str):
+    """``plan`` made to launch ``kernel`` (a plan field, so the same spectrum can be timed
+    through another kernel than the one `make_plan` chose)."""
+    import dataclasses
+
+    if kernel == plan.kernel:
+        return plan
+    if kernel == "dense":
+        return dataclasses.replace(plan, kernel="dense", passes=None, bins=None)
+    return dataclasses.replace(plan, kernel=kernel)
+
+
+def zfuse_kernel_phase(ops, n: int, kernels: tuple[str, ...]) -> dict:
+    """K7 at the spectrum [n, n, n/2 + 1] of ``ops``'s grid through each of ``kernels``,
+    with one op and with three (`_zfuse_cases`): held to `apply_plain` and a float64 FFT,
+    timed beside the plain version and the library route (both timed once per op count),
+    its launches counted under the kernel that took them. Returns the rows by name."""
     import torch
 
     from kwave_tpu_torch.ops import zfuse
 
-    n = BIG_N
-    plan = zfuse.make_plan((n, n, n), ops.k2_z, ops.k2_y, ops.k2_x, ops.c_ref_dt_2, "cuda")
+    base = zfuse.make_plan((n, n, n), ops.k2_z, ops.k2_y, ops.k2_x, ops.c_ref_dt_2, "cuda")
     rng = np.random.default_rng(11)
     s = torch.fft.rfft2(torch.from_numpy(
         rng.standard_normal((n, n, n)).astype(np.float32)).cuda()).contiguous()
     f64 = torch.fft.fft(s.to(torch.complex128), dim=0)
-    results = {}
-    zfuse.reset_launch_counts()
+    results, others = {}, {}
     for key in ZFUSE_KERNELS:
         n_ops = int(key[6])
-        worst, worst_plain, worst_ref = 0.0, 0.0, 0.0
-        for specs, dds, use_kappa in _zfuse_cases(ops, n_ops):
-            outs = zfuse.apply(plan, s, specs, dds, use_kappa=use_kappa)
-            torch.cuda.synchronize()
-            plain = zfuse.apply_plain(plan, s, specs, dds, use_kappa=use_kappa)
-            dd_i = 0
-            for spec, got, want in zip(specs, outs, plain):
-                dd = None
-                if spec.kind == "grad":
-                    dd, dd_i = dds[dd_i], dd_i + 1
-                op = zfuse.full_operator(plan, spec, dd, use_kappa)
-                ref = torch.fft.ifft(f64 * op, dim=0)
-                peak = float(ref.abs().max())
-                e_plain = float((got - want).abs().max())
-                e_ref = float((got - ref).abs().max())
-                _require(torch.isfinite(torch.view_as_real(got)).all().item()
-                         and e_plain <= ZFUSE_PLAIN_TOL * peak and e_ref <= ZFUSE_TOL * peak,
-                         f"{key} {spec}: off plain {e_plain / peak:.3g}, float64 "
-                         f"{e_ref / peak:.3g} of the peak")
-                worst = max(worst, e_plain)
-                worst_plain = max(worst_plain, e_plain / peak)
-                worst_ref = max(worst_ref, e_ref / peak)
-            del outs, plain
         specs, dds, use_kappa = _zfuse_cases(ops, n_ops)[0]
-        opfull = [zfuse.full_operator(plan, sp, dd, use_kappa).to(torch.complex64)
+        opfull = [zfuse.full_operator(base, sp, dd, use_kappa).to(torch.complex64)
                   for sp, dd in zip(specs, dds)]
 
         def library():
             f = torch.fft.fft(s, dim=0)
             return [torch.fft.ifft(f * op, dim=0) for op in opfull]
 
-        ms, wall = _time_per_call(
-            functools.partial(zfuse.apply, plan, s, specs, dds, use_kappa=use_kappa),
-            iters=10, warmup=2)
         plain_ms, _ = _time_per_call(
-            functools.partial(zfuse.apply_plain, plan, s, specs, dds, use_kappa=use_kappa),
+            functools.partial(zfuse.apply_plain, base, s, specs, dds, use_kappa=use_kappa),
             iters=5, warmup=1)
         lib_ms, _ = _time_per_call(library, iters=10, warmup=2)
+        del opfull
         # the spectrum and the vectors in, one spectrum per op out; operations as an FFT
         # would need them (5 n log2 n per transform and column, 8 per pointwise product),
         # since the bound is the least the card could take, not the dense DFT's count
-        cols = plan.ny * plan.nxr
+        cols = base.ny * base.nxr
         flops = (1 + n_ops) * 5.0 * n * np.log2(n) * cols + n_ops * 8.0 * n * cols
-        moved = (1 + n_ops) * _nbytes(s)
-        bound = _bound(_nbytes(s, plan.k2z, plan.k2y, plan.k2x, *dds)
+        bound = _bound(_nbytes(s, base.k2z, base.k2y, base.k2x, *dds)
                        + n_ops * _nbytes(s), flops)
-        results[key] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, **bound,
-                            library_ms=lib_ms)
-        print(f"[8 zfuse] {key}: spectrum [{n}, {plan.ny}, {plan.nxr}], off plain at "
-              f"most {worst_plain:.2e} and float64 {worst_ref:.2e} of the peak; device time "
-              f"per call: kernel "
-              f"{ms:.4f} ms (wall {wall:.4f} ms, {moved / ms / 1e6:.0f} GB/s of the "
-              f"spectra), plain {plain_ms:.4f} ms, library ifft(fft*op) {lib_ms:.4f} ms; "
-              f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']}", flush=True)
-        del opfull
-    _require(zfuse.KERNEL_LAUNCHES["radix"] == sum(zfuse.LAUNCHES.values()) > 0
-             and zfuse.KERNEL_LAUNCHES["dense"] == 0,
-             f"nz={n} did not go through the radix kernel: {zfuse.KERNEL_LAUNCHES}")
-    print(f"[8 zfuse] all {zfuse.KERNEL_LAUNCHES['radix']} launches at nz={n} counted as "
-          f"the radix kernel's, passes {plan.passes}", flush=True)
-    _zfuse_small_spectra()
+        others[n_ops] = dict(plain_ms=plain_ms, library_ms=lib_ms, **bound)
+    for kernel in kernels:
+        plan = _kernel_plan(base, kernel)
+        zfuse.reset_launch_counts()
+        for key in ZFUSE_KERNELS:
+            n_ops = int(key[6])
+            worst, worst_plain, worst_ref = 0.0, 0.0, 0.0
+            for specs, dds, use_kappa in _zfuse_cases(ops, n_ops):
+                outs = zfuse.apply(plan, s, specs, dds, use_kappa=use_kappa)
+                torch.cuda.synchronize()
+                plain = zfuse.apply_plain(base, s, specs, dds, use_kappa=use_kappa)
+                dd_i = 0
+                for spec, got, want in zip(specs, outs, plain):
+                    dd = None
+                    if spec.kind == "grad":
+                        dd, dd_i = dds[dd_i], dd_i + 1
+                    op = zfuse.full_operator(base, spec, dd, use_kappa)
+                    ref = torch.fft.ifft(f64 * op, dim=0)
+                    peak = float(ref.abs().max())
+                    e_plain = float((got - want).abs().max())
+                    e_ref = float((got - ref).abs().max())
+                    _require(torch.isfinite(torch.view_as_real(got)).all().item()
+                             and e_plain <= ZFUSE_PLAIN_TOL * peak
+                             and e_ref <= ZFUSE_TOL * peak,
+                             f"{kernel} K7 at nz={n}, {key} {spec}: off plain "
+                             f"{e_plain / peak:.3g}, float64 {e_ref / peak:.3g} of the peak")
+                    worst = max(worst, e_plain)
+                    worst_plain = max(worst_plain, e_plain / peak)
+                    worst_ref = max(worst_ref, e_ref / peak)
+                    del ref
+                del outs, plain
+            specs, dds, use_kappa = _zfuse_cases(ops, n_ops)[0]
+            slow = kernel == "dense" and n > MIXED_N  # the dense DFT at 384: ~10 ms a call
+            ms, wall = _time_per_call(
+                functools.partial(zfuse.apply, plan, s, specs, dds, use_kappa=use_kappa),
+                iters=2 if slow else 10, warmup=1 if slow else 2)
+            row = dict(max_abs_err=worst, ms=ms, **others[n_ops])
+            results[f"zfuse_{kernel}_{n_ops}op_nz{n}"] = dict(row, kernel=kernel, n_ops=n_ops)
+            moved = (1 + n_ops) * _nbytes(s)
+            print(f"[8 zfuse] {kernel} kernel (passes {plan.passes}), {key}: spectrum "
+                  f"[{n}, {base.ny}, {base.nxr}], off plain at most {worst_plain:.2e} and "
+                  f"float64 {worst_ref:.2e} of the peak; device time per call: kernel "
+                  f"{ms:.4f} ms (wall {wall:.4f} ms, {moved / ms / 1e6:.0f} GB/s of the "
+                  f"spectra), plain {row['plain_ms']:.4f} ms, library ifft(fft*op) "
+                  f"{row['library_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms by "
+                  f"{row['bound_by']}", flush=True)
+        want = {k: sum(zfuse.LAUNCHES.values()) if k == kernel else 0
+                for k in zfuse.KERNEL_LAUNCHES}
+        _require(zfuse.KERNEL_LAUNCHES == want and want[kernel] > 0,
+                 f"nz={n} did not go through the {kernel} kernel: {zfuse.KERNEL_LAUNCHES}")
     return results
 
 
+# phase 8 (b): small spectra [nz, 8, 129] and the kernel each must take
+SMALL_SPECTRA = ((64, "radix"), (128, "radix"), (512, "radix"), (24, "mixed"),
+                 (60, "mixed"), (96, "mixed"), (100, "mixed"), (448, "mixed"),
+                 (1000, "mixed"), (1536, "mixed"), (110, "dense"), (176, "dense"))
+
+
 def _zfuse_small_spectra():
-    """K7 on small spectra [nz, 8, 129]: nz = 64, 128, 512 through the radix kernel (two
-    passes of equal and of unequal radix, three passes), nz = 100 through the dense
-    kernel; one op and three, against a float64 FFT and `apply_plain`."""
+    """K7 on small spectra [nz, 8, 129] (`SMALL_SPECTRA`): the radix kernel at two passes
+    of equal and of unequal radix and at three; the mixed kernel at radices 3, 5 and 7,
+    three and four passes and the widest tile (1536); the dense kernel at a prime factor
+    of 11. One op and three, against a float64 FFT and `apply_plain`."""
     import torch
 
     from kwave_tpu_torch.ops import zfuse
 
     ny, nx = 8, 256
     rng = np.random.default_rng(13)
-    for nz, kernel in ((64, "radix"), (128, "radix"), (512, "radix"), (100, "dense")):
+    for nz, kernel in SMALL_SPECTRA:
         k2 = [(np.fft.fftfreq(m) * 2 * np.pi * m / 1e-2) ** 2 for m in (nz, ny)]
         k2.append((np.fft.rfftfreq(nx) * 2 * np.pi * nx / 1e-2) ** 2)
         plan = zfuse.make_plan((nz, ny, nx), *k2, 1e-5, "cuda")
+        _require(plan.kernel == kernel, f"nz={nz}: the plan names {plan.kernel}, not {kernel}")
         sizes = (nz, ny, plan.nxr)
         s = torch.from_numpy((rng.standard_normal(sizes) + 1j * rng.standard_normal(sizes))
                              .astype(np.complex64)).cuda()
@@ -1259,8 +1300,8 @@ def _zfuse_small_spectra():
                 _require(e_plain <= ZFUSE_PLAIN_TOL and e_ref <= ZFUSE_TOL,
                          f"nz={nz} {spec}: off plain {e_plain:.3g}, float64 {e_ref:.3g}")
                 worst = max(worst, e_plain, e_ref)
-        other = "dense" if kernel == "radix" else "radix"
-        _require(zfuse.KERNEL_LAUNCHES == {kernel: len(cases), other: 0},
+        want = {k: len(cases) if k == kernel else 0 for k in zfuse.KERNEL_LAUNCHES}
+        _require(zfuse.KERNEL_LAUNCHES == want,
                  f"nz={nz}: launches by kernel {zfuse.KERNEL_LAUNCHES}, expected {kernel}")
         print(f"[8 zfuse] spectrum [{nz}, {ny}, {plan.nxr}]: {len(cases)} launches of the "
               f"{kernel} kernel (passes {plan.passes}), one op and three, off plain and "
@@ -1308,69 +1349,130 @@ def _profile_window(data, flags, host_top=0, **run_fields):
     return total / 1e3 / O_SIZE, [(k, t / total) for k, t in top], setup_ms, host
 
 
-def fused_phase():
-    """Path B: the 256^3 runs, compact operators alone and with the fused z stage."""
-    import torch
+FUSED_FLAGS = ["--p_raw", "--p_c", "--40-bit_complex"]
+FUSED_WINDOWS, FUSED_TAIL = 2, 5
 
+
+def _fused_runs(data, kernel: str, profile: bool = True) -> dict:
+    """One input run with compact operators alone and with ``fuse_z``: every K7 launch of
+    the fused run counted as ``kernel``'s, p_raw of the two within `FUSED_RUN_TOL`, each
+    run's p_c bytes equal to the oracle's encoding of its own p_raw, ms/step of both and,
+    with ``profile``, one profiled window of each. Returns the fused run's launches by
+    LAUNCHES key."""
     from kwave_tpu_torch.ops import encode_window as ew
     from kwave_tpu_torch.ops import zfuse
-    from kwave_tpu_torch.solver import make_operators
 
-    flags = ["--p_raw", "--p_c", "--40-bit_complex"]
-    windows, tail = 2, 5
-    t0 = time.perf_counter()
-    data = _input(windows * O_SIZE + tail, BIG_N)
-    ops = make_operators(data.grid, data.medium, data.pml_size, data.pml_alpha,
-                         absorbing=True, device="cuda", compact=True)
-    print(f"[8 fused] {BIG_N}^3 input and compact operators built in "
-          f"{time.perf_counter() - t0:.1f} s (host float64)", flush=True)
-    kernels = zfuse_kernel_phase(ops)
-    del ops
-    torch.cuda.empty_cache()
-
+    g = data.grid
+    where = f"{g.nz} x {g.ny} x {g.nx}, {len(data.sensor_mask_index)} sensors"
     outs, ms_step, launches = {}, {}, {}
     for name, fields in (("compact", dict(compact_operators=True)),
                          ("fused", dict(compact_operators=True, fuse_z=True))):
         zfuse.reset_launch_counts()
         ew.reset_launch_counts()
-        out, secs, steps, _ = _run(flags, windows, tail, data=data, **fields)
+        out, secs, steps, _ = _run(FUSED_FLAGS, FUSED_WINDOWS, FUSED_TAIL, data=data, **fields)
         launches[name] = dict(zfuse.LAUNCHES)
         by_kernel = dict(zfuse.KERNEL_LAUNCHES)  # of the fused run, which comes last
-        _require(ew.LAUNCHES["w40_overlap"] == windows + 1,
+        _require(ew.LAUNCHES["w40_overlap"] == FUSED_WINDOWS + 1,
                  f"{name}: window-encode launches {ew.LAUNCHES}")
-        err, peak = _check_run(out, flags, steps)
+        err, peak = _check_run(out, FUSED_FLAGS, steps)
         outs[name] = out["p"].data[0]
         ms_step[name] = float(out.attrs["simulation_phase_execution_time"]) / steps * 1e3
-        print(f"[8 fused] {name}: {BIG_N}^3, {N_SENSORS} sensors, {steps} steps "
-              f"({windows} windows + {tail}-step tail), {ms_step[name]:.3f} ms/step in the "
-              f"simulation phase, {secs / steps * 1e3:.3f} ms/step end to end; zfuse "
-              f"launches {launches[name]} {by_kernel}; p_c == oracle(p_raw) bytes on "
+        print(f"[8 fused] {name}: {where}, {steps} steps ({FUSED_WINDOWS} windows + "
+              f"{FUSED_TAIL}-step tail), {ms_step[name]:.3f} ms/step in the simulation "
+              f"phase, {secs / steps * 1e3:.3f} ms/step end to end; zfuse launches "
+              f"{launches[name]} {by_kernel}; p_c == oracle(p_raw) bytes on "
               f"{ORACLE_SENSORS} sensors, decoded diff {err:.3g} (peak {peak:.3g})",
               flush=True)
-    steps = windows * O_SIZE + tail
+    steps = FUSED_WINDOWS * O_SIZE + FUSED_TAIL
     # the p0 peel is one three-op call; every later step one three-op and five one-op
     want = {"zfuse_1op": 5 * (steps - 1), "zfuse_2op": 0, "zfuse_3op": steps}
     _require(launches["fused"] == want and not any(launches["compact"].values()),
              f"zfuse launches {launches}, expected {want} and none without fuse_z")
-    _require(by_kernel == {"radix": sum(want.values()), "dense": 0},
-             f"the fused run's launches by kernel: {by_kernel}")
+    _require(by_kernel == {k: sum(want.values()) if k == kernel else 0 for k in by_kernel},
+             f"the fused run's launches by kernel: {by_kernel}, all expected as {kernel}")
     diff = float(np.abs(outs["fused"] - outs["compact"]).max())
     peak = float(np.abs(outs["compact"]).max())
     _require(np.isfinite(outs["fused"]).all() and diff <= FUSED_RUN_TOL * peak,
              f"p_raw of the fused run off the compact run by {diff / peak:.3g} of the peak")
-    print(f"[8 fused] p_raw fused vs compact-only: max diff {diff / peak:.2e} of the peak "
-          f"({peak:.4g}); ms/step fused {ms_step['fused']:.3f}, unfused "
-          f"{ms_step['compact']:.3f}", flush=True)
+    print(f"[8 fused] {where}: p_raw fused vs compact-only: max diff {diff / peak:.2e} of "
+          f"the peak ({peak:.4g}); ms/step fused {ms_step['fused']:.3f}, unfused "
+          f"{ms_step['compact']:.3f}; every K7 launch the {kernel} kernel's", flush=True)
     for name, fields in (("compact", dict(compact_operators=True)),
                          ("fused", dict(compact_operators=True, fuse_z=True))):
-        dev_ms, top, setup_ms, _ = _profile_window(data, flags, **fields)
-        print(f"[8 profile] {name}: {dev_ms:.3f} ms of kernel time per step over one "
-              f"window; " + "; ".join(f"{k} {share:.1%}" for k, share in top)
-              + f"; set-up uploads {setup_ms:.1f} ms, left out; idle share against the "
-              f"unprofiled run's {ms_step[name]:.3f} ms/step: "
-              f"{1 - dev_ms / ms_step[name]:.1%}", flush=True)
-    return kernels, launches["fused"]
+        if profile:
+            dev_ms, top, setup_ms, _ = _profile_window(data, FUSED_FLAGS, **fields)
+            print(f"[8 profile] {name}, {where}: {dev_ms:.3f} ms of kernel time per step "
+                  f"over one window; " + "; ".join(f"{k} {share:.1%}" for k, share in top)
+                  + f"; set-up uploads {setup_ms:.1f} ms, left out; idle share against "
+                  f"the unprofiled run's {ms_step[name]:.3f} ms/step: "
+                  f"{1 - dev_ms / ms_step[name]:.1%}", flush=True)
+    return launches["fused"]
 
+
+def _spectrum_ops(n: int):
+    """Compact operators of an n^3 grid of `_input`'s recipe in a homogeneous medium (c0
+    1600 m/s, the heterogeneous one's c_ref; rho0 1000 kg/m^3; the same absorption): the
+    per-axis vectors K7 reads, without n^3 media fields."""
+    from kwave_tpu_torch.solver import Grid, Medium, make_operators
+
+    dx = 1e-4
+    grid = Grid(nx=n, ny=n, nz=n, dx=dx, dy=dx, dz=dx, dt=0.3 * dx / 1600.0, nt=1)
+    medium = Medium(c0=1600.0, rho0=1000.0, alpha_coeff=0.75, alpha_power=1.5)
+    return make_operators(grid, medium, (10, 10, 10), (2.0, 2.0, 2.0), absorbing=True,
+                          device="cuda", compact=True)
+
+
+def _dense_input(nt: int):
+    """Phase 8 (d): `_input`'s recipe on a DENSE_SHAPE grid (nz with a prime factor of 11),
+    PML 10 along z and 4 across, 2048 index sensors, from seed 7."""
+    from kwave_tpu_torch.io.input_file import InputData
+    from kwave_tpu_torch.solver import Grid, Medium
+
+    dx = 1e-4
+    nz, ny, nx = DENSE_SHAPE
+    grid = Grid(nx=nx, ny=ny, nz=nz, dx=dx, dy=dx, dz=dx, dt=0.3 * dx / 1600.0, nt=nt)
+    rng = np.random.default_rng(7)
+    medium = Medium(c0=(1500.0 + 100.0 * rng.random(grid.shape)).astype(np.float32),
+                    rho0=(1000.0 + 50.0 * rng.random(grid.shape)).astype(np.float32),
+                    alpha_coeff=0.75, alpha_power=1.5)
+    mask = np.sort(rng.choice(grid.n_elements, 2048, replace=False)).astype(np.int64)
+    p0 = np.zeros(grid.shape, np.float32)
+    p0[nz // 2, ny // 2, nx // 2] = 1e5
+    return InputData(grid=grid, medium=medium, pml_size=(4, 4, 10),
+                     pml_alpha=(2.0, 2.0, 2.0), absorbing=True, sensor_mask_index=mask,
+                     p0=p0)
+
+
+def fused_phase():
+    """Path B, the fused z stage: (a) K7 timed at the spectra of 256^3 (the radix kernel,
+    and the mixed one at the same nz), 192^3 (mixed and dense), 384^3 (mixed and dense),
+    320^3, 448^3 (mixed) and 176^3 (dense); (b) the small spectra; (c) the 256^3 and 192^3
+    runs unfused and fused; (d) a run through the dense kernel. Returns the K7 rows by
+    name (each with its kernel and op count) and the launches of each kernel's run."""
+    import torch
+
+    from kwave_tpu_torch.solver import make_operators
+
+    steps = FUSED_WINDOWS * O_SIZE + FUSED_TAIL
+    rows, launches = {}, {}
+    for n, kernels in ((BIG_N, ("radix", "mixed")), (MIXED_N, ("mixed", "dense"))):
+        t0 = time.perf_counter()
+        data = _input(steps, n)
+        ops = make_operators(data.grid, data.medium, data.pml_size, data.pml_alpha,
+                             absorbing=True, device="cuda", compact=True)
+        print(f"[8 fused] {n}^3 input and compact operators built in "
+              f"{time.perf_counter() - t0:.1f} s (host float64)", flush=True)
+        rows.update(zfuse_kernel_phase(ops, n, kernels))
+        del ops
+        torch.cuda.empty_cache()
+        launches[kernels[0]] = _fused_runs(data, kernels[0])
+        del data
+    for n, kernels in K7_SPECTRA:
+        rows.update(zfuse_kernel_phase(_spectrum_ops(n), n, kernels))
+        torch.cuda.empty_cache()
+    _zfuse_small_spectra()
+    launches["dense"] = _fused_runs(_dense_input(steps), "dense", profile=False)
+    return rows, launches
 
 
 def _input(nt: int, n: int = GRID_N):
@@ -1801,7 +1903,7 @@ def acceptance_phase(smi):
     launches = {**ew.LAUNCHES, **zfuse.LAUNCHES}
     k7 = dict(zfuse.KERNEL_LAUNCHES)
     card_s = time.perf_counter() - t0
-    _require(k7["dense"] > 0, f"no run launched the dense z-stage kernel: {k7}")
+    _require(k7["mixed"] > 0, f"no run launched the mixed z-stage kernel: {k7}")
     worst, fed, faults, floors = {}, 0, [], []
     for c in ac.CASES:
         try:
@@ -1822,7 +1924,7 @@ def acceptance_phase(smi):
           f"CPU's series encoded on the card == the CPU's bytes in {fed} runs; card runs "
           f"{card_s:.1f} s; window kernels launched "
           f"{ {k: v for k, v in launches.items() if k in ew.LAUNCHES and v} }, "
-          f"K7 {k7} (dense: {ac.case('fused_dense_nz100').name})", flush=True)
+          f"K7 {k7} (mixed: {ac.case('fused_dense_nz100').name})", flush=True)
 
     steps = FULL_WINDOWS * O_SIZE + FULL_TAIL
     data = _input(steps)
@@ -2456,9 +2558,11 @@ def main(argv: list[str]) -> int:
     rows += [dict(name=key, route="cuda", source="kwave_tpu_torch/csrc/encode_series.cu",
                   replaces=replaces, launches=series_launches[key], **series[key])
              for key, (_, _, replaces) in SERIES_KERNELS.items()]
-    rows += [dict(name=key, route="cuda", source="kwave_tpu_torch/csrc/zfuse.cu",
-                  replaces="kwave_tpu/ops/zfuse.py:113", launches=fused_launches[key],
-                  **fused[key]) for key in ZFUSE_KERNELS]
+    for key, row in fused.items():  # launches: the run of the row's kernel (phase 8)
+        kernel, n_ops = row.pop("kernel"), row.pop("n_ops")
+        rows.append(dict(name=key, route="cuda", source="kwave_tpu_torch/csrc/zfuse.cu",
+                         replaces="kwave_tpu/ops/zfuse.py:113",
+                         launches=fused_launches[kernel][f"zfuse_{n_ops}op"], **row))
     for r in rows:  # launches on phase 9's and phase 10's paths, beside the main path's
         if r["name"] in legs_launches:
             r["launches_legs_path"] = legs_launches[r["name"]]

@@ -88,8 +88,9 @@ class RunConfig:
     # None = auto: grids of 192^3 points and more.
     compact_operators: Optional[bool] = None
     # Fused z stage (ops.zfuse): every spectral multiply of the step as x/y transforms
-    # around one kernel that does z-DFT, operator and z-IDFT. None = off: the kernel's
-    # dense DFT is slower than the unfused FFT route. Needs 3D compact operators.
+    # around one kernel that does z-DFT, operator and z-IDFT (an FFT in shared memory for
+    # nz with prime factors up to 7, a dense DFT for the rest). None = off, as in
+    # kwave_tpu, until a benchmark cell shows where it pays. Needs 3D compact operators.
     fuse_z: Optional[bool] = None
 
 

@@ -58,6 +58,9 @@ SIGNATURES = {
     "kw_zfuse": [_P] * 11 + [_I] * 10 + [ctypes.c_float] * 4 + [_I] + [_P],
     # the same, then the radices of the three passes (1 for a pass that is not taken)
     "kw_zfuse_radix": [_P] * 11 + [_I] * 10 + [ctypes.c_float] * 4 + [_I] * 4 + [_P],
+    # spectrum, roots, bins, k2z, k2y, k2x, 3 dd vectors, 3 outputs; the same ints and
+    # floats; use_kappa, the number of passes and seven radices (1 past the last pass)
+    "kw_zfuse_mixed": [_P] * 12 + [_I] * 10 + [ctypes.c_float] * 4 + [_I] * 9 + [_P],
 }
 
 

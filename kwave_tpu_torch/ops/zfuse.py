@@ -13,19 +13,26 @@ bin order, after the x/y transforms):
 - "nabla" ops multiply by ``|k|^power`` with 0 at ``k == 0`` (the absorbing-term factors);
 - ``out = IDFT_z . G`` (with the 1/nz). Up to three ops share the one forward transform.
 
-Two kernels, both CUDA C++ for sm_90a in ``kwave_tpu_torch/csrc/zfuse.cu``; `apply`
-chooses by ``nz`` (`kernel_for`), and either launches or raises:
+Three kernels, all CUDA C++ for sm_90a in ``kwave_tpu_torch/csrc/zfuse.cu``. `make_plan`
+chooses one by ``nz`` (`kernel_for`) and records it in the plan; `apply` launches the
+kernel its plan names, or raises:
 
-- "radix", for ``nz`` a power of two from 8 to 1024: a radix FFT in shared memory.
-  `radix_passes` gives its passes (radix 16, 8 or 4; 256 = 16 x 16). Forward as decimation
-  in frequency, which leaves ``F`` in digit-reversed order (`digit_reversed_bins`); the
-  operator is looked up at the bin each position holds; inverse as decimation in time,
-  which takes that order and gives natural order. It is bound by the bytes it moves.
-  `apply_radix_plain` is the same passes on tensors.
-- "dense", for every other ``nz`` up to `MAX_NZ`: the dense DFT in fp32 FMAs, the ``nz``
-  roots of unity indexed by ``(k*z) mod nz``; bound by operations (``16*nz^2`` flop per
-  column and op pair against 16 B moved). `apply_plain` is the same sum as a matrix
-  product.
+- "radix", for ``nz`` a power of two from 8 to 1024: a radix FFT in shared memory, one
+  instantiation per pass plan. `radix_passes` gives its passes (radix 16, 8 or 4; 256 =
+  16 x 16). Forward as decimation in frequency, which leaves ``F`` in digit-reversed order
+  (`digit_reversed_bins`); the operator is looked up at the bin each position holds;
+  inverse as decimation in time, which takes that order and gives natural order. It is
+  bound by the bytes it moves.
+- "mixed", for every other ``nz`` from 8 to `MIXED_MAX_NZ` whose prime factors are 2, 3, 5
+  and 7 (192, 320, 384, 448, ...): the same FFT with the pass plan as a runtime argument,
+  radices from `RADICES` (the power-of-two part in passes of up to 16, each odd factor a
+  pass of its own), and the bin table (`ZFusePlan.bins`) read from device memory.
+- "dense", for every other ``nz`` up to `MAX_NZ` (below 8, a prime factor of 11 or more):
+  the dense DFT in fp32 FMAs, the ``nz`` roots of unity indexed by ``(k*z) mod nz``; bound
+  by operations (``16*nz^2`` flop per column and op pair against 16 B moved).
+
+`apply_radix_plain` is the radix and mixed kernels' passes on tensors; `apply_plain` is
+the dense sum as a matrix product.
 
 `apply` takes `apply_plain` only for tensors on the CPU. Spectra and ``dd`` vectors are
 complex64 tensors (the JAX package's re/im planes and ``[n, 128]`` / ``[8, n]`` tilings are
@@ -47,13 +54,21 @@ import torch
 LAUNCHES = {"zfuse_1op": 0, "zfuse_2op": 0, "zfuse_3op": 0}
 
 # The same launches by the kernel that took them.
-KERNEL_LAUNCHES = {"radix": 0, "dense": 0}
+KERNEL_LAUNCHES = {"radix": 0, "mixed": 0, "dense": 0}
 
 MAX_OPS = 3
 # dense: two tiles of nz x 8 columns (re/im planes) and the roots must fit a block's 227 KB
 MAX_NZ = (227 * 1024) // (8 * 4 * 4 + 8)
 # radix: a power of two in this range (at 1024 two tiles of nz x 8 columns are 128 KB)
 RADIX_MIN_NZ, RADIX_MAX_NZ = 8, 1024
+# mixed: the butterflies of csrc/zfuse.cu, and the passes a plan may have (2 * 3^6 = 1458
+# takes seven)
+RADICES = (16, 8, 4, 2, 3, 5, 7)
+MAX_PASSES = 7
+# mixed: two tiles of nz x 8 columns of complex64 and the roots fit a block's 227 KB (the
+# bin table is read from device memory, as k2z is, so that 1701 = 3^5 x 7 fits too)
+MIXED_MAX_NZ = (227 * 1024) // (2 * 8 * 8 + 8)
+KERNELS = ("radix", "mixed", "dense")
 
 
 def reset_launch_counts() -> None:
@@ -62,24 +77,42 @@ def reset_launch_counts() -> None:
             counts[k] = 0
 
 
-def radix_passes(nz: int) -> tuple[int, ...] | None:
-    """The radices of the radix kernel's forward passes, first pass first, or None where
-    ``nz`` goes to the dense kernel. As few passes as radix <= 16 allows, the widest first."""
-    if nz & (nz - 1) or not RADIX_MIN_NZ <= nz <= RADIX_MAX_NZ:
-        return None
-    bits = nz.bit_length() - 1
-    n_passes = -(-bits // 4)
+def _power_of_two_passes(bits: int) -> list[int]:
+    """2^bits in as few passes of radix <= 16 as there can be, the widest first."""
     passes = []
-    for left in range(n_passes, 0, -1):
+    for left in range(-(-bits // 4), 0, -1):
         b = -(-bits // left)
         passes.append(1 << b)
         bits -= b
-    return tuple(passes)
+    return passes
+
+
+def radix_passes(nz: int) -> tuple[int, ...] | None:
+    """The radices of the FFT kernels' forward passes, first pass first, or None where
+    ``nz`` goes to the dense kernel: the power-of-two part of ``nz`` in as few passes of
+    radix <= 16 as there can be, the widest first, then each factor 3, 5 and 7 a pass of
+    its own, for ``nz`` from 8 to `MIXED_MAX_NZ`."""
+    if not RADIX_MIN_NZ <= nz <= MIXED_MAX_NZ:
+        return None
+    bits, rest = 0, nz
+    while rest % 2 == 0:
+        rest //= 2
+        bits += 1
+    odd = []
+    for f in (3, 5, 7):
+        while rest % f == 0:
+            rest //= f
+            odd.append(f)
+    passes = tuple(_power_of_two_passes(bits) + odd)
+    return passes if rest == 1 and len(passes) <= MAX_PASSES else None
 
 
 def kernel_for(nz: int) -> str:
-    """Which of the two kernels a spectrum of ``nz`` bins takes: "radix" or "dense"."""
-    return "radix" if radix_passes(nz) else "dense"
+    """Which of the three kernels a spectrum of ``nz`` bins takes: "radix", "mixed" or
+    "dense"."""
+    if radix_passes(nz) is None:
+        return "dense"
+    return "radix" if not nz & (nz - 1) and nz <= RADIX_MAX_NZ else "mixed"
 
 
 def digit_reversed_bins(passes: tuple[int, ...]) -> np.ndarray:
@@ -117,7 +150,9 @@ class ZFusePlan:
     k2z: torch.Tensor  # [nz] float32
     k2y: torch.Tensor  # [ny]
     k2x: torch.Tensor  # [nxr]
-    passes: tuple[int, ...] | None = None  # the radix kernel's; None: the dense kernel
+    kernel: str = "dense"  # the kernel `apply` launches: "radix", "mixed" or "dense"
+    passes: tuple[int, ...] | None = None  # the FFT kernels' (`radix_passes`); None: dense
+    bins: torch.Tensor | None = None  # [nz] int16: the bin each position holds (passes)
 
 
 def make_plan(shape: tuple[int, int, int], k2z, k2y, k2x, c_ref_dt_2: float,
@@ -136,10 +171,14 @@ def make_plan(shape: tuple[int, int, int], k2z, k2y, k2x, c_ref_dt_2: float,
     if not 1 <= nz <= MAX_NZ:
         raise ValueError(f"nz must be in 1..{MAX_NZ}; got {nz}")
     roots = np.exp(-2j * np.pi * np.arange(nz) / nz).astype(np.complex64)
+    passes = radix_passes(nz)
+    bins = None
+    if passes:
+        bins = torch.from_numpy(digit_reversed_bins(passes).astype(np.int16)).to(device)
     return ZFusePlan(nz=nz, ny=ny, nxr=nx // 2 + 1, c_ref_dt_2=float(c_ref_dt_2),
                      roots=torch.from_numpy(roots).to(device),
                      k2z=vec(k2z, nz), k2y=vec(k2y, ny), k2x=vec(k2x, nx // 2 + 1),
-                     passes=radix_passes(nz))
+                     kernel=kernel_for(nz), passes=passes, bins=bins)
 
 
 def full_operator(plan: ZFusePlan, op: OpSpec, dd, use_kappa: bool) -> torch.Tensor:
@@ -188,7 +227,7 @@ def _small_dft(r: int, inverse: bool, device) -> torch.Tensor:
 
 def apply_radix_plain(plan: ZFusePlan, s: torch.Tensor, ops: tuple[OpSpec, ...],
                       dds: tuple = (), use_kappa: bool = True) -> list[torch.Tensor]:
-    """`apply` as the radix kernel computes it, on tensors: the forward passes of
+    """`apply` as the radix and mixed kernels compute it, on tensors: the forward passes of
     ``plan.passes`` (a pass of radix R over sub-transforms of length L takes positions
     ``blk*L + j + m*(L/R)`` and leaves output q, times ``w_L^(q*j)``, at
     ``blk*L + j + q*(L/R)``), the operator at the bin each position then holds, and the
@@ -207,7 +246,7 @@ def apply_radix_plain(plan: ZFusePlan, s: torch.Tensor, ops: tuple[OpSpec, ...],
         v = torch.einsum("qm,bmjyx->bqjyx", _small_dft(r, False, s.device), v)
         f = (v * twiddle(length, r)[None, :, :, None, None]).reshape(nz, *tail)
         length //= r
-    bins = torch.from_numpy(digit_reversed_bins(plan.passes)).to(s.device)
+    bins = plan.bins.long()  # the table the kernels read
     outs, dd_i = [], 0
     for op in ops:
         dd = None
@@ -246,7 +285,14 @@ def _check(plan: ZFusePlan, s, ops, dds) -> None:
         if dd.dtype != torch.complex64 or tuple(dd.shape) != (n,):
             raise ValueError(f"the dd vector of axis {op.axis} must be complex64 [{n}]; got "
                              f"{dd.dtype} {tuple(dd.shape)}")
-    for t in (s, plan.roots, plan.k2z, *dds):
+    if plan.kernel not in KERNELS or (plan.kernel != "dense" and (
+            plan.bins is None or tuple(plan.bins.shape) != (plan.nz,)
+            or int(np.prod(plan.passes or ())) != plan.nz)):
+        raise ValueError(f"the plan's kernel must be one of {KERNELS}, and an FFT kernel "
+                         f"needs passes whose product is nz={plan.nz} and its bin table; "
+                         f"got {plan.kernel!r}, passes {plan.passes}")
+    fft = (plan.bins,) if plan.kernel != "dense" else ()
+    for t in (s, plan.roots, plan.k2z, *fft, *dds):
         if t.device != s.device:
             raise ValueError(f"all tensors must be on {s.device}; got {t.device}")
         if not t.is_contiguous():
@@ -260,10 +306,10 @@ def apply(plan: ZFusePlan, s: torch.Tensor, ops: tuple[OpSpec, ...], dds: tuple 
     """Run the fused z stage on the spectrum ``s[nz, ny, nxr]`` (complex64): returns one
     complex64 spectrum per op. ``dds``: one complex64 vector per "grad" op, in op order.
 
-    On a CUDA tensor this launches one of two hand-written kernels, by ``nz``: the radix
-    FFT where `radix_passes` gives a plan (a power of two, 8..1024), the dense DFT for every
-    other ``nz``. `KERNEL_LAUNCHES` counts which. Neither falls back to the other or to a
-    plain version."""
+    On a CUDA tensor this launches the hand-written kernel the plan names
+    (``plan.kernel``: "radix", "mixed" or "dense", chosen by `make_plan`), and
+    `KERNEL_LAUNCHES` counts which. No kernel falls back to another or to a plain
+    version."""
     ops, dds = tuple(ops), tuple(dds)
     _check(plan, s, ops, dds)
     if s.device.type == "cpu":
@@ -275,27 +321,30 @@ def apply(plan: ZFusePlan, s: torch.Tensor, ops: tuple[OpSpec, ...], dds: tuple 
     dd_iter = iter(dds)
     dd_ptrs = [next(dd_iter).data_ptr() if op.kind == "grad" else None for op in ops]
     pad = MAX_OPS - len(ops)
-    kernel = "radix" if plan.passes else "dense"
-    fn, radices = lib.kw_zfuse, ()
-    if plan.passes:
-        fn, radices = lib.kw_zfuse_radix, plan.passes + (1,) * (3 - len(plan.passes))
-    with torch.cuda.device(s.device):
-        err = fn(
-            s.data_ptr(), plan.roots.data_ptr(), plan.k2z.data_ptr(), plan.k2y.data_ptr(),
-            plan.k2x.data_ptr(), *dd_ptrs, *[None] * pad,
-            *(o.data_ptr() for o in outs), *[None] * pad,
+    args = (*dd_ptrs, *[None] * pad, *(o.data_ptr() for o in outs), *[None] * pad,
             plan.nz, plan.ny, plan.nxr, len(ops),
             *(0 if op.kind == "grad" else 1 for op in ops), *[0] * pad,
             *(op.axis for op in ops), *[0] * pad,
             *(float(op.power) for op in ops), *[0.0] * pad,
-            plan.c_ref_dt_2, int(bool(use_kappa)), *radices,
-            torch.cuda.current_stream().cuda_stream,
-        )
+            plan.c_ref_dt_2, int(bool(use_kappa)))
+    fields = (plan.k2z.data_ptr(), plan.k2y.data_ptr(), plan.k2x.data_ptr())
+    with torch.cuda.device(s.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if plan.kernel == "radix":
+            err = lib.kw_zfuse_radix(s.data_ptr(), plan.roots.data_ptr(), *fields, *args,
+                                     *plan.passes, *(1,) * (3 - len(plan.passes)), stream)
+        elif plan.kernel == "mixed":
+            err = lib.kw_zfuse_mixed(s.data_ptr(), plan.roots.data_ptr(),
+                                     plan.bins.data_ptr(), *fields, *args,
+                                     len(plan.passes), *plan.passes,
+                                     *(1,) * (MAX_PASSES - len(plan.passes)), stream)
+        else:
+            err = lib.kw_zfuse(s.data_ptr(), plan.roots.data_ptr(), *fields, *args, stream)
     if err != 0:
-        raise RuntimeError(f"zfuse.apply ({kernel} kernel): CUDA launch failed with "
+        raise RuntimeError(f"zfuse.apply ({plan.kernel} kernel): CUDA launch failed with "
                            f"cudaError {err}")
     LAUNCHES[f"zfuse_{len(ops)}op"] += 1
-    KERNEL_LAUNCHES[kernel] += 1
+    KERNEL_LAUNCHES[plan.kernel] += 1
     return outs
 
 

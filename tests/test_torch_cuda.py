@@ -484,13 +484,14 @@ def test_encode_series_exact_on_the_card_matches_oracle(mode40, overlap):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nz,ny,nx", [(32, 16, 256), (100, 12, 260), (256, 8, 256)])
+@pytest.mark.parametrize("nz,ny,nx", [(32, 16, 256), (100, 12, 260), (256, 8, 256),
+                                      (176, 12, 260)])
 @pytest.mark.parametrize("n_ops", [1, 3])
 def test_zfuse_kernel_matches_plain_and_float64(nz, ny, nx, n_ops):
-    """K7 at nz = 32, 100 (not a power of two: the dense kernel) and 256, nxr = 129 and
-    131, one op and three: within 2e-6 of the peak of `apply_plain` and of a float64
-    ``ifft(fft(s, 0) * op, 0)`` (measured on an H100 at most 1.3e-6 and 6.5e-7), grad with
-    and without kappa, and nabla."""
+    """K7 at nz = 32 and 256 (the radix kernel), 100 (the mixed kernel) and 176 (a prime
+    factor of 11: the dense kernel), nxr = 129 and 131, one op and three: within 2e-6 of
+    the peak of `apply_plain` and of a float64 ``ifft(fft(s, 0) * op, 0)`` (measured on an
+    H100 at most 1.3e-6 and 6.5e-7), grad with and without kappa, and nabla."""
     from kwave_tpu_torch.ops import zfuse
 
     dev = require_cuda()
@@ -570,8 +571,7 @@ def test_zfuse_radix_kernel(nz, nx):
         before = dict(zfuse.KERNEL_LAUNCHES)
         outs = zfuse.apply(plan, s, specs, dd, use_kappa=use_kappa)
         torch.cuda.synchronize()
-        assert zfuse.KERNEL_LAUNCHES == {"radix": before["radix"] + 1,
-                                         "dense": before["dense"]}
+        assert zfuse.KERNEL_LAUNCHES == {**before, "radix": before["radix"] + 1}
         dense = zfuse.apply_plain(plan, s, specs, dd, use_kappa=use_kappa)
         radix = zfuse.apply_radix_plain(plan, s, specs, dd, use_kappa=use_kappa)
         dd_iter = iter(dd)
@@ -586,17 +586,67 @@ def test_zfuse_radix_kernel(nz, nx):
 
 
 @pytest.mark.cuda
-def test_zfuse_dense_kernel_takes_other_nz():
-    """nz = 100 and nz = 4 go to the dense kernel and count as its launches."""
+@pytest.mark.parametrize("nx", [256, 260])
+@pytest.mark.parametrize("nz", [12, 24, 60, 96, 100, 192, 448, 1000, 1536])
+def test_zfuse_mixed_kernel(nz, nx):
+    """The mixed-radix kernel at plans of two to four passes with radices 3, 5 and 7 and
+    every tile width (32, 16, 8), nxr = 129 and 131 (a ragged last tile), one op, two and
+    three, grad on each axis with and without kappa, and a nabla with its pole: within 2e-6
+    of the peak of a float64 FFT, 4e-6 of `apply_radix_plain` and of `apply_plain`; every
+    launch counted as the mixed kernel's."""
     from kwave_tpu_torch.ops import zfuse
 
     dev = require_cuda()
-    for nz in (100, 4):
+    ny, nxr = 8, nx // 2 + 1
+    rng = np.random.default_rng(nz + nx)
+    sizes = (nz, ny, nxr)
+    s = torch.from_numpy((rng.standard_normal(sizes) + 1j * rng.standard_normal(sizes))
+                         .astype(np.complex64)).to(dev)
+    k2 = [(np.fft.fftfreq(n) * 2 * np.pi * n / 1e-2) ** 2 for n in (nz, ny)]
+    k2.append((np.fft.rfftfreq(nx) * 2 * np.pi * nx / 1e-2) ** 2)
+    plan = zfuse.make_plan((nz, ny, nx), *k2, 1e-5, dev)
+    assert plan.kernel == zfuse.kernel_for(nz) == "mixed"
+    dds = [torch.from_numpy((rng.standard_normal(m) + 1j * rng.standard_normal(m))
+                            .astype(np.complex64)).to(dev) for m in sizes]
+    f64 = torch.fft.fft(s.to(torch.complex128), dim=0)
+    grad = [zfuse.OpSpec("grad", axis=a) for a in range(3)]
+    cases = [(tuple(grad[::-1]), dds[::-1], True),
+             ((grad[0],), dds[:1], False), ((grad[0],), dds[:1], True),
+             ((grad[1], zfuse.OpSpec("nabla", power=0.5)), dds[1:2], True),
+             ((grad[1],), dds[1:2], False), ((grad[2],), dds[2:], True),
+             ((grad[2],), dds[2:], False),
+             ((zfuse.OpSpec("nabla", power=-0.5),), (), False)]
+    for specs, dd, use_kappa in cases:
+        before = dict(zfuse.KERNEL_LAUNCHES)
+        outs = zfuse.apply(plan, s, specs, dd, use_kappa=use_kappa)
+        torch.cuda.synchronize()
+        assert zfuse.KERNEL_LAUNCHES == {**before, "mixed": before["mixed"] + 1}
+        dense = zfuse.apply_plain(plan, s, specs, dd, use_kappa=use_kappa)
+        mixed = zfuse.apply_radix_plain(plan, s, specs, dd, use_kappa=use_kappa)
+        dd_iter = iter(dd)
+        for spec, got, want_d, want_m in zip(specs, outs, dense, mixed):
+            op = zfuse.full_operator(plan, spec, next(dd_iter) if spec.kind == "grad"
+                                     else None, use_kappa)
+            ref = torch.fft.ifft(f64 * op, dim=0)
+            peak = float(ref.abs().max())
+            assert float((got - ref).abs().max()) <= 2e-6 * peak
+            assert float((got - want_d).abs().max()) <= 4e-6 * peak
+            assert float((got - want_m).abs().max()) <= 4e-6 * peak
+
+
+@pytest.mark.cuda
+def test_zfuse_dense_kernel_takes_other_nz():
+    """nz = 176 and 110 (a prime factor of 11) and nz = 4 go to the dense kernel and count
+    as its launches."""
+    from kwave_tpu_torch.ops import zfuse
+
+    dev = require_cuda()
+    for nz in (176, 110, 4):
         ny, nx = 4, 16
         k2 = [(np.fft.fftfreq(m) * 2 * np.pi * m / 1e-2) ** 2 for m in (nz, ny)]
         k2.append((np.fft.rfftfreq(nx) * 2 * np.pi * nx / 1e-2) ** 2)
         plan = zfuse.make_plan((nz, ny, nx), *k2, 1e-5, dev)
-        assert plan.passes is None
+        assert plan.passes is None and plan.kernel == "dense"
         rng = np.random.default_rng(nz)
         sizes = (nz, ny, plan.nxr)
         s = torch.from_numpy((rng.standard_normal(sizes) + 1j * rng.standard_normal(sizes))
@@ -605,8 +655,7 @@ def test_zfuse_dense_kernel_takes_other_nz():
         specs = (zfuse.OpSpec("nabla", power=0.5),)
         got = zfuse.apply(plan, s, specs, ())[0]
         torch.cuda.synchronize()
-        assert zfuse.KERNEL_LAUNCHES == {"radix": before["radix"],
-                                         "dense": before["dense"] + 1}
+        assert zfuse.KERNEL_LAUNCHES == {**before, "dense": before["dense"] + 1}
         want = zfuse.apply_plain(plan, s, specs, ())[0]
         assert float((got - want).abs().max()) <= 2e-6 * float(want.abs().max())
 

@@ -126,6 +126,7 @@ def test_grad_without_kappa_and_nz_not_a_power_of_two():
 
 
 RADIX_NZ = [8, 16, 32, 64, 128, 256, 512]
+MIXED_NZ = [12, 24, 60, 100, 192, 448]  # radices 3, 5 and 7 among the passes
 PLAIN_TOL = 4e-6  # radix passes against the dense sum: the sum of their two bounds
 
 
@@ -152,11 +153,11 @@ def _radix_case(nz, n_ops, kind, use_kappa, seed):
 @pytest.mark.parametrize("use_kappa", [True, False])
 @pytest.mark.parametrize("n_ops,kind", [(1, "grad0"), (1, "grad1"), (1, "grad2"),
                                         (1, "nabla"), (3, "grad"), (3, "nabla")])
-@pytest.mark.parametrize("nz", RADIX_NZ)
+@pytest.mark.parametrize("nz", RADIX_NZ + MIXED_NZ)
 def test_radix_plain_matches_float64_and_dense_plain(nz, n_ops, kind, use_kappa):
-    """The radix kernel's decomposition on tensors: its passes, the operator looked up at
-    the digit-reversed bin, the inverse passes, the 1/nz, kappa at arg == 0 and the nabla at
-    k == 0 (bin 0 of column 0 is in every case)."""
+    """The radix and mixed kernels' decomposition on tensors: their passes, the operator
+    looked up at the digit-reversed bin, the inverse passes, the 1/nz, kappa at arg == 0 and
+    the nabla at k == 0 (bin 0 of column 0 is in every case)."""
     s, plan, _, specs, dds, ops64 = _radix_case(nz, n_ops, kind, use_kappa, seed=nz + n_ops)
     assert plan.passes == zfuse.radix_passes(nz) and int(np.prod(plan.passes)) == nz
     ddc = tuple(torch.from_numpy(d[:, 0] + 1j * d[:, 1]) for d in dds)
@@ -198,18 +199,78 @@ def test_radix_pass_plans_and_digit_reversal(nz, passes):
     np.testing.assert_array_equal(bins, q0 + r[0] * (q1 + r[1] * q2))
 
 
-@pytest.mark.parametrize("nz", [1, 2, 4, 25, 100, 192, 1000, 1536])
+@pytest.mark.parametrize("nz", [24, 60, 96])
+def test_mixed_plain_matches_the_jax_kernel(nz):
+    """The mixed kernel's passes on tensors (radices 3 and 5 among them) against the JAX
+    package's kernel in interpret mode, three grad ops off one forward."""
+    s, plan, jplan, specs, dds, ops64 = _radix_case(nz, 3, "grad", True, seed=nz)
+    assert plan.kernel == "mixed"
+    ddc = tuple(torch.from_numpy(d[:, 0] + 1j * d[:, 1]) for d in dds)
+    got = zfuse.apply_radix_plain(plan, torch.from_numpy(s), specs, ddc)
+    theirs = jzfuse.apply(jplan, jnp.asarray(s.real), jnp.asarray(s.imag),
+                          tuple(jzfuse.OpSpec(o.kind, o.axis, o.power) for o in specs),
+                          tuple(dds), use_kappa=True, interpret=True)
+    for g, (re, im), op64 in zip(got, theirs, ops64):
+        _hold(g.numpy(), np.asarray(re) + 1j * np.asarray(im), _ref64(s, op64))
+
+
+@pytest.mark.parametrize("nz", [12, 24, 48, 60, 96, 100, 192, 320, 448, 1000, 1536, 1701])
+def test_mixed_pass_plans(nz):
+    """The mixed kernel's plans: radices from its set, at most MAX_PASSES of them, whose
+    product is nz, the power-of-two part in the widest passes first and each odd factor a
+    pass of its own, leaving the bins in an order that is a permutation."""
+    passes = zfuse.radix_passes(nz)
+    assert zfuse.kernel_for(nz) == "mixed" and int(np.prod(passes)) == nz
+    assert set(passes) <= set(zfuse.RADICES) and len(passes) <= zfuse.MAX_PASSES
+    odd = [r for r in passes if r % 2]
+    assert passes[len(passes) - len(odd):] == tuple(sorted(odd))
+    assert list(passes[:len(passes) - len(odd)]) == sorted(passes[:len(passes) - len(odd)],
+                                                           reverse=True)
+    assert sorted(zfuse.digit_reversed_bins(passes)) == list(range(nz))
+
+
+@pytest.mark.parametrize("nz", [25, 100, 192, 1000, 1536])
+def test_mixed_nz_take_the_mixed_kernel(nz):
+    """nz with prime factors of 7 or less, no power of two, from 8 to MIXED_MAX_NZ: the
+    plan names the mixed kernel and carries its passes and its bin table; on the CPU
+    `apply` takes the plain version and counts no launch."""
+    s, _, plan, _ = _case(nz=nz, ny=2, nx=4)
+    assert plan.kernel == "mixed" and plan.passes == zfuse.radix_passes(nz)
+    assert plan.bins.dtype == torch.int16
+    np.testing.assert_array_equal(plan.bins.numpy(), zfuse.digit_reversed_bins(plan.passes))
+    before = dict(zfuse.KERNEL_LAUNCHES)
+    got = zfuse.apply(plan, torch.from_numpy(s), (zfuse.OpSpec("nabla", power=-0.5),), ())
+    want = zfuse.apply_plain(plan, torch.from_numpy(s), (zfuse.OpSpec("nabla", power=-0.5),))
+    assert zfuse.KERNEL_LAUNCHES == before and torch.equal(got[0], want[0])
+    assert zfuse.MIXED_MAX_NZ >= 1701
+
+
+@pytest.mark.parametrize("nz", [1, 2, 4, 11, 110, 176, 1009, 1331])
 def test_other_nz_take_the_dense_kernel(nz):
-    """nz that is no power of two from 8 to 1024 is routed to the dense kernel's plan, and
-    the radix passes refuse it."""
+    """nz below 8 or with a prime factor of 11 or more is routed to the dense kernel's
+    plan, and the FFT kernels' passes refuse it."""
     assert zfuse.radix_passes(nz) is None and zfuse.kernel_for(nz) == "dense"
     s, _, plan, _ = _case(nz=nz, ny=2, nx=4)
-    assert plan.passes is None
+    assert plan.passes is None and plan.bins is None and plan.kernel == "dense"
     with pytest.raises(ValueError, match="dense kernel"):
         zfuse.apply_radix_plain(plan, torch.from_numpy(s), (zfuse.OpSpec("nabla"),), ())
     with pytest.raises(ValueError, match="nz must be in"):
         _case(nz=zfuse.MAX_NZ + 1, ny=2, nx=4)
-    assert set(zfuse.KERNEL_LAUNCHES) == {"radix", "dense"}
+    assert set(zfuse.KERNEL_LAUNCHES) == {"radix", "mixed", "dense"}
+
+
+def test_apply_refuses_a_plan_without_its_fft_tables():
+    """A plan may name another kernel (chip_smoke times the dense kernel at an nz of the
+    mixed one), but an FFT kernel needs passes that multiply to nz and the bin table."""
+    s, _, plan, _ = _case(nz=24, ny=2, nx=4)
+    st, nab = torch.from_numpy(s), (zfuse.OpSpec("nabla"),)
+    dense = dataclasses.replace(plan, kernel="dense", passes=None)
+    assert torch.equal(zfuse.apply(dense, st, nab)[0], zfuse.apply_plain(plan, st, nab)[0])
+    for bad in (dataclasses.replace(plan, bins=None), dataclasses.replace(plan, passes=(8, 4)),
+                dataclasses.replace(dense, kernel="mixed"),
+                dataclasses.replace(plan, kernel="fft")):
+        with pytest.raises(ValueError, match="kernel"):
+            zfuse.apply(bad, st, nab)
 
 
 def test_apply_refuses_bad_arguments():
