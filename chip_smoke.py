@@ -2,8 +2,9 @@
 """Smoke test of kwave_tpu_torch on one NVIDIA card: builds the CUDA kernels from the
 sources in this checkout, holds each against its plain PyTorch version and the NumPy
 oracle, then drives the port's paths: the simulation at 128^3 with 16384 index sensors,
-the codec round trip, the whole-record exact encode, the 256^3 and 192^3 simulations
-with the fused z stage (K7's radix, mixed and dense kernels), a run in checkpoint legs with the intensity and Q-term outputs, the
+the codec round trip, the whole-record exact encode, the 256^3, 192^3, 220^3, 230^3 and
+251^3 simulations with the fused z stage (K7's radix, mixed and Bluestein kernels; the
+dense one, which no run takes, timed beside them), a run in checkpoint legs with the intensity and Q-term outputs, the
 acceptance sweep's inputs on the card against the port on the CPU, and the mesh
 (`kwave_tpu_torch.parallel`) on the one card.
 
@@ -56,21 +57,32 @@ the final ok line):
    record of 13 windows (odd, no multiple of the 8 windows a thread) against the unsplit
    plain version and the window loop, and the same record cut at 3 windows a thread
    (chunks that start on odd and on even windows), bit for bit.
-8. fused z stage (path B), K7's three kernels (radix: nz a power of two; mixed: other nz
-   with prime factors up to 7; dense: the rest): (a) K7 at the spectra of 256^3 (radix, and
-   mixed through a plan that names it), 192^3 (mixed and dense) and, with the operators
-   of a homogeneous medium of the same recipe, 384^3 (mixed and dense), 320^3 and 448^3
-   (mixed) and 176^3 (dense), one op and three, against a float64 FFT (2e-6 of the peak)
-   and `apply_plain` (4e-6), timed beside the plain version and the library route
-   ``ifft(fft(s, 0) * op, 0)``, its launches counted under the kernel that took them;
-   (b) small spectra (ny = 8) at nz = 64, 128, 512 (radix), 24, 60, 96, 100, 448, 1000,
-   1536 (mixed) and 110, 176 (dense) against the same two; (c) `run_simulation` at 256^3
-   and at 192^3, 16384 sensors, ``--p_raw --p_c --40-bit_complex``, 2 windows and a
+8. fused z stage (path B), K7's four kernels (radix: nz a power of two from 8; mixed: other
+   nz with prime factors up to 13, or all but one prime up to 101 (a generic pass);
+   Bluestein: the rest from 2; dense: nz = 1, which no `run_simulation` reaches, since a
+   grid of one z plane is 2D and the driver fuses 3D grids alone: it is timed as the
+   kernel the FFT kernels replaced, through plans that name it, and its rows in the
+   kernels line carry the main path's count, 0, with ``timing_only``): (a) K7 at the
+   spectra of 256^3 (radix, and mixed through a plan that names it), 192^3 (mixed and
+   dense) and, with the operators of a homogeneous medium of the same recipe, 384^3
+   (mixed and dense), 320^3 and 448^3 (mixed), 176^3 and 208^3 (mixed with radix 11 / 13, and dense), 230^3 (mixed with the
+   generic pass of 23, Bluestein and dense), 251^3 (Bluestein and dense), 1009 x 128 x 128
+   (Bluestein, M = 2025) and 4 x 256 x 256, 6 x 256 x 256 (mixed and dense: nz below 8,
+   which the dense kernel took before), one op and three, against a float64 FFT (2e-6 of
+   the peak) and the kernel's own plain version (4e-6), timed beside `apply_plain` and the
+   library route ``ifft(fft(s, 0) * op, 0)``, its launches counted under the kernel that
+   took them; (b) small spectra (ny = 8) at nz = 64, 128, 512 (radix), 2, 6, 11, 13, 17,
+   22, 24, 60, 96, 100, 110, 176, 230, 448, 1000, 1331, 1536 (mixed) and 127, 251, 1009,
+   1699, 1709 (Bluestein), each through the kernel `kernel_for` names, against the same
+   two; (c) `run_simulation` at 256^3, 192^3, 220^3 (4 x 5 x 11), 230^3 (23 x 2 x 5) and
+   251^3 (a prime), 16384 sensors, ``--p_raw --p_c --40-bit_complex``, 2 windows and a
    5-step tail, once with compact operators alone and once with ``fuse_z``: p_raw of the
-   two within 1e-4 of the peak, each run's p_c bytes equal to the oracle's encoding of
-   its own p_raw, every K7 launch the radix (256) or the mixed (192) kernel's, ms/step of
-   both, and the device time by kernel of one profiled window of each; (d) the same pair
-   of runs on a 110 x 16 x 16 grid (2048 sensors), every K7 launch the dense kernel's.
+   two within 1e-4 of the peak, each run's p_c bytes equal to the oracle's encoding of its
+   own p_raw, every K7 launch the kernel `kernel_for` names (radix, mixed, mixed, mixed,
+   Bluestein), ms/step of both, and the device time by kernel of one profiled window of
+   each (of the fused run alone at 230 and 251); at 220 both runs are read a second time
+   after the first two, to tell the first use of the grid's FFT plans and buffers, which
+   the first run of a grid pays, from the steps.
 9. checkpoint legs and the intensity / Q-term outputs: `run_simulation` at phase 4's
    width (128^3, 16384 index sensors, period 16, H = 1) as ``--p_raw
    --u_non_staggered_raw --p_c --u_non_staggered_c --40-bit_complex --I_avg_c --Q_term_c
@@ -103,7 +115,7 @@ the final ok line):
    against CPU likewise (the shifted velocity's Nyquist bin at the size users run);
    (c) `solver.simulate` on the card: the standing wave (2D, 3D, 3D fused: radix K7)
    against its closed form (5e-3) and acoustic reciprocity (1e-4 of the peak). Prints
-   the window kernels' and K7's launches (radix, mixed and dense).
+   the window kernels' and K7's launches (by kernel).
 11. the mesh on the one card (in-process meshes list `cuda:0` S times): (a) phase 8's
    256^3 input with ``--p_raw --p_c --40-bit_complex --p_max_all --p_final``, 2 windows
    and a 5-step tail, after a 3-step warm-up of each layout, on one device and on 4, 2
@@ -133,8 +145,10 @@ the final ok line):
 Then one JSON line with every kernel's numbers (its time beside its bound: the larger of
 its bytes over 3.35 TB/s and its fp32 operations over 67 TFLOP/s; for the 40-bit kernels
 also ``issue_ms``, the machine instructions that this run's build spends on their steps,
-counted from its SASS, over the card's instruction rate: a share of the time, no bound)
-and ``launch_floor_us``, and as the last line
+counted from its SASS, over the card's instruction rate: a share of the time, no bound;
+``launches`` the count of the kernel's path, which must be above 0 but where the row says
+``timing_only``: a kernel no run takes, timed beside the one that replaced it, whose count
+must be 0) and ``launch_floor_us``, and as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off throughout, so every plain version on the
 card computes in full fp32.
 
@@ -683,17 +697,23 @@ def codec_kernel_phase():
 
 def _device_events(fn) -> dict:
     """Name -> count of everything the device ran during one call of ``fn`` (kernels,
-    copies, memsets), from torch.profiler."""
+    copies, memsets), from torch.profiler. A trace with no device activity at all, which
+    the profiler now and then gives for a call of a few microseconds, shows nothing either
+    way: the call is traced again, three times at most."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # not the first call: the build and the allocator's first blocks are set-up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.key: e.count for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA")}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = {e.key: e.count for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA")}
+        if events:
+            break
+    return events
 
 
 def _codec_main_checks(x, frames, rec, basis, lo, hi, tab4, results, k6_err):
@@ -915,10 +935,26 @@ SERIES_KERNELS = {
 }
 ZFUSE_KERNELS = ("zfuse_1op", "zfuse_3op")  # LAUNCHES keys of ops.zfuse on path B
 MIXED_N = 192  # phase 8 (c): the mixed kernel's run (compact operators turn on here)
-# phase 8 (a): K7 alone at the spectra [n, n, n/2 + 1] of these grids, through these kernels
-K7_SPECTRA = ((384, ("mixed", "dense")), (320, ("mixed",)), (448, ("mixed",)),
-              (176, ("dense",)))
-DENSE_SHAPE = (110, 16, 16)  # phase 8 (d): (nz, ny, nx) of a run through the dense kernel
+# phase 8 (a): K7 alone at the spectra [nz, ny, nx/2 + 1] of these grids, through these
+# kernels (the dense kernel is left out at 1009: its fp32 sum's error grows with nz, 1.63e-6
+# of float64's peak at 384 against the 2e-6 bound, and a call takes milliseconds)
+K7_SPECTRA = (((384,) * 3, ("mixed", "dense")), ((320,) * 3, ("mixed",)),
+              ((448,) * 3, ("mixed",)), ((176,) * 3, ("mixed", "dense")),
+              ((208,) * 3, ("mixed", "dense")),
+              ((230,) * 3, ("mixed", "bluestein", "dense")),
+              ((251,) * 3, ("bluestein", "dense")), ((1009, 128, 128), ("bluestein",)),
+              ((4, 256, 256), ("mixed", "dense")), ((6, 256, 256), ("mixed", "dense")))
+# phase 8 (c): the runs after 256^3 and 192^3, each through the kernel kernel_for names:
+# (n, the runs profiled, the runs read again after both)
+FUSED_GRIDS = ((220, ("compact", "fused"), ("compact", "fused")), (230, ("fused",), ()),
+               (251, ("fused",), ()))
+# K7's kernels that no run_simulation takes (the dense one: nz = 1 alone, a 2D grid, which
+# the driver does not fuse): their rows in the kernels line are timings beside the path's
+# kernels and carry the path's count, 0, with "timing_only"
+TIMING_ONLY = ("dense",)
+K7_SOURCES = {"radix": "kwave_tpu_torch/csrc/zfuse.cu", "dense": "kwave_tpu_torch/csrc/zfuse.cu",
+              "mixed": "kwave_tpu_torch/csrc/zfuse_mixed.cu",
+              "bluestein": "kwave_tpu_torch/csrc/zfuse_bluestein.cu"}
 
 
 def _bits_equal(a, b) -> bool:
@@ -1155,26 +1191,36 @@ def _kernel_plan(plan, kernel: str):
     through another kernel than the one `make_plan` chose)."""
     import dataclasses
 
+    from kwave_tpu_torch.ops import zfuse
+
     if kernel == plan.kernel:
         return plan
-    if kernel == "dense":
-        return dataclasses.replace(plan, kernel="dense", passes=None, bins=None)
-    return dataclasses.replace(plan, kernel=kernel)
+    return dataclasses.replace(plan,
+                               **zfuse.kernel_tables(plan.nz, kernel, plan.roots.device))
 
 
-def zfuse_kernel_phase(ops, n: int, kernels: tuple[str, ...]) -> dict:
-    """K7 at the spectrum [n, n, n/2 + 1] of ``ops``'s grid through each of ``kernels``,
-    with one op and with three (`_zfuse_cases`): held to `apply_plain` and a float64 FFT,
-    timed beside the plain version and the library route (both timed once per op count),
-    its launches counted under the kernel that took them. Returns the rows by name."""
+def _own_plain(plan):
+    """The plain version that computes what ``plan``'s kernel computes, step by step."""
+    from kwave_tpu_torch.ops import zfuse
+
+    return {"radix": zfuse.apply_radix_plain, "mixed": zfuse.apply_radix_plain,
+            "bluestein": zfuse.apply_bluestein_plain}.get(plan.kernel, zfuse.apply_plain)
+
+
+def zfuse_kernel_phase(ops, shape: tuple[int, int, int], kernels: tuple[str, ...]) -> dict:
+    """K7 at the spectrum [nz, ny, nx/2 + 1] of ``ops``'s grid ``shape`` through each of
+    ``kernels``, with one op and with three (`_zfuse_cases`): held to the kernel's own plain
+    version and a float64 FFT, timed beside `apply_plain` and the library route (both timed
+    once per op count), its launches counted under the kernel that took them. Returns the
+    rows by name."""
     import torch
 
     from kwave_tpu_torch.ops import zfuse
 
-    base = zfuse.make_plan((n, n, n), ops.k2_z, ops.k2_y, ops.k2_x, ops.c_ref_dt_2, "cuda")
-    rng = np.random.default_rng(11)
-    s = torch.fft.rfft2(torch.from_numpy(
-        rng.standard_normal((n, n, n)).astype(np.float32)).cuda()).contiguous()
+    n, ny, nx = shape
+    base = zfuse.make_plan(shape, ops.k2_z, ops.k2_y, ops.k2_x, ops.c_ref_dt_2, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(11)  # on the card: 448^3 in no time
+    s = torch.fft.rfft2(torch.randn(shape, device="cuda", generator=gen)).contiguous()
     f64 = torch.fft.fft(s.to(torch.complex128), dim=0)
     results, others = {}, {}
     for key in ZFUSE_KERNELS:
@@ -1209,7 +1255,7 @@ def zfuse_kernel_phase(ops, n: int, kernels: tuple[str, ...]) -> dict:
             for specs, dds, use_kappa in _zfuse_cases(ops, n_ops):
                 outs = zfuse.apply(plan, s, specs, dds, use_kappa=use_kappa)
                 torch.cuda.synchronize()
-                plain = zfuse.apply_plain(base, s, specs, dds, use_kappa=use_kappa)
+                plain = _own_plain(plan)(plan, s, specs, dds, use_kappa=use_kappa)
                 dd_i = 0
                 for spec, got, want in zip(specs, outs, plain):
                     dd = None
@@ -1238,11 +1284,11 @@ def zfuse_kernel_phase(ops, n: int, kernels: tuple[str, ...]) -> dict:
             row = dict(max_abs_err=worst, ms=ms, **others[n_ops])
             results[f"zfuse_{kernel}_{n_ops}op_nz{n}"] = dict(row, kernel=kernel, n_ops=n_ops)
             moved = (1 + n_ops) * _nbytes(s)
-            print(f"[8 zfuse] {kernel} kernel (passes {plan.passes}), {key}: spectrum "
-                  f"[{n}, {base.ny}, {base.nxr}], off plain at most {worst_plain:.2e} and "
-                  f"float64 {worst_ref:.2e} of the peak; device time per call: kernel "
-                  f"{ms:.4f} ms (wall {wall:.4f} ms, {moved / ms / 1e6:.0f} GB/s of the "
-                  f"spectra), plain {row['plain_ms']:.4f} ms, library ifft(fft*op) "
+            print(f"[8 zfuse] {kernel} kernel (passes {plan.passes}, M {plan.m}), {key}: "
+                  f"spectrum [{n}, {base.ny}, {base.nxr}], off plain at most "
+                  f"{worst_plain:.2e} and float64 {worst_ref:.2e} of the peak; device time "
+                  f"per call: kernel {ms:.4f} ms (wall {wall:.4f} ms, "
+                  f"{moved / ms / 1e6:.0f} GB/s of the spectra), plain {row['plain_ms']:.4f} ms, library ifft(fft*op) "
                   f"{row['library_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms by "
                   f"{row['bound_by']}", flush=True)
         want = {k: sum(zfuse.LAUNCHES.values()) if k == kernel else 0
@@ -1253,16 +1299,20 @@ def zfuse_kernel_phase(ops, n: int, kernels: tuple[str, ...]) -> dict:
 
 
 # phase 8 (b): small spectra [nz, 8, 129] and the kernel each must take
-SMALL_SPECTRA = ((64, "radix"), (128, "radix"), (512, "radix"), (24, "mixed"),
-                 (60, "mixed"), (96, "mixed"), (100, "mixed"), (448, "mixed"),
-                 (1000, "mixed"), (1536, "mixed"), (110, "dense"), (176, "dense"))
+SMALL_SPECTRA = ((64, "radix"), (128, "radix"), (512, "radix"), (2, "mixed"), (6, "mixed"),
+                 (11, "mixed"), (13, "mixed"), (17, "mixed"), (22, "mixed"), (24, "mixed"),
+                 (60, "mixed"), (96, "mixed"), (100, "mixed"), (110, "mixed"),
+                 (176, "mixed"), (230, "mixed"), (448, "mixed"), (1000, "mixed"),
+                 (1331, "mixed"), (1536, "mixed"), (127, "bluestein"), (251, "bluestein"),
+                 (1009, "bluestein"), (1699, "bluestein"), (1709, "bluestein"))
 
 
 def _zfuse_small_spectra():
     """K7 on small spectra [nz, 8, 129] (`SMALL_SPECTRA`): the radix kernel at two passes
-    of equal and of unequal radix and at three; the mixed kernel at radices 3, 5 and 7,
-    three and four passes and the widest tile (1536); the dense kernel at a prime factor
-    of 11. One op and three, against a float64 FFT and `apply_plain`."""
+    of equal and of unequal radix and at three; the mixed kernel at nz from 2 to 7, radices
+    3, 5, 7, 11 and 13, the generic pass of 17 and of 23, three and four passes and the
+    widest tile (1536); the Bluestein kernel from M = 256 (127) to M = 3430 (1709). One op
+    and three, against a float64 FFT and the kernel's own plain version."""
     import torch
 
     from kwave_tpu_torch.ops import zfuse
@@ -1288,7 +1338,7 @@ def _zfuse_small_spectra():
         for specs, dd, use_kappa in cases:
             outs = zfuse.apply(plan, s, specs, dd, use_kappa=use_kappa)
             torch.cuda.synchronize()
-            plain = zfuse.apply_plain(plan, s, specs, dd, use_kappa=use_kappa)
+            plain = _own_plain(plan)(plan, s, specs, dd, use_kappa=use_kappa)
             dd_iter = iter(dd)
             for spec, got, want in zip(specs, outs, plain):
                 op = zfuse.full_operator(plan, spec, next(dd_iter) if spec.kind == "grad"
@@ -1304,7 +1354,8 @@ def _zfuse_small_spectra():
         _require(zfuse.KERNEL_LAUNCHES == want,
                  f"nz={nz}: launches by kernel {zfuse.KERNEL_LAUNCHES}, expected {kernel}")
         print(f"[8 zfuse] spectrum [{nz}, {ny}, {plan.nxr}]: {len(cases)} launches of the "
-              f"{kernel} kernel (passes {plan.passes}), one op and three, off plain and "
+              f"{kernel} kernel (passes {plan.passes}, M {plan.m}), one op and three, off "
+              f"its plain version and "
               f"float64 at most {worst:.2e} of the peak", flush=True)
 
 
@@ -1353,25 +1404,31 @@ FUSED_FLAGS = ["--p_raw", "--p_c", "--40-bit_complex"]
 FUSED_WINDOWS, FUSED_TAIL = 2, 5
 
 
-def _fused_runs(data, kernel: str, profile: bool = True) -> dict:
-    """One input run with compact operators alone and with ``fuse_z``: every K7 launch of
-    the fused run counted as ``kernel``'s, p_raw of the two within `FUSED_RUN_TOL`, each
-    run's p_c bytes equal to the oracle's encoding of its own p_raw, ms/step of both and,
-    with ``profile``, one profiled window of each. Returns the fused run's launches by
-    LAUNCHES key."""
+RUN_FIELDS = {"compact": dict(compact_operators=True),
+              "fused": dict(compact_operators=True, fuse_z=True)}
+
+
+def _fused_runs(data, kernel: str, profile: tuple[str, ...] = ("compact", "fused"),
+                again: tuple[str, ...] = ()) -> dict:
+    """One input run with compact operators alone and with ``fuse_z``, and each run named
+    in ``again`` a second time after both: every K7 launch of the fused run counted as
+    ``kernel``'s, p_raw of the two within `FUSED_RUN_TOL`, each run's p_c bytes equal to
+    the oracle's encoding of its own p_raw, ms/step of each and one profiled window of each
+    run named in ``profile``. Returns the fused run's launches by LAUNCHES key."""
     from kwave_tpu_torch.ops import encode_window as ew
     from kwave_tpu_torch.ops import zfuse
 
     g = data.grid
     where = f"{g.nz} x {g.ny} x {g.nx}, {len(data.sensor_mask_index)} sensors"
-    outs, ms_step, launches = {}, {}, {}
-    for name, fields in (("compact", dict(compact_operators=True)),
-                         ("fused", dict(compact_operators=True, fuse_z=True))):
+    outs, ms_step, launches, by_kernel = {}, {}, {}, {}
+    for run in ("compact", "fused", *again):
+        name = run if run not in ms_step else f"{run} again"
         zfuse.reset_launch_counts()
         ew.reset_launch_counts()
-        out, secs, steps, _ = _run(FUSED_FLAGS, FUSED_WINDOWS, FUSED_TAIL, data=data, **fields)
+        out, secs, steps, _ = _run(FUSED_FLAGS, FUSED_WINDOWS, FUSED_TAIL, data=data,
+                                   **RUN_FIELDS[run])
         launches[name] = dict(zfuse.LAUNCHES)
-        by_kernel = dict(zfuse.KERNEL_LAUNCHES)  # of the fused run, which comes last
+        by_kernel[name] = dict(zfuse.KERNEL_LAUNCHES)
         _require(ew.LAUNCHES["w40_overlap"] == FUSED_WINDOWS + 1,
                  f"{name}: window-encode launches {ew.LAUNCHES}")
         err, peak = _check_run(out, FUSED_FLAGS, steps)
@@ -1380,26 +1437,28 @@ def _fused_runs(data, kernel: str, profile: bool = True) -> dict:
         print(f"[8 fused] {name}: {where}, {steps} steps ({FUSED_WINDOWS} windows + "
               f"{FUSED_TAIL}-step tail), {ms_step[name]:.3f} ms/step in the simulation "
               f"phase, {secs / steps * 1e3:.3f} ms/step end to end; zfuse launches "
-              f"{launches[name]} {by_kernel}; p_c == oracle(p_raw) bytes on "
+              f"{launches[name]} {by_kernel[name]}; p_c == oracle(p_raw) bytes on "
               f"{ORACLE_SENSORS} sensors, decoded diff {err:.3g} (peak {peak:.3g})",
               flush=True)
     steps = FUSED_WINDOWS * O_SIZE + FUSED_TAIL
     # the p0 peel is one three-op call; every later step one three-op and five one-op
     want = {"zfuse_1op": 5 * (steps - 1), "zfuse_2op": 0, "zfuse_3op": steps}
-    _require(launches["fused"] == want and not any(launches["compact"].values()),
+    _require(all(n == (want if name.startswith("fused") else {k: 0 for k in want})
+                 for name, n in launches.items()),
              f"zfuse launches {launches}, expected {want} and none without fuse_z")
-    _require(by_kernel == {k: sum(want.values()) if k == kernel else 0 for k in by_kernel},
-             f"the fused run's launches by kernel: {by_kernel}, all expected as {kernel}")
+    _require(all(n == {k: sum(want.values()) if k == kernel else 0 for k in n}
+                 for name, n in by_kernel.items() if name.startswith("fused")),
+             f"the fused runs' launches by kernel: {by_kernel}, all expected as {kernel}")
     diff = float(np.abs(outs["fused"] - outs["compact"]).max())
     peak = float(np.abs(outs["compact"]).max())
     _require(np.isfinite(outs["fused"]).all() and diff <= FUSED_RUN_TOL * peak,
              f"p_raw of the fused run off the compact run by {diff / peak:.3g} of the peak")
     print(f"[8 fused] {where}: p_raw fused vs compact-only: max diff {diff / peak:.2e} of "
-          f"the peak ({peak:.4g}); ms/step fused {ms_step['fused']:.3f}, unfused "
-          f"{ms_step['compact']:.3f}; every K7 launch the {kernel} kernel's", flush=True)
-    for name, fields in (("compact", dict(compact_operators=True)),
-                         ("fused", dict(compact_operators=True, fuse_z=True))):
-        if profile:
+          f"the peak ({peak:.4g}); ms/step " + ", ".join(
+              f"{name.replace('compact', 'unfused')} {ms:.3f}" for name, ms in ms_step.items())
+          + f"; every K7 launch the {kernel} kernel's", flush=True)
+    for name, fields in RUN_FIELDS.items():
+        if name in profile:
             dev_ms, top, setup_ms, _ = _profile_window(data, FUSED_FLAGS, **fields)
             print(f"[8 profile] {name}, {where}: {dev_ms:.3f} ms of kernel time per step "
                   f"over one window; " + "; ".join(f"{k} {share:.1%}" for k, share in top)
@@ -1409,52 +1468,40 @@ def _fused_runs(data, kernel: str, profile: bool = True) -> dict:
     return launches["fused"]
 
 
-def _spectrum_ops(n: int):
-    """Compact operators of an n^3 grid of `_input`'s recipe in a homogeneous medium (c0
-    1600 m/s, the heterogeneous one's c_ref; rho0 1000 kg/m^3; the same absorption): the
-    per-axis vectors K7 reads, without n^3 media fields."""
+def _spectrum_ops(shape: tuple[int, int, int]):
+    """Compact operators of an nz x ny x nx grid of `_input`'s recipe in a homogeneous
+    medium (c0 1600 m/s, the heterogeneous one's c_ref; rho0 1000 kg/m^3; the same
+    absorption): the per-axis vectors K7 reads, without the grid's media fields."""
     from kwave_tpu_torch.solver import Grid, Medium, make_operators
 
     dx = 1e-4
-    grid = Grid(nx=n, ny=n, nz=n, dx=dx, dy=dx, dz=dx, dt=0.3 * dx / 1600.0, nt=1)
+    nz, ny, nx = shape
+    grid = Grid(nx=nx, ny=ny, nz=nz, dx=dx, dy=dx, dz=dx, dt=0.3 * dx / 1600.0, nt=1)
     medium = Medium(c0=1600.0, rho0=1000.0, alpha_coeff=0.75, alpha_power=1.5)
-    return make_operators(grid, medium, (10, 10, 10), (2.0, 2.0, 2.0), absorbing=True,
+    pml = tuple(min(10, n // 4) for n in (nx, ny, nz))  # 10, or a quarter of a short axis
+    return make_operators(grid, medium, pml, (2.0, 2.0, 2.0), absorbing=True,
                           device="cuda", compact=True)
-
-
-def _dense_input(nt: int):
-    """Phase 8 (d): `_input`'s recipe on a DENSE_SHAPE grid (nz with a prime factor of 11),
-    PML 10 along z and 4 across, 2048 index sensors, from seed 7."""
-    from kwave_tpu_torch.io.input_file import InputData
-    from kwave_tpu_torch.solver import Grid, Medium
-
-    dx = 1e-4
-    nz, ny, nx = DENSE_SHAPE
-    grid = Grid(nx=nx, ny=ny, nz=nz, dx=dx, dy=dx, dz=dx, dt=0.3 * dx / 1600.0, nt=nt)
-    rng = np.random.default_rng(7)
-    medium = Medium(c0=(1500.0 + 100.0 * rng.random(grid.shape)).astype(np.float32),
-                    rho0=(1000.0 + 50.0 * rng.random(grid.shape)).astype(np.float32),
-                    alpha_coeff=0.75, alpha_power=1.5)
-    mask = np.sort(rng.choice(grid.n_elements, 2048, replace=False)).astype(np.int64)
-    p0 = np.zeros(grid.shape, np.float32)
-    p0[nz // 2, ny // 2, nx // 2] = 1e5
-    return InputData(grid=grid, medium=medium, pml_size=(4, 4, 10),
-                     pml_alpha=(2.0, 2.0, 2.0), absorbing=True, sensor_mask_index=mask,
-                     p0=p0)
 
 
 def fused_phase():
     """Path B, the fused z stage: (a) K7 timed at the spectra of 256^3 (the radix kernel,
-    and the mixed one at the same nz), 192^3 (mixed and dense), 384^3 (mixed and dense),
-    320^3, 448^3 (mixed) and 176^3 (dense); (b) the small spectra; (c) the 256^3 and 192^3
-    runs unfused and fused; (d) a run through the dense kernel. Returns the K7 rows by
-    name (each with its kernel and op count) and the launches of each kernel's run."""
+    and the mixed one at the same nz), 192^3 (mixed and dense) and `K7_SPECTRA`; (b) the
+    small spectra; (c) the 256^3, 192^3 and `FUSED_GRIDS` runs unfused and fused. Returns
+    the K7 rows by name (each with its kernel and op count) and the launches by LAUNCHES
+    key of each kernel's runs, summed."""
     import torch
 
+    from kwave_tpu_torch.ops import zfuse
     from kwave_tpu_torch.solver import make_operators
 
     steps = FUSED_WINDOWS * O_SIZE + FUSED_TAIL
     rows, launches = {}, {}
+
+    def add(kernel, counts):
+        have = launches.setdefault(kernel, {})
+        for k, v in counts.items():
+            have[k] = have.get(k, 0) + v
+
     for n, kernels in ((BIG_N, ("radix", "mixed")), (MIXED_N, ("mixed", "dense"))):
         t0 = time.perf_counter()
         data = _input(steps, n)
@@ -1462,16 +1509,25 @@ def fused_phase():
                              absorbing=True, device="cuda", compact=True)
         print(f"[8 fused] {n}^3 input and compact operators built in "
               f"{time.perf_counter() - t0:.1f} s (host float64)", flush=True)
-        rows.update(zfuse_kernel_phase(ops, n, kernels))
+        rows.update(zfuse_kernel_phase(ops, (n,) * 3, kernels))
         del ops
         torch.cuda.empty_cache()
-        launches[kernels[0]] = _fused_runs(data, kernels[0])
+        add(kernels[0], _fused_runs(data, kernels[0]))
         del data
-    for n, kernels in K7_SPECTRA:
-        rows.update(zfuse_kernel_phase(_spectrum_ops(n), n, kernels))
+    t0 = time.perf_counter()
+    for shape, kernels in K7_SPECTRA:
+        rows.update(zfuse_kernel_phase(_spectrum_ops(shape), shape, kernels))
         torch.cuda.empty_cache()
+    t1 = time.perf_counter()
     _zfuse_small_spectra()
-    launches["dense"] = _fused_runs(_dense_input(steps), "dense", profile=False)
+    t2 = time.perf_counter()
+    for n, profile, again in FUSED_GRIDS:
+        kernel = zfuse.kernel_for(n)
+        add(kernel, _fused_runs(_input(steps, n), kernel, profile, again))
+        torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    print(f"[time] phase 8: K7_SPECTRA rows {t1 - t0:.1f} s, small spectra {t2 - t1:.1f} s, "
+          f"FUSED_GRIDS runs {t3 - t2:.1f} s", flush=True)
     return rows, launches
 
 
@@ -2535,19 +2591,28 @@ def main(argv: list[str]) -> int:
     print(f"[1 device] allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}, float32_matmul_precision="
           f"{torch.get_float32_matmul_precision()}", flush=True)
-    build_phase()
+    t_run = time.perf_counter()
+
+    def timed(phase, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"[time] phase {phase} in {time.perf_counter() - t0:.1f} s", flush=True)
+        return out
+
+    timed("2 (build)", build_phase)
     per_step = issue_phase()
-    kernels = kernel_phase()
+    kernels = timed(3, kernel_phase)
     floor_us = launch_floor_phase(smi)  # after the kernels' timing, at the same clocks
-    launches, float_run = main_path_phase()
-    codec = codec_kernel_phase()
-    codec_launches = codec_round_trip_phase(*float_run)
-    series, series_launches = series_phase()
-    fused, fused_launches = fused_phase()
-    legs_launches = legs_phase(smi)
+    launches, float_run = timed(4, main_path_phase)
+    codec = timed(5, codec_kernel_phase)
+    codec_launches = timed(6, codec_round_trip_phase, *float_run)
+    series, series_launches = timed(7, series_phase)
+    fused, fused_launches = timed(8, fused_phase)
+    legs_launches = timed(9, legs_phase, smi)
     _require(legs_launches["w40_overlap"] > 0, "phase 9 launched no window kernel")
-    acceptance_launches = acceptance_phase(smi)
-    mesh_launches = mesh_phase(smi)
+    acceptance_launches = timed(10, acceptance_phase, smi)
+    mesh_launches = timed(11, mesh_phase, smi)
+    print(f"[time] phases 2-11 in {time.perf_counter() - t_run:.1f} s", flush=True)
 
     rows = [dict(name=key, route="cuda", source="kwave_tpu_torch/csrc/encode_window.cu",
                  replaces=VARIANTS[key][2], launches=launches[key], **kernels[key])
@@ -2558,11 +2623,13 @@ def main(argv: list[str]) -> int:
     rows += [dict(name=key, route="cuda", source="kwave_tpu_torch/csrc/encode_series.cu",
                   replaces=replaces, launches=series_launches[key], **series[key])
              for key, (_, _, replaces) in SERIES_KERNELS.items()]
-    for key, row in fused.items():  # launches: the run of the row's kernel (phase 8)
+    for key, row in fused.items():  # launches: the runs of the row's kernel (phase 8)
         kernel, n_ops = row.pop("kernel"), row.pop("n_ops")
-        rows.append(dict(name=key, route="cuda", source="kwave_tpu_torch/csrc/zfuse.cu",
+        extra = {"timing_only": True} if kernel in TIMING_ONLY else {}
+        rows.append(dict(name=key, route="cuda", source=K7_SOURCES[kernel],
                          replaces="kwave_tpu/ops/zfuse.py:113",
-                         launches=fused_launches[kernel][f"zfuse_{n_ops}op"], **row))
+                         launches=fused_launches.get(kernel, {}).get(f"zfuse_{n_ops}op", 0),
+                         **row, **extra))
     for r in rows:  # launches on phase 9's and phase 10's paths, beside the main path's
         if r["name"] in legs_launches:
             r["launches_legs_path"] = legs_launches[r["name"]]
@@ -2576,8 +2643,10 @@ def main(argv: list[str]) -> int:
         r["instr_per_step"] = count
         r["issue_ms"] = None if count is None else \
             count * lanes[r["name"]] * steps / INSTR_PER_S * 1e3
-    _require(all(r["launches"] > 0 for r in rows),
+    _require(all(r["launches"] > 0 for r in rows if not r.get("timing_only")),
              f"a kernel was never launched on its path: {rows}")
+    _require(all(r["launches"] == 0 for r in rows if r.get("timing_only")),
+             f"a kernel marked timing_only (no run takes it) ran on a path: {rows}")
     print(json.dumps({"kernels": rows, "launch_floor_us": floor_us}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),

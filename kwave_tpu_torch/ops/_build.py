@@ -5,6 +5,8 @@ one shared library with a plain C interface, loaded with ``ctypes`` (no PyTorch 
 minutes). The library goes to ``build/kwave_tpu_torch/`` at the repository root, named by
 a hash of the sources and flags, so an unchanged tree reuses it and a changed one
 rebuilds. Nothing here runs at import time: the first launch on a CUDA tensor builds.
+``defines`` (``-D`` flags) build a variant beside it, for a sweep that times a design's
+alternatives (`kwave_tpu_torch.sweeps`); the port itself loads the library without any.
 """
 
 from __future__ import annotations
@@ -61,6 +63,9 @@ SIGNATURES = {
     # spectrum, roots, bins, k2z, k2y, k2x, 3 dd vectors, 3 outputs; the same ints and
     # floats; use_kappa, the number of passes and seven radices (1 past the last pass)
     "kw_zfuse_mixed": [_P] * 12 + [_I] * 10 + [ctypes.c_float] * 4 + [_I] * 9 + [_P],
+    # spectrum, M roots, bins, chirp, filter, k2z, k2y, k2x, 3 dd vectors, 3 outputs; the
+    # same ints and floats; use_kappa, M, the number of passes and seven radices
+    "kw_zfuse_bluestein": [_P] * 14 + [_I] * 10 + [ctypes.c_float] * 4 + [_I] * 10 + [_P],
 }
 
 
@@ -78,8 +83,12 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(defines: tuple[str, ...]) -> tuple[str, ...]:
+    return (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+
+
+def library_path(defines: tuple[str, ...] = ()) -> Path:
+    digest = hashlib.sha256(" ".join(_flags(defines)).encode())
     for src in sorted(CSRC_DIR.glob("*.cu*")):  # the sources and the headers they share
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
@@ -97,10 +106,10 @@ def _run_all(cmds: list[list[str]]) -> None:
             raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
 
 
-def build() -> Path:
-    """Compile the sources unless a library for exactly these sources exists: one nvcc
-    per source, all started together, then one link."""
-    out = library_path()
+def build(defines: tuple[str, ...] = ()) -> Path:
+    """Compile the sources unless a library for exactly these sources and ``defines``
+    exists: one nvcc per source, all started together, then one link."""
+    out = library_path(defines)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -108,7 +117,7 @@ def build() -> Path:
     # build under a temporary name and rename, so a cut build never leaves a half file
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [str(Path(tmp) / f"{src.stem}.o") for src in _sources()]
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+        _run_all([[nvcc, *_flags(defines), "-c", "-o", obj, str(src)]
                   for obj, src in zip(objs, _sources())])
         lib = str(Path(tmp) / out.name)
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
@@ -117,9 +126,10 @@ def build() -> Path:
 
 
 @functools.cache
-def load_library() -> ctypes.CDLL:
-    """Build if needed, load once per process, and declare every C signature."""
-    lib = ctypes.CDLL(str(build()))
+def load_library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Build if needed, load once per process (and per ``defines``), and declare every C
+    signature."""
+    lib = ctypes.CDLL(str(build(defines)))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

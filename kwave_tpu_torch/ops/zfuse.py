@@ -13,9 +13,10 @@ bin order, after the x/y transforms):
 - "nabla" ops multiply by ``|k|^power`` with 0 at ``k == 0`` (the absorbing-term factors);
 - ``out = IDFT_z . G`` (with the 1/nz). Up to three ops share the one forward transform.
 
-Three kernels, all CUDA C++ for sm_90a in ``kwave_tpu_torch/csrc/zfuse.cu``. `make_plan`
-chooses one by ``nz`` (`kernel_for`) and records it in the plan; `apply` launches the
-kernel its plan names, or raises:
+Four kernels, all CUDA C++ for sm_90a in ``kwave_tpu_torch/csrc/`` (``zfuse.cu``: radix
+and dense; ``zfuse_mixed.cu``; ``zfuse_bluestein.cu``; what they share in ``zfuse.cuh``).
+`make_plan` chooses one by ``nz`` (`kernel_for`) and records it in the plan with its tables
+(`kernel_tables`); `apply` launches the kernel its plan names, or raises:
 
 - "radix", for ``nz`` a power of two from 8 to 1024: a radix FFT in shared memory, one
   instantiation per pass plan. `radix_passes` gives its passes (radix 16, 8 or 4; 256 =
@@ -23,16 +24,25 @@ kernel its plan names, or raises:
   (`digit_reversed_bins`); the operator is looked up at the bin each position holds;
   inverse as decimation in time, which takes that order and gives natural order. It is
   bound by the bytes it moves.
-- "mixed", for every other ``nz`` from 8 to `MIXED_MAX_NZ` whose prime factors are 2, 3, 5
-  and 7 (192, 320, 384, 448, ...): the same FFT with the pass plan as a runtime argument,
-  radices from `RADICES` (the power-of-two part in passes of up to 16, each odd factor a
-  pass of its own), and the bin table (`ZFusePlan.bins`) read from device memory.
-- "dense", for every other ``nz`` up to `MAX_NZ` (below 8, a prime factor of 11 or more):
-  the dense DFT in fp32 FMAs, the ``nz`` roots of unity indexed by ``(k*z) mod nz``; bound
-  by operations (``16*nz^2`` flop per column and op pair against 16 B moved).
+- "mixed", for every other ``nz`` from 2 to `MIXED_MAX_NZ` whose prime factors are at
+  most 13, or all of them but one prime from 17 to `PRIME_MAX` (192, 176 = 16 x 11, 230 =
+  2 x 5 x 23, ...): the same FFT with the pass plan as a runtime argument, radices from
+  `RADICES` (the power-of-two part in passes of up to 16, each odd factor a pass of its
+  own), the one larger prime a generic pass of its own, first (`radix_passes`), and the
+  bin table (`ZFusePlan.bins`) read from device memory.
+- "bluestein", for every other ``nz`` from 2 to `MAX_NZ` (127, 251, 1009, 1709, ...):
+  Bluestein's chirp-z transform, each z-DFT one circular convolution of length
+  ``M >= 2 nz - 1`` (`bluestein_length`) computed with the mixed kernel's passes of M, the
+  chirp and the filter's transform from float64 tables (`apply_bluestein_plain`).
+- "dense", for ``nz = 1`` (one multiply a column): the dense DFT in fp32 FMAs, the ``nz``
+  roots of unity indexed by ``(k*z) mod nz``; bound by operations (``16*nz^2`` flop per
+  column and op pair against 16 B moved). No `run_simulation` takes it: a grid of one z
+  plane is 2D, which the driver does not fuse. It stays as the timing reference the FFT
+  kernels replaced: a plan may name it at any nz (`kernel_tables`).
 
-`apply_radix_plain` is the radix and mixed kernels' passes on tensors; `apply_plain` is
-the dense sum as a matrix product.
+`apply_radix_plain` is the radix and mixed kernels' passes on tensors,
+`apply_bluestein_plain` the Bluestein kernel's steps, `apply_plain` the dense sum as a
+matrix product.
 
 `apply` takes `apply_plain` only for tensors on the CPU. Spectra and ``dd`` vectors are
 complex64 tensors (the JAX package's re/im planes and ``[n, 128]`` / ``[8, n]`` tilings are
@@ -54,21 +64,29 @@ import torch
 LAUNCHES = {"zfuse_1op": 0, "zfuse_2op": 0, "zfuse_3op": 0}
 
 # The same launches by the kernel that took them.
-KERNEL_LAUNCHES = {"radix": 0, "mixed": 0, "dense": 0}
+KERNEL_LAUNCHES = {"radix": 0, "mixed": 0, "bluestein": 0, "dense": 0}
 
 MAX_OPS = 3
-# dense: two tiles of nz x 8 columns (re/im planes) and the roots must fit a block's 227 KB
+# dense: two tiles of nz x 8 columns (re/im planes) and the roots must fit a block's 227 KB;
+# every z length up to it has a kernel
 MAX_NZ = (227 * 1024) // (8 * 4 * 4 + 8)
 # radix: a power of two in this range (at 1024 two tiles of nz x 8 columns are 128 KB)
 RADIX_MIN_NZ, RADIX_MAX_NZ = 8, 1024
-# mixed: the butterflies of csrc/zfuse.cu, and the passes a plan may have (2 * 3^6 = 1458
-# takes seven)
-RADICES = (16, 8, 4, 2, 3, 5, 7)
+# mixed: the butterflies in registers of csrc/zfuse.cu, and the passes a plan may have
+# (2 * 3^6 = 1458 takes seven)
+RADICES = (16, 8, 4, 2, 3, 5, 7, 11, 13)
 MAX_PASSES = 7
+# mixed: the primes that take the generic pass (one a plan, the first pass); a z length
+# with a larger prime factor, or two factors from 17 up, takes the Bluestein kernel.
+# PRIME_MAX is the measured crossover (`python -m kwave_tpu_torch.sweeps --only k7prime`
+# on an H100, z lengths 4p and 8p, one op and three): the generic pass is faster at every
+# prime up to 71 and in 25 of the 28 cases from 67 to 101, the Bluestein kernel in all four
+# at 127
+PRIME_MIN, PRIME_MAX = 17, 101
 # mixed: two tiles of nz x 8 columns of complex64 and the roots fit a block's 227 KB (the
 # bin table is read from device memory, as k2z is, so that 1701 = 3^5 x 7 fits too)
 MIXED_MAX_NZ = (227 * 1024) // (2 * 8 * 8 + 8)
-KERNELS = ("radix", "mixed", "dense")
+KERNELS = ("radix", "mixed", "bluestein", "dense")
 
 
 def reset_launch_counts() -> None:
@@ -87,32 +105,55 @@ def _power_of_two_passes(bits: int) -> list[int]:
     return passes
 
 
-def radix_passes(nz: int) -> tuple[int, ...] | None:
-    """The radices of the FFT kernels' forward passes, first pass first, or None where
-    ``nz`` goes to the dense kernel: the power-of-two part of ``nz`` in as few passes of
-    radix <= 16 as there can be, the widest first, then each factor 3, 5 and 7 a pass of
-    its own, for ``nz`` from 8 to `MIXED_MAX_NZ`."""
-    if not RADIX_MIN_NZ <= nz <= MIXED_MAX_NZ:
-        return None
-    bits, rest = 0, nz
+def _is_prime(n: int) -> bool:
+    return n > 1 and all(n % d for d in range(2, int(n ** 0.5) + 1))
+
+
+def _passes(n: int, generic: bool) -> tuple[int, ...] | None:
+    """The mixed passes of a length ``n`` >= 2 (see `radix_passes`), or None."""
+    bits, rest = 0, n
     while rest % 2 == 0:
         rest //= 2
         bits += 1
     odd = []
-    for f in (3, 5, 7):
+    for f in (3, 5, 7, 11, 13):
         while rest % f == 0:
             rest //= f
             odd.append(f)
-    passes = tuple(_power_of_two_passes(bits) + odd)
-    return passes if rest == 1 and len(passes) <= MAX_PASSES else None
+    lead = ()
+    if generic and PRIME_MIN <= rest <= PRIME_MAX and _is_prime(rest):
+        lead, rest = (rest,), 1
+    passes = lead + tuple(_power_of_two_passes(bits) + odd)
+    return passes if n >= 2 and rest == 1 and len(passes) <= MAX_PASSES else None
+
+
+def radix_passes(nz: int) -> tuple[int, ...] | None:
+    """The radices of the FFT kernels' forward passes, first pass first, or None where
+    ``nz`` goes to the Bluestein (or, at 1, the dense) kernel, for ``nz`` from 2 to
+    `MIXED_MAX_NZ`: one prime from `PRIME_MIN` to `PRIME_MAX` as a generic pass where
+    ``nz`` has one, then the power-of-two part in as few passes of radix <= 16 as there can
+    be, the widest first, then each factor 3, 5, 7, 11 and 13 a pass of its own."""
+    return _passes(nz, generic=True) if nz <= MIXED_MAX_NZ else None
 
 
 def kernel_for(nz: int) -> str:
-    """Which of the three kernels a spectrum of ``nz`` bins takes: "radix", "mixed" or
-    "dense"."""
-    if radix_passes(nz) is None:
+    """Which of the four kernels a spectrum of ``nz`` bins takes: "radix", "mixed",
+    "bluestein" or "dense" (nz = 1, which only a direct `make_plan` / `make_pipeline`
+    reaches: `run_simulation` fuses 3D grids alone, so it never runs the dense kernel)."""
+    if nz == 1:
         return "dense"
-    return "radix" if not nz & (nz - 1) and nz <= RADIX_MAX_NZ else "mixed"
+    if not nz & (nz - 1) and RADIX_MIN_NZ <= nz <= RADIX_MAX_NZ:
+        return "radix"
+    return "mixed" if radix_passes(nz) else "bluestein"
+
+
+def bluestein_length(nz: int) -> int:
+    """M: the shortest length >= 2 nz - 1 whose FFT the mixed passes take without a
+    generic pass (radices from `RADICES`, at most `MAX_PASSES`)."""
+    m = 2 * nz - 1
+    while _passes(m, generic=False) is None:
+        m += 1
+    return m
 
 
 def digit_reversed_bins(passes: tuple[int, ...]) -> np.ndarray:
@@ -150,9 +191,64 @@ class ZFusePlan:
     k2z: torch.Tensor  # [nz] float32
     k2y: torch.Tensor  # [ny]
     k2x: torch.Tensor  # [nxr]
-    kernel: str = "dense"  # the kernel `apply` launches: "radix", "mixed" or "dense"
-    passes: tuple[int, ...] | None = None  # the FFT kernels' (`radix_passes`); None: dense
-    bins: torch.Tensor | None = None  # [nz] int16: the bin each position holds (passes)
+    kernel: str = "dense"  # the kernel `apply` launches: one of KERNELS
+    # the FFT's passes and the bin each position holds after them (int16): of nz for the
+    # radix and mixed kernels, of m for the Bluestein kernel; None for the dense kernel
+    passes: tuple[int, ...] | None = None
+    bins: torch.Tensor | None = None
+    # the Bluestein kernel's: its convolution length M, the chirp w_n = exp(-i*pi*(n^2 mod
+    # 2 nz)/nz) [nz], the transform of the filter c (c_j = c_{M-j} = w_j, j < nz; 0 else)
+    # over M, FFT_M(c)/M [M] in bin order, and the M roots exp(-2*pi*i*j/M), all complex64
+    m: int | None = None
+    chirp: torch.Tensor | None = None
+    filt: torch.Tensor | None = None
+    m_roots: torch.Tensor | None = None
+
+
+def _roots(n: int) -> np.ndarray:
+    return np.exp(-2j * np.pi * np.arange(n) / n).astype(np.complex64)
+
+
+def kernel_tables(nz: int, kernel: str, device: torch.device | str = "cpu") -> dict:
+    """The `ZFusePlan` fields of ``kernel`` at ``nz`` (`make_plan` takes `kernel_for`'s;
+    a caller may name another, e.g. to time the dense kernel at any nz): a ValueError where
+    the kernel does not take ``nz``."""
+    fields = dict(kernel=kernel, passes=None, bins=None, m=None, chirp=None, filt=None,
+                  m_roots=None)
+    if kernel == "dense":
+        return fields
+    if kernel in ("radix", "mixed"):
+        passes = radix_passes(nz)
+        if passes is None or (kernel == "radix" and kernel_for(nz) != "radix"):
+            raise ValueError(f"the {kernel} kernel does not take nz={nz}")
+        bins = digit_reversed_bins(passes)
+    elif kernel == "bluestein":
+        if not 2 <= nz <= MAX_NZ:
+            raise ValueError(f"the bluestein kernel does not take nz={nz}")
+        return bluestein_tables(nz, bluestein_length(nz), device)
+    else:
+        raise ValueError(f"the kernel must be one of {KERNELS}; got {kernel!r}")
+    fields.update(passes=passes, bins=torch.from_numpy(bins.astype(np.int16)).to(device))
+    return fields
+
+
+def bluestein_tables(nz: int, m: int, device: torch.device | str = "cpu") -> dict:
+    """The Bluestein kernel's `ZFusePlan` fields at ``nz`` with the convolution length
+    ``m`` (`kernel_tables` takes `bluestein_length`; a sweep may take another M)."""
+    passes = _passes(m, generic=False)
+    if m < 2 * nz - 1 or passes is None:
+        raise ValueError(f"M={m} is no convolution length of nz={nz}")
+    n = np.arange(nz, dtype=np.int64)
+    chirp = np.exp(-1j * np.pi * ((n * n) % (2 * nz)) / nz)  # float64, n^2 mod 2nz exact
+    c = np.zeros(m, np.complex128)
+    c[:nz] = chirp
+    c[m - nz + 1:] = chirp[1:][::-1]
+    filt = (np.fft.fft(c) / m).astype(np.complex64)
+    bins = digit_reversed_bins(passes).astype(np.int16)
+    return dict(kernel="bluestein", passes=passes, bins=torch.from_numpy(bins).to(device),
+                m=m, chirp=torch.from_numpy(chirp.astype(np.complex64)).to(device),
+                filt=torch.from_numpy(filt).to(device),
+                m_roots=torch.from_numpy(_roots(m)).to(device))
 
 
 def make_plan(shape: tuple[int, int, int], k2z, k2y, k2x, c_ref_dt_2: float,
@@ -170,15 +266,10 @@ def make_plan(shape: tuple[int, int, int], k2z, k2y, k2x, c_ref_dt_2: float,
 
     if not 1 <= nz <= MAX_NZ:
         raise ValueError(f"nz must be in 1..{MAX_NZ}; got {nz}")
-    roots = np.exp(-2j * np.pi * np.arange(nz) / nz).astype(np.complex64)
-    passes = radix_passes(nz)
-    bins = None
-    if passes:
-        bins = torch.from_numpy(digit_reversed_bins(passes).astype(np.int16)).to(device)
     return ZFusePlan(nz=nz, ny=ny, nxr=nx // 2 + 1, c_ref_dt_2=float(c_ref_dt_2),
-                     roots=torch.from_numpy(roots).to(device),
+                     roots=torch.from_numpy(_roots(nz)).to(device),
                      k2z=vec(k2z, nz), k2y=vec(k2y, ny), k2x=vec(k2x, nx // 2 + 1),
-                     kernel=kernel_for(nz), passes=passes, bins=bins)
+                     **kernel_tables(nz, kernel_for(nz), device))
 
 
 def full_operator(plan: ZFusePlan, op: OpSpec, dd, use_kappa: bool) -> torch.Tensor:
@@ -208,15 +299,8 @@ def apply_plain(plan: ZFusePlan, s: torch.Tensor, ops: tuple[OpSpec, ...], dds: 
     fwd = plan.roots[(j[:, None] * j[None, :]) % nz]  # [k, z]
     inv = fwd.conj() / nz
     f = torch.einsum("kz,zyx->kyx", fwd, s)
-    outs, dd_i = [], 0
-    for op in ops:
-        dd = None
-        if op.kind == "grad":
-            dd = dds[dd_i]
-            dd_i += 1
-        outs.append(torch.einsum("zk,kyx->zyx", inv,
-                                 f * full_operator(plan, op, dd, use_kappa)))
-    return outs
+    return [torch.einsum("zk,kyx->zyx", inv, f * full)
+            for full in _op_list(plan, ops, dds, use_kappa)]
 
 
 def _small_dft(r: int, inverse: bool, device) -> torch.Tensor:
@@ -225,46 +309,124 @@ def _small_dft(r: int, inverse: bool, device) -> torch.Tensor:
     return torch.from_numpy(w.astype(np.complex64)).to(device)
 
 
-def apply_radix_plain(plan: ZFusePlan, s: torch.Tensor, ops: tuple[OpSpec, ...],
-                      dds: tuple = (), use_kappa: bool = True) -> list[torch.Tensor]:
-    """`apply` as the radix and mixed kernels compute it, on tensors: the forward passes of
-    ``plan.passes`` (a pass of radix R over sub-transforms of length L takes positions
-    ``blk*L + j + m*(L/R)`` and leaves output q, times ``w_L^(q*j)``, at
-    ``blk*L + j + q*(L/R)``), the operator at the bin each position then holds, and the
-    same passes undone in reverse order with the conjugate roots."""
-    if plan.passes is None:
-        raise ValueError(f"nz={plan.nz} has no radix passes; it takes the dense kernel")
-    nz, tail = plan.nz, tuple(s.shape[1:])
-    j = torch.arange(nz, device=s.device)
-
-    def twiddle(length, r):  # [r (q), length/r (j)]: w_L^(q*j) = roots[q*j*(nz/L)]
-        return plan.roots[(j[:r, None] * j[None, :length // r]) * (nz // length)]
-
-    f, length = s, nz
-    for r in plan.passes:
-        v = f.reshape(nz // length, r, length // r, *tail)  # [blk, m, j, y, x]
-        v = torch.einsum("qm,bmjyx->bqjyx", _small_dft(r, False, s.device), v)
-        f = (v * twiddle(length, r)[None, :, :, None, None]).reshape(nz, *tail)
+def _forward_passes(f: torch.Tensor, passes: tuple[int, ...], roots: torch.Tensor):
+    """The FFT kernels' forward passes over the first axis of ``f`` (n = prod(passes)
+    long; ``roots`` its n roots): a pass of radix R over sub-transforms of length L takes
+    positions ``blk*L + j + m*(L/R)`` and leaves output q, times ``w_L^(q*j)``, at
+    ``blk*L + j + q*(L/R)``, so the result is in digit-reversed order."""
+    n, tail = f.shape[0], tuple(f.shape[1:])
+    j, length = torch.arange(n, device=f.device), n
+    for r in passes:
+        v = f.reshape(n // length, r, length // r, *tail)  # [blk, m, j, ...]
+        v = torch.einsum("qm,bmj...->bqj...", _small_dft(r, False, f.device), v)
+        w = roots[(j[:r, None] * j[None, :length // r]) * (n // length)]  # w_L^(q*j)
+        f = (v * w.reshape(1, r, length // r, *[1] * len(tail))).reshape(n, *tail)
         length //= r
-    bins = plan.bins.long()  # the table the kernels read
-    outs, dd_i = [], 0
+    return f
+
+
+def _inverse_passes(g: torch.Tensor, passes: tuple[int, ...], roots: torch.Tensor):
+    """`_forward_passes` undone without the 1/n: the same passes in reverse order with the
+    conjugate roots, digit-reversed order in and natural order out."""
+    n, tail = g.shape[0], tuple(g.shape[1:])
+    j, length = torch.arange(n, device=g.device), 1
+    for r in reversed(passes):
+        length *= r
+        v = g.reshape(n // length, r, length // r, *tail)  # [blk, q, j, ...]
+        w = roots[(j[:r, None] * j[None, :length // r]) * (n // length)].conj()
+        v = v * w.reshape(1, r, length // r, *[1] * len(tail))
+        g = torch.einsum("mq,bqj...->bmj...", _small_dft(r, True, g.device), v)
+        g = g.reshape(n, *tail)
+    return g
+
+
+def _op_list(plan: ZFusePlan, ops, dds, use_kappa):
+    """The full operator of each op (`full_operator`), its dd vector taken in turn."""
+    fulls, dd_i = [], 0
     for op in ops:
         dd = None
         if op.kind == "grad":
             dd = dds[dd_i]
             dd_i += 1
-        full = full_operator(plan, op, dd, use_kappa)
+        fulls.append(full_operator(plan, op, dd, use_kappa))
+    return fulls
+
+
+def apply_radix_plain(plan: ZFusePlan, s: torch.Tensor, ops: tuple[OpSpec, ...],
+                      dds: tuple = (), use_kappa: bool = True) -> list[torch.Tensor]:
+    """`apply` as the radix and mixed kernels compute it, on tensors: the forward passes of
+    ``plan.passes`` (`_forward_passes`; a generic pass of a prime is the same pass with its
+    radix a prime), the operator and the 1/nz at the bin each position then holds, and the
+    same passes undone (`_inverse_passes`)."""
+    if plan.kernel not in ("radix", "mixed") or plan.passes is None:
+        raise ValueError(f"nz={plan.nz} has no radix passes; it takes the {plan.kernel} "
+                         f"kernel")
+    nz = plan.nz
+    f = _forward_passes(s, plan.passes, plan.roots)
+    bins = plan.bins.long()  # the table the kernels read
+    outs = []
+    for full in _op_list(plan, ops, dds, use_kappa):
         if full.shape[0] == nz:  # the operator varies along z: take it at each position's bin
             full = full[bins]
-        g, length = f * (full / nz), 1
-        for r in reversed(plan.passes):
-            length *= r
-            v = g.reshape(nz // length, r, length // r, *tail)  # [blk, q, j, y, x]
-            v = v * twiddle(length, r).conj()[None, :, :, None, None]
-            g = torch.einsum("mq,bqjyx->bmjyx", _small_dft(r, True, s.device),
-                             v).reshape(nz, *tail)
-        outs.append(g.to(torch.complex64))
+        outs.append(_inverse_passes(f * (full / nz), plan.passes, plan.roots)
+                    .to(torch.complex64))
     return outs
+
+
+def apply_bluestein_plain(plan: ZFusePlan, s: torch.Tensor, ops: tuple[OpSpec, ...],
+                          dds: tuple = (), use_kappa: bool = True) -> list[torch.Tensor]:
+    """`apply` as the Bluestein kernel computes it, on tensors. With the chirp ``w``:
+    ``F_k = w_k * sum_n (s_n w_n) conj(w_(k-n))`` and, per op, ``out_n = conj(w_n) *
+    sum_k (G_k conj(w_k)) w_(n-k)`` with ``G = F * op / nz``. Each sum is a circular
+    convolution of length M: the input zero-padded to M, the mixed forward passes of M
+    (digit-reversed), times the filter's transform at the bin each position holds
+    (``conj(filt)`` forward, ``filt`` inverse: the filter ``c`` is even, so the transform of
+    ``conj(c)`` is ``conj(FFT_M(c))``), the inverse passes, the first nz kept. The 1/M is in
+    the table (``filt = FFT_M(c)/M``), the 1/nz in the operator, as in the kernel."""
+    if plan.kernel != "bluestein" or plan.m is None:
+        raise ValueError(f"the plan of nz={plan.nz} names the {plan.kernel} kernel, not "
+                         f"the bluestein kernel and its tables")
+    nz, m, tail = plan.nz, plan.m, tuple(s.shape[1:])
+    filt = plan.filt[plan.bins.long()].reshape(m, *[1] * len(tail))
+    chirp = plan.chirp.reshape(nz, *[1] * len(tail))
+
+    def convolve(a, f):  # the first nz of the circular convolution of a (nz long) with f
+        padded = torch.zeros((m, *a.shape[1:]), dtype=torch.complex64, device=a.device)
+        padded[:nz] = a
+        return _inverse_passes(_forward_passes(padded, plan.passes, plan.m_roots) * f,
+                               plan.passes, plan.m_roots)[:nz]
+
+    f = convolve(s * chirp, filt.conj()) * chirp
+    return [(convolve(f * (full / nz) * chirp.conj(), filt) * chirp.conj()).to(torch.complex64)
+            for full in _op_list(plan, ops, dds, use_kappa)]
+
+
+def _checked_tables(plan: ZFusePlan) -> tuple:
+    """The tables the plan's kernel reads; a ValueError where the plan does not carry them
+    (a plan may name another kernel than `make_plan` chose, but then with its tables)."""
+    nz, passes, kernel = plan.nz, plan.passes or (), plan.kernel
+    n = plan.m if kernel == "bluestein" else nz
+    # the mixed kernel takes one generic pass of an odd prime, first
+    generic = kernel == "mixed" and passes and passes[0] >= PRIME_MIN and _is_prime(passes[0])
+    ok = kernel in KERNELS
+    if ok and kernel != "dense":
+        ok = (n is not None and plan.bins is not None and tuple(plan.bins.shape) == (n,)
+              and int(np.prod(passes)) == n and len(passes) <= MAX_PASSES
+              and set(passes[1 if generic else 0:]) <= set(RADICES))
+    if ok and kernel == "bluestein":
+        ok = (n >= 2 * nz - 1 and all(t is not None and tuple(t.shape) == (k,) for t, k in
+                                      ((plan.chirp, nz), (plan.filt, n), (plan.m_roots, n))))
+    if not ok:
+        raise ValueError(f"the plan's kernel must be one of {KERNELS}, an FFT kernel needs "
+                         f"passes of its radices whose product is its length (nz={nz}; M "
+                         f"for the bluestein kernel) and its bin table, and the bluestein "
+                         f"kernel M >= 2 nz - 1, the chirp, the filter and the M roots; got "
+                         f"{kernel!r}, passes {plan.passes}, M {plan.m}")
+    if kernel == "dense":
+        return ()
+    if kernel == "bluestein":
+        return plan.bins, plan.chirp, plan.filt, plan.m_roots
+    return (plan.bins,)
 
 
 def _check(plan: ZFusePlan, s, ops, dds) -> None:
@@ -285,14 +447,8 @@ def _check(plan: ZFusePlan, s, ops, dds) -> None:
         if dd.dtype != torch.complex64 or tuple(dd.shape) != (n,):
             raise ValueError(f"the dd vector of axis {op.axis} must be complex64 [{n}]; got "
                              f"{dd.dtype} {tuple(dd.shape)}")
-    if plan.kernel not in KERNELS or (plan.kernel != "dense" and (
-            plan.bins is None or tuple(plan.bins.shape) != (plan.nz,)
-            or int(np.prod(plan.passes or ())) != plan.nz)):
-        raise ValueError(f"the plan's kernel must be one of {KERNELS}, and an FFT kernel "
-                         f"needs passes whose product is nz={plan.nz} and its bin table; "
-                         f"got {plan.kernel!r}, passes {plan.passes}")
-    fft = (plan.bins,) if plan.kernel != "dense" else ()
-    for t in (s, plan.roots, plan.k2z, *fft, *dds):
+    tables = _checked_tables(plan)
+    for t in (s, plan.roots, plan.k2z, *tables, *dds):
         if t.device != s.device:
             raise ValueError(f"all tensors must be on {s.device}; got {t.device}")
         if not t.is_contiguous():
@@ -307,16 +463,25 @@ def apply(plan: ZFusePlan, s: torch.Tensor, ops: tuple[OpSpec, ...], dds: tuple 
     complex64 spectrum per op. ``dds``: one complex64 vector per "grad" op, in op order.
 
     On a CUDA tensor this launches the hand-written kernel the plan names
-    (``plan.kernel``: "radix", "mixed" or "dense", chosen by `make_plan`), and
-    `KERNEL_LAUNCHES` counts which. No kernel falls back to another or to a plain
-    version."""
+    (``plan.kernel``: one of `KERNELS`, chosen by `make_plan`), and `KERNEL_LAUNCHES`
+    counts which. No kernel falls back to another or to a plain version."""
     ops, dds = tuple(ops), tuple(dds)
     _check(plan, s, ops, dds)
     if s.device.type == "cpu":
         return apply_plain(plan, s, ops, dds, use_kappa)
     from kwave_tpu_torch.ops import _build
 
-    lib = _build.load_library()
+    outs = _launch(_build.load_library(), plan, s, ops, dds, use_kappa)
+    LAUNCHES[f"zfuse_{len(ops)}op"] += 1
+    KERNEL_LAUNCHES[plan.kernel] += 1
+    return outs
+
+
+def _launch(lib, plan: ZFusePlan, s: torch.Tensor, ops: tuple[OpSpec, ...], dds: tuple,
+            use_kappa: bool) -> list[torch.Tensor]:
+    """`apply`'s launch of the kernel the plan names from the library ``lib`` (a sweep
+    passes a variant built with ``-D`` switches, `_build.load_library(defines)`), on CUDA
+    tensors that `apply` checked; counts nothing."""
     outs = [torch.empty_like(s) for _ in ops]
     dd_iter = iter(dds)
     dd_ptrs = [next(dd_iter).data_ptr() if op.kind == "grad" else None for op in ops]
@@ -328,6 +493,7 @@ def apply(plan: ZFusePlan, s: torch.Tensor, ops: tuple[OpSpec, ...], dds: tuple 
             *(float(op.power) for op in ops), *[0.0] * pad,
             plan.c_ref_dt_2, int(bool(use_kappa)))
     fields = (plan.k2z.data_ptr(), plan.k2y.data_ptr(), plan.k2x.data_ptr())
+    passes = (*(plan.passes or ()), *(1,) * (MAX_PASSES - len(plan.passes or ())))
     with torch.cuda.device(s.device):
         stream = torch.cuda.current_stream().cuda_stream
         if plan.kernel == "radix":
@@ -336,15 +502,17 @@ def apply(plan: ZFusePlan, s: torch.Tensor, ops: tuple[OpSpec, ...], dds: tuple 
         elif plan.kernel == "mixed":
             err = lib.kw_zfuse_mixed(s.data_ptr(), plan.roots.data_ptr(),
                                      plan.bins.data_ptr(), *fields, *args,
-                                     len(plan.passes), *plan.passes,
-                                     *(1,) * (MAX_PASSES - len(plan.passes)), stream)
+                                     len(plan.passes), *passes, stream)
+        elif plan.kernel == "bluestein":
+            err = lib.kw_zfuse_bluestein(s.data_ptr(), plan.m_roots.data_ptr(),
+                                         plan.bins.data_ptr(), plan.chirp.data_ptr(),
+                                         plan.filt.data_ptr(), *fields, *args, plan.m,
+                                         len(plan.passes), *passes, stream)
         else:
             err = lib.kw_zfuse(s.data_ptr(), plan.roots.data_ptr(), *fields, *args, stream)
     if err != 0:
         raise RuntimeError(f"zfuse.apply ({plan.kernel} kernel): CUDA launch failed with "
                            f"cudaError {err}")
-    LAUNCHES[f"zfuse_{len(ops)}op"] += 1
-    KERNEL_LAUNCHES[plan.kernel] += 1
     return outs
 
 

@@ -26,11 +26,27 @@ per launch from CUDA events, the stream held by a sleep kernel while the host en
 - ``k7``: the fused z stage (`ops.zfuse.apply`) at the spectrum [256, 256, 129]: one and
   three gradient ops with and without kappa, one nabla op, and beside them a device copy of
   the spectrum (the same bytes as one op: read once, written once).
+- ``k7prime``: where the generic pass of a prime stops paying against Bluestein's transform
+  (the source of `ops.zfuse.PRIME_MAX`): at z lengths 4p and 8p for primes p from 17 to
+  127, spectra [nz, 128, 129], one op and three, the mixed kernel with a generic pass of p
+  first (a plan built here past PRIME_MAX) beside the Bluestein kernel, with the two
+  outputs' largest difference over the peak.
+- ``k7design``: the mixed kernel's two design switches (`csrc/zfuse.cuh`), each variant a
+  library built with its ``-D`` flags, timed in turns in this process at the spectra
+  [nz, n, n/2 + 1] (n = nz up to 512, else 128) of z lengths whose first inverse pass is
+  of radix 3, 5, 7, 11, 13 or 16, one op and three (the fused step's pressure and
+  velocity gradients, with kappa): the operator built in the first inverse pass up to
+  radix 7 and in a step of its own above (the default) against always in the step and
+  always in the pass; radices 11 and 13 as butterflies in registers (the default) against
+  the generic pass (a z length with two such factors then takes the Bluestein kernel, at
+  the shortest M without them); and both switched, the design before radices 11 and 13.
+  Each output's largest difference from the default's over its peak.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -204,7 +220,144 @@ def sweep_k7(iters: int) -> None:
                           ms=time_ms(lambda: out.copy_(s), iters))), flush=True)
 
 
-SWEEPS = {"windows": sweep_windows, "k6": sweep_k6, "k3": sweep_k3, "k7": sweep_k7}
+K7_PRIMES = (17, 19, 23, 29, 31, 37, 41, 43, 47, 53, 59, 61, 67, 71, 79, 89, 97, 101, 127)
+
+
+def sweep_k7prime(iters: int) -> None:
+    import dataclasses
+
+    from kwave_tpu_torch.ops import zfuse
+
+    ny, nx = 128, 256
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def cplx(*shape):
+        return torch.view_as_complex(torch.randn(*shape, 2, device="cuda", generator=gen))
+
+    for p in K7_PRIMES:
+        for k in (4, 8):
+            nz = k * p
+            k2 = [(2 * np.pi * np.fft.fftfreq(n, 1e-4)) ** 2 for n in (nz, ny)]
+            k2.append((2 * np.pi * np.fft.rfftfreq(nx, 1e-4)) ** 2)
+            base = zfuse.make_plan((nz, ny, nx), *k2, 1500.0 * 2e-8 / 2, "cuda")
+            passes = (p, *zfuse.radix_passes(k))  # past PRIME_MAX too
+            bins = torch.from_numpy(zfuse.digit_reversed_bins(passes).astype(np.int16)).cuda()
+            plans = {"generic": dataclasses.replace(base, kernel="mixed", passes=passes,
+                                                    bins=bins),
+                     "bluestein": dataclasses.replace(
+                         base, **zfuse.kernel_tables(nz, "bluestein", "cuda"))}
+            s = cplx(nz, ny, nx // 2 + 1)
+            dds = (cplx(nx // 2 + 1), cplx(ny), cplx(nz))
+            for n_ops in (1, 3):
+                specs = tuple(zfuse.OpSpec("grad", axis=a) for a in (2, 1, 0))[-n_ops:]
+                vecs = dds[-n_ops:]
+                outs = {k_: zfuse.apply(pl, s, specs, vecs) for k_, pl in plans.items()}
+                peak = max(float(o.abs().max()) for o in outs["bluestein"])
+                diff = max(float((a - b).abs().max())
+                           for a, b in zip(outs["generic"], outs["bluestein"]))
+                row = dict(sweep="k7prime", p=p, nz=nz, m=plans["bluestein"].m,
+                           passes=list(passes), n_ops=n_ops, diff=diff / peak,
+                           routed=base.kernel)
+                for kernel, plan in plans.items():
+                    row[f"{kernel}_ms"] = time_ms(
+                        lambda: zfuse.apply(plan, s, specs, vecs), iters)
+                print(json.dumps(row), flush=True)
+            del s
+
+
+# the mixed kernel's design switches (csrc/zfuse.cuh) of each variant of ``k7design``
+K7_DESIGNS = {
+    "default": (),
+    "op_always_step": ("KW_OP_IN_PASS_MAX=0",),
+    "op_always_in_pass": ("KW_OP_IN_PASS_MAX=16",),
+    "generic_11_13": ("KW_RADIX_11_13=0",),
+    "before_11_13": ("KW_OP_IN_PASS_MAX=16", "KW_RADIX_11_13=0"),
+}
+K7_DESIGN_NZ = (192, 320, 384, 448, 256, 176, 208, 220, 352, 1331)
+
+
+def _design_plan(base, radix_11_13: bool):
+    """``base``'s z length through the mixed kernel (its passes as `ops.zfuse.radix_passes`
+    gives them; 256 too), or without butterflies of 11 and 13: one such prime as the
+    generic pass, first, and two or more through the Bluestein kernel at the shortest M
+    whose passes have neither."""
+    import dataclasses
+
+    from kwave_tpu_torch.ops import zfuse
+
+    nz, dev = base.nz, base.roots.device
+    if radix_11_13:
+        return dataclasses.replace(base, **zfuse.kernel_tables(nz, "mixed", dev))
+    rest, primes = nz, []
+    for p in (11, 13):
+        while rest % p == 0:
+            rest //= p
+            primes.append(p)
+    if len(primes) < 2:
+        passes = (*primes, *zfuse.radix_passes(rest))
+        bins = zfuse.digit_reversed_bins(passes).astype(np.int16)
+        return dataclasses.replace(base, kernel="mixed", passes=passes,
+                                   bins=torch.from_numpy(bins).to(dev))
+    m = 2 * nz - 1
+    while (zfuse._passes(m, generic=False) is None
+           or m % 11 == 0 or m % 13 == 0):
+        m += 1
+    return dataclasses.replace(base, **zfuse.bluestein_tables(nz, m, dev))
+
+
+def sweep_k7design(iters: int) -> None:
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+
+    from kwave_tpu_torch.ops import _build, zfuse
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(K7_DESIGNS)) as pool:  # one nvcc a source, all at once
+        libs = dict(zip(K7_DESIGNS, pool.map(_build.load_library, K7_DESIGNS.values())))
+    print(json.dumps(dict(sweep="k7design", built=list(K7_DESIGNS),
+                          seconds=time.perf_counter() - t0)), flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+
+    def cplx(*shape):
+        return torch.view_as_complex(torch.randn(*shape, 2, device="cuda", generator=gen))
+
+    for nz in K7_DESIGN_NZ:
+        n = nz if nz <= 512 else 128
+        k2 = [(2 * np.pi * np.fft.fftfreq(m, 1e-4)) ** 2 for m in (nz, n)]
+        k2.append((2 * np.pi * np.fft.rfftfreq(n, 1e-4)) ** 2)
+        base = zfuse.make_plan((nz, n, n), *k2, 1500.0 * 2e-8 / 2, "cuda")
+        plans = {name: _design_plan(base, "KW_RADIX_11_13=0" not in flags)
+                 for name, flags in K7_DESIGNS.items()}
+        s = cplx(nz, n, n // 2 + 1)
+        dds = (cplx(n // 2 + 1), cplx(n), cplx(nz))
+        for n_ops in (1, 3):
+            specs = tuple(zfuse.OpSpec("grad", axis=a) for a in (2, 1, 0))[-n_ops:]
+            vecs = dds[-n_ops:]
+            for plan in plans.values():
+                zfuse._check(plan, s, specs, vecs)
+            calls = {name: functools.partial(zfuse._launch, libs[name], plan, s, specs, vecs,
+                                             True)
+                     for name, plan in plans.items()}
+            want = calls["default"]()
+            peak = max(float(o.abs().max()) for o in want)
+            row = dict(sweep="k7design", nz=nz, spectrum=list(s.shape), n_ops=n_ops,
+                       routed=base.kernel, plans={}, ms={}, diff={})
+            for name, call in calls.items():
+                plan = plans[name]
+                row["plans"][name] = dict(kernel=plan.kernel, passes=list(plan.passes),
+                                          m=plan.m)
+                row["diff"][name] = max(float((a - b).abs().max())
+                                        for a, b in zip(call(), want)) / peak
+                row["ms"][name] = []
+            for _ in range(3):  # the variants in turns, three times
+                for name, call in calls.items():
+                    row["ms"][name].append(time_ms(call, iters))
+            print(json.dumps(row), flush=True)
+        del s
+
+
+SWEEPS = {"windows": sweep_windows, "k6": sweep_k6, "k3": sweep_k3, "k7": sweep_k7,
+          "k7prime": sweep_k7prime, "k7design": sweep_k7design}
 
 
 def main(argv: list[str]) -> int:

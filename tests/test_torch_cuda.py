@@ -485,13 +485,14 @@ def test_encode_series_exact_on_the_card_matches_oracle(mode40, overlap):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("nz,ny,nx", [(32, 16, 256), (100, 12, 260), (256, 8, 256),
-                                      (176, 12, 260)])
+                                      (176, 12, 260), (251, 12, 260)])
 @pytest.mark.parametrize("n_ops", [1, 3])
 def test_zfuse_kernel_matches_plain_and_float64(nz, ny, nx, n_ops):
-    """K7 at nz = 32 and 256 (the radix kernel), 100 (the mixed kernel) and 176 (a prime
-    factor of 11: the dense kernel), nxr = 129 and 131, one op and three: within 2e-6 of
-    the peak of `apply_plain` and of a float64 ``ifft(fft(s, 0) * op, 0)`` (measured on an
-    H100 at most 1.3e-6 and 6.5e-7), grad with and without kappa, and nabla."""
+    """K7 at nz = 32 and 256 (the radix kernel), 100 and 176 (the mixed kernel, 176 with a
+    pass of radix 11) and 251 (a prime: the Bluestein kernel), nxr = 129 and 131, one op
+    and three: within 2e-6 of the peak of `apply_plain` and of a float64
+    ``ifft(fft(s, 0) * op, 0)`` (measured on an H100 at most 1.3e-6 and 6.5e-7), grad with
+    and without kappa, and nabla."""
     from kwave_tpu_torch.ops import zfuse
 
     dev = require_cuda()
@@ -587,13 +588,18 @@ def test_zfuse_radix_kernel(nz, nx):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("nx", [256, 260])
-@pytest.mark.parametrize("nz", [12, 24, 60, 96, 100, 192, 448, 1000, 1536])
+@pytest.mark.parametrize("nz", [12, 24, 60, 96, 100, 192, 448, 1000, 1536,
+                                2, 6, 11, 13, 22, 26, 110, 176, 208, 1331,
+                                17, 34, 230, 172, 1708, 1616])
 def test_zfuse_mixed_kernel(nz, nx):
-    """The mixed-radix kernel at plans of two to four passes with radices 3, 5 and 7 and
-    every tile width (32, 16, 8), nxr = 129 and 131 (a ragged last tile), one op, two and
-    three, grad on each axis with and without kappa, and a nabla with its pole: within 2e-6
-    of the peak of a float64 FFT, 4e-6 of `apply_radix_plain` and of `apply_plain`; every
-    launch counted as the mixed kernel's."""
+    """The mixed-radix kernel at plans of one to four passes with radices 3, 5 and 7 and
+    every tile width (32, 16, 8); at nz from 2 to 7 (one or two passes); with radices 11
+    and 13 (22, 26, 110, 176 = 16 x 11, 208 = 16 x 13, 1331 = 11^3); with the generic pass
+    of a prime, alone (17) and first before others (34, 230 = 23 x 2 x 5, 172 = 43 x 4,
+    1708 = 61 x 4 x 7, 1616 = 101 x 16, the largest prime); nxr = 129 and 131 (a ragged last
+    tile), one op, two and three, grad on each axis with and without kappa, and a nabla
+    with its pole: within 2e-6 of the peak of a float64 FFT, 4e-6 of `apply_radix_plain`
+    and of `apply_plain`; every launch counted as the mixed kernel's."""
     from kwave_tpu_torch.ops import zfuse
 
     dev = require_cuda()
@@ -635,17 +641,101 @@ def test_zfuse_mixed_kernel(nz, nx):
 
 
 @pytest.mark.cuda
-def test_zfuse_dense_kernel_takes_other_nz():
-    """nz = 176 and 110 (a prime factor of 11) and nz = 4 go to the dense kernel and count
-    as its launches."""
+@pytest.mark.parametrize("nx", [256, 260])
+@pytest.mark.parametrize("nz,named", [(127, False), (251, False), (1009, False),
+                                      (1709, False), (230, True), (6, True), (2, True)])
+def test_zfuse_bluestein_kernel(nz, named, nx):
+    """The Bluestein kernel at the z lengths it takes (127: M = 256; 251: M = 504; 1009:
+    M = 2025, a tile of 4 columns; 1709, the largest: M = 3430) and through a plan that
+    names it at lengths of the mixed kernel (230, 6, 2), nxr = 129 and 131 (a ragged last
+    tile), one op, two and three, grad on each axis with and without kappa, and a nabla with
+    its pole: within 2e-6 of the peak of a float64 FFT, 4e-6 of `apply_bluestein_plain` and
+    of `apply_plain`; every launch counted as the Bluestein kernel's."""
+    import dataclasses
+
     from kwave_tpu_torch.ops import zfuse
 
     dev = require_cuda()
-    for nz in (176, 110, 4):
+    ny, nxr = 8, nx // 2 + 1
+    rng = np.random.default_rng(nz + nx)
+    sizes = (nz, ny, nxr)
+    s = torch.from_numpy((rng.standard_normal(sizes) + 1j * rng.standard_normal(sizes))
+                         .astype(np.complex64)).to(dev)
+    k2 = [(np.fft.fftfreq(n) * 2 * np.pi * n / 1e-2) ** 2 for n in (nz, ny)]
+    k2.append((np.fft.rfftfreq(nx) * 2 * np.pi * nx / 1e-2) ** 2)
+    plan = zfuse.make_plan((nz, ny, nx), *k2, 1e-5, dev)
+    assert (zfuse.kernel_for(nz) == "bluestein") != named
+    if named:
+        plan = dataclasses.replace(plan, **zfuse.kernel_tables(nz, "bluestein", dev))
+    assert plan.kernel == "bluestein" and plan.m == zfuse.bluestein_length(nz)
+    dds = [torch.from_numpy((rng.standard_normal(m) + 1j * rng.standard_normal(m))
+                            .astype(np.complex64)).to(dev) for m in sizes]
+    f64 = torch.fft.fft(s.to(torch.complex128), dim=0)
+    grad = [zfuse.OpSpec("grad", axis=a) for a in range(3)]
+    cases = [(tuple(grad[::-1]), dds[::-1], True),
+             ((grad[0],), dds[:1], False), ((grad[0],), dds[:1], True),
+             ((grad[1], zfuse.OpSpec("nabla", power=0.5)), dds[1:2], True),
+             ((grad[2],), dds[2:], False), ((zfuse.OpSpec("nabla", power=-0.5),), (), False)]
+    for specs, dd, use_kappa in cases:
+        before = dict(zfuse.KERNEL_LAUNCHES)
+        outs = zfuse.apply(plan, s, specs, dd, use_kappa=use_kappa)
+        torch.cuda.synchronize()
+        assert zfuse.KERNEL_LAUNCHES == {**before, "bluestein": before["bluestein"] + 1}
+        dense = zfuse.apply_plain(plan, s, specs, dd, use_kappa=use_kappa)
+        blue = zfuse.apply_bluestein_plain(plan, s, specs, dd, use_kappa=use_kappa)
+        dd_iter = iter(dd)
+        for spec, got, want_d, want_b in zip(specs, outs, dense, blue):
+            op = zfuse.full_operator(plan, spec, next(dd_iter) if spec.kind == "grad"
+                                     else None, use_kappa)
+            ref = torch.fft.ifft(f64 * op, dim=0)
+            peak = float(ref.abs().max())
+            assert float((got - ref).abs().max()) <= 2e-6 * peak
+            assert float((got - want_d).abs().max()) <= 4e-6 * peak
+            assert float((got - want_b).abs().max()) <= 4e-6 * peak
+
+
+@pytest.mark.cuda
+def test_zfuse_bluestein_plan_without_its_tables_is_refused():
+    """A plan that names the Bluestein kernel without its tables (or with another length's)
+    raises before any launch."""
+    import dataclasses
+
+    from kwave_tpu_torch.ops import zfuse
+
+    dev = require_cuda()
+    nz, ny, nx = 251, 4, 16
+    k2 = [(np.fft.fftfreq(m) * 2 * np.pi * m / 1e-2) ** 2 for m in (nz, ny)]
+    k2.append((np.fft.rfftfreq(nx) * 2 * np.pi * nx / 1e-2) ** 2)
+    plan = zfuse.make_plan((nz, ny, nx), *k2, 1e-5, dev)
+    s = torch.zeros((nz, ny, plan.nxr), dtype=torch.complex64, device=dev)
+    other = zfuse.kernel_tables(127, "bluestein", dev)
+    before = dict(zfuse.KERNEL_LAUNCHES)
+    for bad in (dataclasses.replace(plan, chirp=None), dataclasses.replace(plan, filt=None),
+                dataclasses.replace(plan, m_roots=None), dataclasses.replace(plan, m=None),
+                dataclasses.replace(plan, **other),
+                dataclasses.replace(plan, **{**zfuse.kernel_tables(nz, "dense", dev),
+                                             "kernel": "bluestein"})):
+        with pytest.raises(ValueError, match="bluestein kernel"):
+            zfuse.apply(bad, s, (zfuse.OpSpec("nabla"),))
+    assert zfuse.KERNEL_LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_zfuse_dense_kernel_takes_other_nz():
+    """nz = 1 goes to the dense kernel, and a plan that names it at nz = 176, 110 and 4
+    (which the mixed kernel takes) launches it; each counts as its launch."""
+    import dataclasses
+
+    from kwave_tpu_torch.ops import zfuse
+
+    dev = require_cuda()
+    for nz in (1, 176, 110, 4):
         ny, nx = 4, 16
         k2 = [(np.fft.fftfreq(m) * 2 * np.pi * m / 1e-2) ** 2 for m in (nz, ny)]
         k2.append((np.fft.rfftfreq(nx) * 2 * np.pi * nx / 1e-2) ** 2)
         plan = zfuse.make_plan((nz, ny, nx), *k2, 1e-5, dev)
+        assert (plan.kernel == "dense") == (nz == 1)
+        plan = dataclasses.replace(plan, **zfuse.kernel_tables(nz, "dense", dev))
         assert plan.passes is None and plan.kernel == "dense"
         rng = np.random.default_rng(nz)
         sizes = (nz, ny, plan.nxr)

@@ -12,6 +12,10 @@ Tolerances, and why:
   log2 nz); against `apply_plain`: 4e-6, the sum of the two bounds, because `apply_plain`
   is the dense sum and is itself up to 7e-7 off float64 at nz = 1024 (measured apart at
   most 7e-7).
+- `apply_bluestein_plain` (the Bluestein kernel's steps on tensors) against the float64
+  reference: the same 2e-6 (measured 1.4e-7 at nz = 2 to 3.7e-7 at nz = 13 and 251 here:
+  three FFTs of M >= 2 nz - 1 a transform, the chirp rounded to complex64 from a float64
+  table); against `apply_plain`: 4e-6, as above.
 - compact against full operators over 6 steps: 1e-5 x max|p| (the operators agree to fp32
   rounding: they are built in fp32 on the device instead of float64 on the host; measured
   1.3e-7).
@@ -42,7 +46,7 @@ step_mod = importlib.import_module("kwave_tpu_torch.solver.step")
 JAX_TOL, F64_TOL = 3e-5, 2e-6
 
 
-def _case(nz=32, ny=16, nx=16, seed=0):
+def _case(nz=32, ny=16, nx=16, seed=0, jax_plan=True):
     rng = np.random.default_rng(seed)
     nxr = nx // 2 + 1
     s = (rng.standard_normal((nz, ny, nxr))
@@ -51,7 +55,9 @@ def _case(nz=32, ny=16, nx=16, seed=0):
     k2y = (np.fft.fftfreq(ny) * 2 * np.pi * ny / 1e-2) ** 2
     k2x = (np.fft.rfftfreq(nx) * 2 * np.pi * nx / 1e-2) ** 2
     plan = zfuse.make_plan((nz, ny, nx), k2z, k2y, k2x, 1e-5)
-    jplan = jzfuse.make_plan((nz, ny, nx), k2z, k2y, k2x, c_ref_dt_2=1e-5)
+    jplan = None
+    if jax_plan:
+        jplan = jzfuse.make_plan((nz, ny, nx), k2z, k2y, k2x, c_ref_dt_2=1e-5)
     return s, (k2z, k2y, k2x), plan, jplan
 
 
@@ -126,14 +132,15 @@ def test_grad_without_kappa_and_nz_not_a_power_of_two():
 
 
 RADIX_NZ = [8, 16, 32, 64, 128, 256, 512]
-MIXED_NZ = [12, 24, 60, 100, 192, 448]  # radices 3, 5 and 7 among the passes
+# radices 3, 5 and 7 among the passes; 11 and 13 (22, 26, 110); a generic pass (34 = 17 x 2)
+MIXED_NZ = [12, 24, 60, 100, 192, 448, 22, 26, 34, 110]
 PLAIN_TOL = 4e-6  # radix passes against the dense sum: the sum of their two bounds
 
 
-def _radix_case(nz, n_ops, kind, use_kappa, seed):
+def _radix_case(nz, n_ops, kind, use_kappa, seed, jax_plan=True):
     """A small spectrum [nz, 3, 4] with its ops, dd vectors and float64 operators."""
     ny, nx = 3, 6
-    s, k2, plan, jplan = _case(nz=nz, ny=ny, nx=nx, seed=seed)
+    s, k2, plan, jplan = _case(nz=nz, ny=ny, nx=nx, seed=seed, jax_plan=jax_plan)
     rng = np.random.default_rng(seed + 1)
     sizes = (nz, ny, nx // 2 + 1)
     shapes = [(nz, 1, 1), (1, ny, 1), (1, 1, sizes[2])]
@@ -158,7 +165,8 @@ def test_radix_plain_matches_float64_and_dense_plain(nz, n_ops, kind, use_kappa)
     """The radix and mixed kernels' decomposition on tensors: their passes, the operator
     looked up at the digit-reversed bin, the inverse passes, the 1/nz, kappa at arg == 0 and
     the nabla at k == 0 (bin 0 of column 0 is in every case)."""
-    s, plan, _, specs, dds, ops64 = _radix_case(nz, n_ops, kind, use_kappa, seed=nz + n_ops)
+    s, plan, _, specs, dds, ops64 = _radix_case(nz, n_ops, kind, use_kappa, seed=nz + n_ops,
+                                                jax_plan=False)
     assert plan.passes == zfuse.radix_passes(nz) and int(np.prod(plan.passes)) == nz
     ddc = tuple(torch.from_numpy(d[:, 0] + 1j * d[:, 1]) for d in dds)
     got = zfuse.apply_radix_plain(plan, torch.from_numpy(s), specs, ddc, use_kappa=use_kappa)
@@ -199,10 +207,11 @@ def test_radix_pass_plans_and_digit_reversal(nz, passes):
     np.testing.assert_array_equal(bins, q0 + r[0] * (q1 + r[1] * q2))
 
 
-@pytest.mark.parametrize("nz", [24, 60, 96])
+@pytest.mark.parametrize("nz", [24, 60, 96, 22, 26, 34])
 def test_mixed_plain_matches_the_jax_kernel(nz):
-    """The mixed kernel's passes on tensors (radices 3 and 5 among them) against the JAX
-    package's kernel in interpret mode, three grad ops off one forward."""
+    """The mixed kernel's passes on tensors (radices 3 and 5 among them; 11 at 22, 13 at
+    26, the generic pass of 17 at 34) against the JAX package's kernel in interpret mode,
+    three grad ops off one forward."""
     s, plan, jplan, specs, dds, ops64 = _radix_case(nz, 3, "grad", True, seed=nz)
     assert plan.kernel == "mixed"
     ddc = tuple(torch.from_numpy(d[:, 0] + 1j * d[:, 1]) for d in dds)
@@ -214,7 +223,8 @@ def test_mixed_plain_matches_the_jax_kernel(nz):
         _hold(g.numpy(), np.asarray(re) + 1j * np.asarray(im), _ref64(s, op64))
 
 
-@pytest.mark.parametrize("nz", [12, 24, 48, 60, 96, 100, 192, 320, 448, 1000, 1536, 1701])
+@pytest.mark.parametrize("nz", [12, 24, 48, 60, 96, 100, 192, 320, 448, 1000, 1536, 1701,
+                                2, 6, 7, 11, 13, 22, 26, 110, 176, 208, 1331, 1573])
 def test_mixed_pass_plans(nz):
     """The mixed kernel's plans: radices from its set, at most MAX_PASSES of them, whose
     product is nz, the power-of-two part in the widest passes first and each odd factor a
@@ -245,30 +255,199 @@ def test_mixed_nz_take_the_mixed_kernel(nz):
     assert zfuse.MIXED_MAX_NZ >= 1701
 
 
-@pytest.mark.parametrize("nz", [1, 2, 4, 11, 110, 176, 1009, 1331])
+@pytest.mark.parametrize("nz", [17, 23, 34, 230, 172, 1708, 404, 1616])
+def test_generic_pass_plans(nz):
+    """A z length with one prime factor from PRIME_MIN to PRIME_MAX takes the mixed kernel
+    with a generic pass of that prime first, then the passes of the rest as any mixed plan;
+    the bin order they leave is a permutation, and the plan carries it."""
+    passes = zfuse.radix_passes(nz)
+    p = passes[0]
+    assert zfuse.kernel_for(nz) == "mixed" and int(np.prod(passes)) == nz
+    assert zfuse.PRIME_MIN <= p <= zfuse.PRIME_MAX and p not in zfuse.RADICES
+    assert passes[1:] == (zfuse.radix_passes(nz // p) if nz > p else ())
+    assert set(passes[1:]) <= set(zfuse.RADICES) and len(passes) <= zfuse.MAX_PASSES
+    bins = zfuse.digit_reversed_bins(passes)
+    assert sorted(bins) == list(range(nz))
+    _, _, plan, _ = _case(nz=nz, ny=2, nx=4, jax_plan=False)
+    np.testing.assert_array_equal(plan.bins.numpy(), bins)
+
+
+@pytest.mark.parametrize("nz", [127, 251, 289, 1009, 1699, 1709])
+def test_bluestein_plans(nz):
+    """A z length the mixed passes refuse (a prime above PRIME_MAX, or two prime factors
+    from 17 up: 289 = 17^2) takes the Bluestein kernel: M is the shortest length from
+    2 nz - 1 whose passes are all radices in registers; the plan's bin table (of M) is a
+    permutation; the chirp and the filter's transform are float64's, rounded."""
+    assert zfuse.radix_passes(nz) is None and zfuse.kernel_for(nz) == "bluestein"
+    _, _, plan, _ = _case(nz=nz, ny=2, nx=4, jax_plan=False)
+    m = plan.m
+    assert m == zfuse.bluestein_length(nz) >= 2 * nz - 1
+    assert all(zfuse._passes(k, generic=False) is None for k in range(2 * nz - 1, m))
+    assert set(plan.passes) <= set(zfuse.RADICES) and int(np.prod(plan.passes)) == m
+    assert sorted(plan.bins.numpy()) == list(range(m))
+    n = np.arange(nz)
+    chirp = np.exp(-1j * np.pi * n.astype(np.float64) ** 2 / nz)
+    np.testing.assert_allclose(plan.chirp.numpy(), chirp, rtol=0, atol=1e-6)
+    c = np.zeros(m, complex)
+    c[:nz], c[m - nz + 1:] = chirp, chirp[1:][::-1]
+    np.testing.assert_allclose(plan.filt.numpy(), np.fft.fft(c) / m, rtol=0,
+                               atol=1e-6 * np.abs(np.fft.fft(c) / m).max())
+    assert tuple(plan.m_roots.shape) == (m,) and plan.filt.dtype == torch.complex64
+
+
+@pytest.mark.parametrize("nz", [1, 2, 4, 11, 110, 176, 1009, 1331,
+                                13, 17, 23, 127, 1699, 1709])
 def test_other_nz_take_the_dense_kernel(nz):
-    """nz below 8 or with a prime factor of 11 or more is routed to the dense kernel's
-    plan, and the FFT kernels' passes refuse it."""
-    assert zfuse.radix_passes(nz) is None and zfuse.kernel_for(nz) == "dense"
-    s, _, plan, _ = _case(nz=nz, ny=2, nx=4)
-    assert plan.passes is None and plan.bins is None and plan.kernel == "dense"
-    with pytest.raises(ValueError, match="dense kernel"):
-        zfuse.apply_radix_plain(plan, torch.from_numpy(s), (zfuse.OpSpec("nabla"),), ())
+    """The z lengths that took the dense kernel before every length had an FFT (below 8, a
+    prime factor of 11 or more), and more: each takes the kernel `kernel_for` names, and
+    only nz = 1 the dense one; the plan carries that kernel's tables and none of the
+    others'; the plain version of another kernel refuses it; `apply` on the CPU takes the
+    dense plain version and counts no launch."""
+    want = {1: "dense", 127: "bluestein", 1009: "bluestein", 1699: "bluestein",
+            1709: "bluestein"}.get(nz, "mixed")
+    assert zfuse.kernel_for(nz) == want
+    s, _, plan, _ = _case(nz=nz, ny=2, nx=4, jax_plan=False)
+    assert plan.kernel == want
+    assert (plan.passes is None) == (want == "dense")
+    assert (plan.m is None) == (want != "bluestein")
+    if want == "mixed":
+        assert plan.passes == zfuse.radix_passes(nz)
+    nab = (zfuse.OpSpec("nabla"),)
+    st = torch.from_numpy(s)
+    if want != "bluestein":
+        with pytest.raises(ValueError, match="bluestein kernel"):
+            zfuse.apply_bluestein_plain(plan, st, nab)
+    if want != "mixed":
+        with pytest.raises(ValueError, match=f"{want} kernel"):
+            zfuse.apply_radix_plain(plan, st, nab)
+    before = dict(zfuse.KERNEL_LAUNCHES)
+    assert torch.equal(zfuse.apply(plan, st, nab)[0], zfuse.apply_plain(plan, st, nab)[0])
+    assert zfuse.KERNEL_LAUNCHES == before
     with pytest.raises(ValueError, match="nz must be in"):
-        _case(nz=zfuse.MAX_NZ + 1, ny=2, nx=4)
-    assert set(zfuse.KERNEL_LAUNCHES) == {"radix", "mixed", "dense"}
+        _case(nz=zfuse.MAX_NZ + 1, ny=2, nx=4, jax_plan=False)
+    assert set(zfuse.KERNEL_LAUNCHES) == {"radix", "mixed", "bluestein", "dense"}
+
+
+@pytest.mark.parametrize("n_ops,kind", [(1, "grad0"), (1, "nabla"), (3, "grad"),
+                                        (3, "nabla")])
+@pytest.mark.parametrize("nz", [17, 127, 230, 251, 1009, 1709])
+def test_bluestein_plain_matches_float64_and_dense_plain(nz, n_ops, kind):
+    """The Bluestein kernel's steps on tensors (the chirp, the passes of M, the filter at
+    each position's bin, the 1/M in the table and the 1/nz in the operator) at the z lengths
+    it takes and, through a plan that names it, at 17 and 230 (M = 33, 462), one op and
+    three: within 2e-6 of the peak of float64 (up to M = 3430 at nz = 1709) and 4e-6 of
+    `apply_plain`."""
+    s, plan, _, specs, dds, ops64 = _radix_case(nz, n_ops, kind, True, seed=nz + n_ops,
+                                                jax_plan=False)
+    plan = dataclasses.replace(plan, **zfuse.kernel_tables(nz, "bluestein"))
+    ddc = tuple(torch.from_numpy(d[:, 0] + 1j * d[:, 1]) for d in dds)
+    got = zfuse.apply_bluestein_plain(plan, torch.from_numpy(s), specs, ddc)
+    dense = zfuse.apply_plain(plan, torch.from_numpy(s), specs, ddc)
+    assert len(got) == n_ops
+    for g, d, op64 in zip(got, dense, ops64):
+        ref = _ref64(s, op64)
+        scale = np.abs(ref).max()
+        assert g.dtype == torch.complex64 and tuple(g.shape) == s.shape
+        assert np.abs(g.numpy() - ref).max() <= F64_TOL * scale
+        assert np.abs(g.numpy() - d.numpy()).max() <= PLAIN_TOL * scale
+
+
+@pytest.mark.parametrize("nz,m", [(17, 40), (17, 64), (127, 288), (143, 288), (1331, 2688)])
+def test_bluestein_tables_at_another_m(nz, m):
+    """`bluestein_tables` at a convolution length other than `bluestein_length`'s (as the
+    design sweep takes one without radices 11 and 13): its own passes and bin table of M,
+    and the Bluestein steps within 2e-6 of float64's peak, three grad ops off one
+    forward."""
+    s, plan, _, specs, dds, ops64 = _radix_case(nz, 3, "grad", True, seed=nz, jax_plan=False)
+    plan = dataclasses.replace(plan, **zfuse.bluestein_tables(nz, m))
+    assert plan.m == m and int(np.prod(plan.passes)) == m
+    assert sorted(plan.bins.numpy()) == list(range(m))
+    ddc = tuple(torch.from_numpy(d[:, 0] + 1j * d[:, 1]) for d in dds)
+    got = zfuse.apply_bluestein_plain(plan, torch.from_numpy(s), specs, ddc)
+    for g, op64 in zip(got, ops64):
+        ref = _ref64(s, op64)
+        assert np.abs(g.numpy() - ref).max() <= F64_TOL * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("nz,m", [(17, 32), (17, 34), (127, 254)])
+def test_bluestein_tables_refuse_a_length_they_cannot_take(nz, m):
+    """M below 2 nz - 1, or with a factor no pass takes (17, 127), is refused."""
+    with pytest.raises(ValueError, match="no convolution length"):
+        zfuse.bluestein_tables(nz, m)
+
+
+@pytest.mark.parametrize("nz,want", [(176, ("mixed", (11, 16), None)),
+                                     (208, ("mixed", (13, 16), None)),
+                                     (220, ("mixed", (11, 4, 5), None)),
+                                     (192, ("mixed", (8, 8, 3), None)),
+                                     (143, ("bluestein", (8, 4, 3, 3), 288)),
+                                     (1331, ("bluestein", (16, 8, 3, 7), 2688))])
+def test_design_sweep_plans_without_radix_11_13(nz, want):
+    """The plans the design sweep gives the build without butterflies of 11 and 13 (python
+    -m kwave_tpu_torch.sweeps --only k7design): one such prime as the generic pass, first,
+    two or more through the Bluestein kernel at the shortest M without them, and the
+    default build's own plan otherwise; each computes the same function (three grad ops
+    within 2e-6 of float64's peak)."""
+    from kwave_tpu_torch import sweeps
+
+    s, plan, _, specs, dds, ops64 = _radix_case(nz, 3, "grad", True, seed=nz, jax_plan=False)
+    default = sweeps._design_plan(plan, True)
+    assert default.kernel == "mixed" and default.passes == zfuse.radix_passes(nz)
+    other = sweeps._design_plan(plan, False)
+    assert (other.kernel, other.passes, other.m) == want
+    assert 11 not in other.passes[1:] and 13 not in other.passes[1:]
+    ddc = tuple(torch.from_numpy(d[:, 0] + 1j * d[:, 1]) for d in dds)
+    plain = zfuse.apply_bluestein_plain if other.kernel == "bluestein" else \
+        zfuse.apply_radix_plain
+    for g, op64 in zip(plain(other, torch.from_numpy(s), specs, ddc), ops64):
+        ref = _ref64(s, op64)
+        assert np.abs(g.numpy() - ref).max() <= F64_TOL * np.abs(ref).max()
+
+
+def test_a_variant_build_has_its_own_library():
+    """A build with ``-D`` switches (the design sweep's variants) is named apart from the
+    default one, so neither takes the other's library; the same switches, the same name."""
+    from kwave_tpu_torch.ops import _build
+
+    default = _build.library_path()
+    variant = _build.library_path(("KW_RADIX_11_13=0",))
+    assert variant != default and variant.parent == default.parent
+    assert _build.library_path(("KW_RADIX_11_13=0",)) == variant
+    assert _build.library_path(("KW_OP_IN_PASS_MAX=0",)) not in (default, variant)
+
+
+@pytest.mark.parametrize("nz", [22, 26, 34])
+def test_bluestein_plain_matches_the_jax_kernel(nz):
+    """The Bluestein kernel's steps on tensors, through a plan that names it, against the
+    JAX package's kernel in interpret mode, three grad ops off one forward."""
+    s, plan, jplan, specs, dds, ops64 = _radix_case(nz, 3, "grad", True, seed=nz + 7)
+    plan = dataclasses.replace(plan, **zfuse.kernel_tables(nz, "bluestein"))
+    ddc = tuple(torch.from_numpy(d[:, 0] + 1j * d[:, 1]) for d in dds)
+    got = zfuse.apply_bluestein_plain(plan, torch.from_numpy(s), specs, ddc)
+    theirs = jzfuse.apply(jplan, jnp.asarray(s.real), jnp.asarray(s.imag),
+                          tuple(jzfuse.OpSpec(o.kind, o.axis, o.power) for o in specs),
+                          tuple(dds), use_kappa=True, interpret=True)
+    for g, (re, im), op64 in zip(got, theirs, ops64):
+        _hold(g.numpy(), np.asarray(re) + 1j * np.asarray(im), _ref64(s, op64))
 
 
 def test_apply_refuses_a_plan_without_its_fft_tables():
     """A plan may name another kernel (chip_smoke times the dense kernel at an nz of the
-    mixed one), but an FFT kernel needs passes that multiply to nz and the bin table."""
+    mixed one), but an FFT kernel needs passes of its radices that multiply to its length
+    and the bin table, and the Bluestein kernel also M >= 2 nz - 1, the chirp, the filter
+    and the M roots."""
     s, _, plan, _ = _case(nz=24, ny=2, nx=4)
     st, nab = torch.from_numpy(s), (zfuse.OpSpec("nabla"),)
     dense = dataclasses.replace(plan, kernel="dense", passes=None)
     assert torch.equal(zfuse.apply(dense, st, nab)[0], zfuse.apply_plain(plan, st, nab)[0])
     for bad in (dataclasses.replace(plan, bins=None), dataclasses.replace(plan, passes=(8, 4)),
                 dataclasses.replace(dense, kernel="mixed"),
-                dataclasses.replace(plan, kernel="fft")):
+                dataclasses.replace(plan, kernel="fft"),
+                dataclasses.replace(plan, kernel="bluestein"),
+                dataclasses.replace(plan, passes=(12, 2)),
+                dataclasses.replace(plan, **{**zfuse.kernel_tables(24, "bluestein"),
+                                             "chirp": None}),
+                dataclasses.replace(plan, **zfuse.kernel_tables(12, "bluestein"))):
         with pytest.raises(ValueError, match="kernel"):
             zfuse.apply(bad, st, nab)
 
@@ -407,12 +586,30 @@ def _input(kw, medium, p0, n_sensors=48):
 def test_driver_fuse_z_matches_default_and_jax(tmp_path):
     """run_simulation with fuse_z on (the tiny configuration of tests/test_zfuse.py)
     against the port's default run and the JAX package's fuse_z run."""
+    _hold_fuse_z_run(tmp_path, nz=16, matmul_fft=True)
+
+
+def test_driver_fuse_z_with_a_radix_11_pass_matches_default_and_jax(tmp_path):
+    """The same at nz = 22, whose plan is the mixed kernel's with a pass of radix 11. The
+    JAX package's fused run takes XLA's FFT over x and y here: with its matmul transforms
+    (``matmul_fft=True, fft_direct_base=16``) its fused run at nz = 22 reads 0.90 of the
+    peak off its own default run, where the same run without ``fuse_z`` and the fused run
+    with XLA's FFT read 8.8e-7."""
+    assert zfuse.radix_passes(22) == (2, 11)
+    _hold_fuse_z_run(tmp_path, nz=22, matmul_fft=False)
+
+
+def _hold_fuse_z_run(tmp_path, nz, matmul_fft):
     from kwave_tpu.driver import RunConfig as JRunConfig
     from kwave_tpu.driver import run_simulation as jrun
     from kwave_tpu.io.input_file import InputData as JInputData
     from kwave_tpu_torch.driver import RunConfig, run_simulation
 
     kw, _, p0 = _setup(nt=30)
+    if nz != kw["nz"]:
+        kw["nz"] = nz
+        p0 = np.zeros((nz, kw["ny"], kw["nx"]), np.float32)
+        p0[nz // 2, kw["ny"] // 2, kw["nx"] // 2] = 1e5
     medium = dict(c0=1500.0, rho0=1000.0)
     data, mask = _input(kw, medium, p0)
     outs = {}
@@ -428,8 +625,9 @@ def test_driver_fuse_z_matches_default_and_jax(tmp_path):
                        pml_size=(2, 2, 2), pml_alpha=(2.0,) * 3, sensor_mask_index=mask,
                        p0=p0)
     jpath = str(tmp_path / "jax.h5")
-    jrun(jdata, JRunConfig(flags=dict(p_raw=True), matmul_fft=True, fft_precision="high",
-                           fft_direct_base=16, compact_operators=True, fuse_z=True), jpath)
+    fft = dict(matmul_fft=True, fft_precision="high", fft_direct_base=16) if matmul_fft else {}
+    jrun(jdata, JRunConfig(flags=dict(p_raw=True), compact_operators=True, fuse_z=True, **fft),
+         jpath)
     with h5py.File(jpath) as f:
         outs["jax"] = np.asarray(f["p"])
     ref = outs["default"]
