@@ -58,7 +58,7 @@ the final ok line):
    plain version and the window loop, and the same record cut at 3 windows a thread
    (chunks that start on odd and on even windows), bit for bit.
 8. fused z stage (path B), K7's four kernels (radix: nz a power of two from 8; mixed: other
-   nz with prime factors up to 13, or all but one prime up to 101 (a generic pass);
+   nz with prime factors up to 13, or all but one prime up to 47 (a generic pass);
    Bluestein: the rest from 2; dense: nz = 1, which no `run_simulation` reaches, since a
    grid of one z plane is 2D and the driver fuses 3D grids alone: it is timed as the
    kernel the FFT kernels replaced, through plans that name it, and its rows in the
@@ -66,8 +66,10 @@ the final ok line):
    spectra of 256^3 (radix, and mixed through a plan that names it), 192^3 (mixed and
    dense) and, with the operators of a homogeneous medium of the same recipe, 384^3
    (mixed and dense), 320^3 and 448^3 (mixed), 176^3 and 208^3 (mixed with radix 11 / 13, and dense), 230^3 (mixed with the
-   generic pass of 23, Bluestein and dense), 251^3 (Bluestein and dense), 1009 x 128 x 128
-   (Bluestein, M = 2025) and 4 x 256 x 256, 6 x 256 x 256 (mixed and dense: nz below 8,
+   generic pass of 23, Bluestein and dense), 251^3 (Bluestein, M = 512, and dense), 1009 x
+   128 x 128 (Bluestein, M = 2048; its rows name the tile width, the blocks an SM and the
+   staged tables, and time `apply_bluestein_plain` too) and 4 x 256 x 256, 6 x 256 x 256
+   (mixed and dense: nz below 8,
    which the dense kernel took before), one op and three, against a float64 FFT (2e-6 of
    the peak) and the kernel's own plain version (4e-6), timed beside `apply_plain` and the
    library route ``ifft(fft(s, 0) * op, 0)``, its launches counted under the kernel that
@@ -80,7 +82,7 @@ the final ok line):
    two within 1e-4 of the peak, each run's p_c bytes equal to the oracle's encoding of its
    own p_raw, every K7 launch the kernel `kernel_for` names (radix, mixed, mixed, mixed,
    Bluestein), ms/step of both, and the device time by kernel of one profiled window of
-   each (of the fused run alone at 230 and 251); at 220 both runs are read a second time
+   each (of the fused run alone at 230); at 220 and 251 both runs are read a second time
    after the first two, to tell the first use of the grid's FFT plans and buffers, which
    the first run of a grid pays, from the steps.
 9. checkpoint legs and the intensity / Q-term outputs: `run_simulation` at phase 4's
@@ -112,7 +114,11 @@ the final ok line):
    and the CPU's p series encoded on the card to the CPU's p_c bytes; (b) phase 9's input at full width (128^3, 16384
    sensors, 2 windows and a 5-step tail) with ``--p_raw --u_non_staggered_raw --p_c
    --u_non_staggered_c --40-bit_complex --I_avg --Q_term --p_max --p_rms``, card
-   against CPU likewise (the shifted velocity's Nyquist bin at the size users run);
+   against CPU likewise (the shifted velocity's Nyquist bin at the size users run), and
+   for the 40-bit dataset of the largest rel L2 the coefficient farthest apart (frame row,
+   sensor, harmonic, part), both values and their distance in steps of the word, the
+   coefficient parts counted by steps apart, and the rel L2 without the parts at most one
+   step apart (`acceptance_cases.worst_40bit`);
    (c) `solver.simulate` on the card: the standing wave (2D, 3D, 3D fused: radix K7)
    against its closed form (5e-3) and acoustic reciprocity (1e-4 of the peak). Prints
    the window kernels' and K7's launches (by kernel).
@@ -947,14 +953,14 @@ K7_SPECTRA = (((384,) * 3, ("mixed", "dense")), ((320,) * 3, ("mixed",)),
 # phase 8 (c): the runs after 256^3 and 192^3, each through the kernel kernel_for names:
 # (n, the runs profiled, the runs read again after both)
 FUSED_GRIDS = ((220, ("compact", "fused"), ("compact", "fused")), (230, ("fused",), ()),
-               (251, ("fused",), ()))
+               (251, ("compact", "fused"), ("compact", "fused")))
 # K7's kernels that no run_simulation takes (the dense one: nz = 1 alone, a 2D grid, which
 # the driver does not fuse): their rows in the kernels line are timings beside the path's
 # kernels and carry the path's count, 0, with "timing_only"
 TIMING_ONLY = ("dense",)
 K7_SOURCES = {"radix": "kwave_tpu_torch/csrc/zfuse.cu", "dense": "kwave_tpu_torch/csrc/zfuse.cu",
               "mixed": "kwave_tpu_torch/csrc/zfuse_mixed.cu",
-              "bluestein": "kwave_tpu_torch/csrc/zfuse_bluestein.cu"}
+              "bluestein": "kwave_tpu_torch/csrc/zfuse_bluestein.cuh"}
 
 
 def _bits_equal(a, b) -> bool:
@@ -1282,9 +1288,20 @@ def zfuse_kernel_phase(ops, shape: tuple[int, int, int], kernels: tuple[str, ...
                 functools.partial(zfuse.apply, plan, s, specs, dds, use_kappa=use_kappa),
                 iters=2 if slow else 10, warmup=1 if slow else 2)
             row = dict(max_abs_err=worst, ms=ms, **others[n_ops])
+            layout = ""
+            if kernel == "bluestein":  # its tile, and its own plain version's time
+                tile = zfuse.bluestein_tile(plan.nz, plan.m, n_ops)
+                row["tile"] = dict(tc=tile.tc, blocks=tile.blocks, staged=list(tile.staged),
+                                   smem=tile.smem)
+                row["own_plain_ms"], _ = _time_per_call(
+                    functools.partial(zfuse.apply_bluestein_plain, plan, s, specs, dds,
+                                      use_kappa=use_kappa), iters=3, warmup=1)
+                layout = (f", tiles of {tile.tc} columns, {tile.blocks} blocks an SM, "
+                          f"staged {list(tile.staged)}, {tile.smem} B of shared memory; "
+                          f"apply_bluestein_plain {row['own_plain_ms']:.4f} ms")
             results[f"zfuse_{kernel}_{n_ops}op_nz{n}"] = dict(row, kernel=kernel, n_ops=n_ops)
             moved = (1 + n_ops) * _nbytes(s)
-            print(f"[8 zfuse] {kernel} kernel (passes {plan.passes}, M {plan.m}), {key}: "
+            print(f"[8 zfuse] {kernel} kernel (passes {plan.passes}, M {plan.m}{layout}), {key}: "
                   f"spectrum [{n}, {base.ny}, {base.nxr}], off plain at most "
                   f"{worst_plain:.2e} and float64 {worst_ref:.2e} of the peak; device time "
                   f"per call: kernel {ms:.4f} ms (wall {wall:.4f} ms, "
@@ -1311,7 +1328,7 @@ def _zfuse_small_spectra():
     """K7 on small spectra [nz, 8, 129] (`SMALL_SPECTRA`): the radix kernel at two passes
     of equal and of unequal radix and at three; the mixed kernel at nz from 2 to 7, radices
     3, 5, 7, 11 and 13, the generic pass of 17 and of 23, three and four passes and the
-    widest tile (1536); the Bluestein kernel from M = 256 (127) to M = 3430 (1709). One op
+    widest tile (1536); the Bluestein kernel from M = 256 (127) to M = 4096 (1709). One op
     and three, against a float64 FFT and the kernel's own plain version."""
     import torch
 
@@ -1655,6 +1672,13 @@ def main_path_phase():
         if flags == ["--p_raw", "--p_c"]:
             float_run = (out, steps)  # decoded on the card in phase 6
     return dict(ew.LAUNCHES), float_run
+
+
+def _member(group, path: str):
+    """The dataset or group of an in-memory group at ``path`` ("a/b")."""
+    for name in path.split("/"):
+        group = group[name]
+    return group
 
 
 def _datasets(group, prefix=""):
@@ -2003,6 +2027,20 @@ def acceptance_phase(smi):
           + f" (held by the quantum floor: {sorted(floored) or 'none'}), u*_non_staggered "
           f"{shifted:.2e}; p_c bytes {p_c}; card {secs:.2f} s, CPU {cpu_s:.1f} s ({smi})",
           flush=True)
+    # the worst 40-bit dataset: which coefficient, and how many steps of its word apart
+    forty = [k for k in errs if float(_member(cpu, k).attrs.get("c_complex_size", 0)) == 1.25]
+    if forty:
+        where = max(forty, key=errs.get)
+        w = ac.worst_40bit(_member(cpu, where), _member(card, where))
+        print(f"[10 acceptance] (b) worst 40-bit dataset {where} (rel L2 {errs[where]:.2e}): "
+              f"frame row {w['row']}, sensor {w['sensor']} (mask index "
+              f"{int(data.sensor_mask_index[w['sensor']])}), harmonic {w['harmonic']}, "
+              f"{w['part']}: CPU {w['want']!r}, card {w['got']!r}, {w['quanta']:g} steps "
+              f"of its word (step {w['step']:g}, the value {abs(w['want']) / w['step']:.1f} "
+              f"steps); of its {w['parts']} coefficient parts, by steps apart "
+              f"{w['differ']}; rel L2 {w['rel_l2']:.2e}, and "
+              f"{w['rel_l2_without_one_step']:.2e} with the parts at most one step apart set "
+              f"equal", flush=True)
 
     ew.reset_launch_counts()
     zfuse.reset_launch_counts()

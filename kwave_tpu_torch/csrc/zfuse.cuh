@@ -2,8 +2,9 @@
 // operator built in the kernel -> z-IDFT, for up to three operators off one forward
 // transform. What its four kernels share: the operators, the butterflies in registers and
 // the mixed-radix passes in shared memory. The kernels: zfuse.cu (the dense and the radix
-// kernel), zfuse_mixed.cu (the mixed-radix kernel), zfuse_bluestein.cu (the Bluestein
-// kernel), each its own source so that nvcc builds them side by side.
+// kernel), zfuse_mixed.cu (the mixed-radix kernel), zfuse_bluestein.cuh (the Bluestein
+// kernel, one source a tile width), each its own source so that nvcc builds them side by
+// side.
 //
 // Replaces the TPU kernel of kwave_tpu/ops/zfuse.py (_kernel, entry apply).
 //

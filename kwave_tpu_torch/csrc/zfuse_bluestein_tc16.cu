@@ -1,0 +1,6 @@
+// The fused z stage's Bluestein kernel (zfuse_bluestein.cuh) at tiles of 16 columns, a
+// source of its own so that nvcc builds it beside the other widths.
+
+#include "zfuse_bluestein.cuh"
+
+int kw_blue::launch_tc16(const kw_blue::Args& a) { return launch_bluestein<16>(a); }

@@ -453,14 +453,17 @@ def run_simulation(data: InputData, run: RunConfig, output,
             # as in kwave_tpu: only the single-device run builds the fused z stage
             Logger.log(Logger.BASIC, "WARNING: fuse_z is not used on a mesh; ignored")
     elif run.fuse_z:
-        if compact and is3d:
-            from kwave_tpu_torch.ops import zfuse
+        from kwave_tpu_torch.ops import zfuse
 
+        if not (compact and is3d):
+            Logger.log(Logger.BASIC, "WARNING: fuse_z needs 3D compact operators; ignored")
+        elif grid.nz > zfuse.MAX_NZ:
+            Logger.log(Logger.BASIC, f"WARNING: fuse_z takes nz up to {zfuse.MAX_NZ}; "
+                                     f"nz = {grid.nz} runs unfused")
+        else:
             spectral_multi = zfuse.make_pipeline(grid.shape, ops.k2_z, ops.k2_y, ops.k2_x,
                                                  ops.c_ref_dt_2, device)
             Logger.log(Logger.ADVANCED, "  zfuse enabled (fused z-stage spectral multiply)")
-        else:
-            Logger.log(Logger.BASIC, "WARNING: fuse_z needs 3D compact operators; ignored")
     cfg = SolverConfig(
         nonlinear=data.nonlinear,
         absorbing=data.absorbing,

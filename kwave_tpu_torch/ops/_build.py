@@ -63,9 +63,10 @@ SIGNATURES = {
     # spectrum, roots, bins, k2z, k2y, k2x, 3 dd vectors, 3 outputs; the same ints and
     # floats; use_kappa, the number of passes and seven radices (1 past the last pass)
     "kw_zfuse_mixed": [_P] * 12 + [_I] * 10 + [ctypes.c_float] * 4 + [_I] * 9 + [_P],
-    # spectrum, M roots, bins, chirp, filter, k2z, k2y, k2x, 3 dd vectors, 3 outputs; the
-    # same ints and floats; use_kappa, M, the number of passes and seven radices
-    "kw_zfuse_bluestein": [_P] * 14 + [_I] * 10 + [ctypes.c_float] * 4 + [_I] * 10 + [_P],
+    # spectrum, M roots, chirp, filter, k2z, k2y, k2x, 3 dd vectors, 3 outputs; the same
+    # ints and floats; use_kappa, M, the number of passes, seven radices, the tile width
+    # and the staged tables
+    "kw_zfuse_bluestein": [_P] * 13 + [_I] * 10 + [ctypes.c_float] * 4 + [_I] * 12 + [_P],
 }
 
 

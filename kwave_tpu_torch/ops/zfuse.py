@@ -14,7 +14,8 @@ bin order, after the x/y transforms):
 - ``out = IDFT_z . G`` (with the 1/nz). Up to three ops share the one forward transform.
 
 Four kernels, all CUDA C++ for sm_90a in ``kwave_tpu_torch/csrc/`` (``zfuse.cu``: radix
-and dense; ``zfuse_mixed.cu``; ``zfuse_bluestein.cu``; what they share in ``zfuse.cuh``).
+and dense; ``zfuse_mixed.cu``; ``zfuse_bluestein.cuh``, one source a tile width; what they
+share in ``zfuse.cuh``).
 `make_plan` chooses one by ``nz`` (`kernel_for`) and records it in the plan with its tables
 (`kernel_tables`); `apply` launches the kernel its plan names, or raises:
 
@@ -31,9 +32,12 @@ and dense; ``zfuse_mixed.cu``; ``zfuse_bluestein.cu``; what they share in ``zfus
   own), the one larger prime a generic pass of its own, first (`radix_passes`), and the
   bin table (`ZFusePlan.bins`) read from device memory.
 - "bluestein", for every other ``nz`` from 2 to `MAX_NZ` (127, 251, 1009, 1709, ...):
-  Bluestein's chirp-z transform, each z-DFT one circular convolution of length
-  ``M >= 2 nz - 1`` (`bluestein_length`) computed with the mixed kernel's passes of M, the
-  chirp and the filter's transform from float64 tables (`apply_bluestein_plain`).
+  Bluestein's chirp-z transform, each z-DFT one circular convolution of an even length
+  ``M >= 2 nz`` chosen by cost (`bluestein_length`: 512 at nz = 251, 2048 at 1009), the
+  chirp and the filter's transform from float64 tables, the filter's in the order of the
+  positions the forward passes leave; the chirp, the filter and the operator are applied
+  inside the passes, and the passes skip the half of each transform that is known to be
+  zero or is not kept (`apply_bluestein_plain`, `bluestein_tile`).
 - "dense", for ``nz = 1`` (one multiply a column): the dense DFT in fp32 FMAs, the ``nz``
   roots of unity indexed by ``(k*z) mod nz``; bound by operations (``16*nz^2`` flop per
   column and op pair against 16 B moved). No `run_simulation` takes it: a grid of one z
@@ -79,10 +83,11 @@ MAX_PASSES = 7
 # mixed: the primes that take the generic pass (one a plan, the first pass); a z length
 # with a larger prime factor, or two factors from 17 up, takes the Bluestein kernel.
 # PRIME_MAX is the measured crossover (`python -m kwave_tpu_torch.sweeps --only k7prime`
-# on an H100, z lengths 4p and 8p, one op and three): the generic pass is faster at every
-# prime up to 71 and in 25 of the 28 cases from 67 to 101, the Bluestein kernel in all four
-# at 127
-PRIME_MIN, PRIME_MAX = 17, 101
+# on an H100, z lengths 4p and 8p, one op and three, against the Bluestein kernel that
+# folds its pointwise steps into its passes): the generic pass is faster in all four cases
+# at every prime up to 23 and in 14 of the 24 from 29 to 47 (within 15 % either way), the
+# Bluestein kernel in all four at every prime from 53 to 127
+PRIME_MIN, PRIME_MAX = 17, 47
 # mixed: two tiles of nz x 8 columns of complex64 and the roots fit a block's 227 KB (the
 # bin table is read from device memory, as k2z is, so that 1701 = 3^5 x 7 fits too)
 MIXED_MAX_NZ = (227 * 1024) // (2 * 8 * 8 + 8)
@@ -147,13 +152,114 @@ def kernel_for(nz: int) -> str:
     return "mixed" if radix_passes(nz) else "bluestein"
 
 
+# The Bluestein kernel's shared memory (csrc/zfuse_bluestein.cuh): a block may take 227 KB
+# of an SM's 228 KB, each block 1 KB of it reserved; at most BLUESTEIN_BLOCKS blocks an SM
+# (its registers are capped for three); the tile widths it is built for, widest first.
+SMEM_BLOCK, SMEM_SM, SMEM_RESERVED = 227 * 1024, 228 * 1024, 1024
+BLUESTEIN_BLOCKS = 3
+BLUESTEIN_TC = (32, 16, 8, 4, 2)
+BLUESTEIN_MIN_M = 32  # two passes at least: the kernel fuses the first and the last
+# the tables a block may stage beside its tiles, in the order it stages them (the filter
+# is read at every element of every convolution, the chirp at two a column, k2z at one
+# an op), with their bytes per entry and their length (M or nz)
+_STAGED = (("filt", 8, "m"), ("chirp", 8, "nz"), ("k2z", 4, "nz"))
+# The kernel's time, fitted to `python -m kwave_tpu_torch.sweeps --only k7bluestein` on an
+# H100 (80 timings at nz = 127 to 1709 over M and the tile width; 11 % rms): per column,
+# M x its weighted sweeps (`_bluestein_sweeps`) x (1 + _SWEEP_OVERHEAD / (M x TC)) (a
+# barrier's cost in tile elements) x _BLOCKS_COST[blocks an SM]. A pass's weight is its
+# radix's cost an element against a pass of radix 8.
+_RADIX_COST = {2: 0.5, 3: 1.02, 4: 0.76, 5: 1.32, 7: 1.4, 8: 1.0, 11: 1.93, 13: 1.5,
+               16: 1.48}
+_SWEEP_OVERHEAD = 1679.0
+_BLOCKS_COST = {1: 1.55, 2: 1.12, 3: 1.0}
+# the calls of a fused step: five of one op for every call of three
+_STEP_CALLS = ((1, 5), (3, 1))
+
+
+@dataclasses.dataclass(frozen=True)
+class BluesteinTile:
+    """How the Bluestein kernel lays out one call (`bluestein_tile`): ``tc`` columns a
+    tile, ``blocks`` blocks an SM, ``staged`` the tables it copies into shared memory (the
+    rest it reads through the cache), ``smem`` its bytes of shared memory."""
+
+    tc: int
+    blocks: int
+    staged: tuple[str, ...]
+    smem: int
+
+
+def _tile_factor(m: int, tc: int, blocks: int) -> float:
+    """The fitted time of a column at tile width ``tc`` and ``blocks`` blocks an SM,
+    against a tile without barrier cost."""
+    return (1.0 + _SWEEP_OVERHEAD / (m * tc)) * _BLOCKS_COST[blocks]
+
+
+def bluestein_tile(nz: int, m: int, n_ops: int, tc: int = 0) -> BluesteinTile | None:
+    """The layout of a Bluestein call: the tile width (``tc``, or for 0 the one of least
+    `_tile_factor`, then of more blocks), the blocks an SM its shared memory leaves (at
+    most `BLUESTEIN_BLOCKS`), then every table of `_STAGED`, in turn, that fits without a
+    block less. Shared memory: the M tile of ``tc`` columns, an nz tile of the forward
+    convolution where there are several ops (one op works in place), the M roots, and the
+    staged tables. None where not even a tile of the narrowest width fits."""
+    best = None
+    for width in (tc,) if tc else BLUESTEIN_TC:
+        smem = 8 * (m * width + (nz * width if n_ops > 1 else 0) + m)
+        blocks = min(BLUESTEIN_BLOCKS, SMEM_SM // (smem + SMEM_RESERVED))
+        if smem > SMEM_BLOCK or blocks < 1:
+            continue
+        staged = []
+        for name, size, length in _STAGED:
+            more = size * (m if length == "m" else nz)
+            if blocks * (smem + more + SMEM_RESERVED) <= SMEM_SM and smem + more <= SMEM_BLOCK:
+                staged.append(name)
+                smem += more
+        tile = BluesteinTile(width, blocks, tuple(staged), smem)
+        key = (_tile_factor(m, width, blocks), -blocks)
+        if best is None or key < best[0]:
+            best = (key, tile)
+    return best[1] if best else None
+
+
+def _bluestein_sweeps(passes: tuple[int, ...], n_ops: int) -> float:
+    """The sweeps of the M tile a column of one call makes, each weighted by its pass's
+    `_RADIX_COST`: with one op the first pass's radix three times (the first forward pass,
+    the bridge into the op's convolution, the last inverse pass), each middle one four,
+    the last two (the turn of each convolution); with several, (first twice, middles twice,
+    last once) for the forward convolution and for each op's."""
+    w = [_RADIX_COST[r] for r in passes]
+    if n_ops == 1:
+        return 3 * w[0] + 4 * sum(w[1:-1]) + 2 * w[-1]
+    return (2 * w[0] + 2 * sum(w[1:-1]) + w[-1]) * (1 + n_ops)
+
+
+def _bluestein_cost(nz: int, m: int, passes: tuple[int, ...]) -> float:
+    """The rule's cost of a convolution length: the fitted time of a fused step's calls
+    (`_STEP_CALLS`), each at its own tile (`bluestein_tile`), in units of one element of a
+    radix-8 sweep; inf where a call's tile does not fit."""
+    cost = 0.0
+    for n_ops, calls in _STEP_CALLS:
+        tile = bluestein_tile(nz, m, n_ops)
+        if tile is None:
+            return float("inf")
+        cost += calls * m * _bluestein_sweeps(passes, n_ops) * _tile_factor(m, tile.tc,
+                                                                           tile.blocks)
+    return cost
+
+
 def bluestein_length(nz: int) -> int:
-    """M: the shortest length >= 2 nz - 1 whose FFT the mixed passes take without a
-    generic pass (radices from `RADICES`, at most `MAX_PASSES`)."""
-    m = 2 * nz - 1
-    while _passes(m, generic=False) is None:
-        m += 1
-    return m
+    """M: among the even lengths from ``max(2 nz, BLUESTEIN_MIN_M)`` to the next power of
+    two whose FFT the mixed passes take without a generic pass (radices from `RADICES`, at
+    most `MAX_PASSES`, two at least), the one of least `_bluestein_cost` (the shortest of
+    equal cost): 512 = 8 x 8 x 8 at nz = 251, not 504 = 8 x 3 x 3 x 7; 2048 = 16 x 16 x 8
+    at 1009; 3584 = 8 x 8 x 8 x 7 at 1709, not 4096 = 16 x 16 x 16."""
+    lo = max(2 * nz, BLUESTEIN_MIN_M)
+    best, best_cost = None, float("inf")
+    for m in range(lo, 1 << (lo - 1).bit_length() + 1, 2):
+        passes = _passes(m, generic=False)
+        cost = _bluestein_cost(nz, m, passes) if passes and len(passes) >= 2 else float("inf")
+        if cost < best_cost:
+            best, best_cost = m, cost
+    return best
 
 
 def digit_reversed_bins(passes: tuple[int, ...]) -> np.ndarray:
@@ -192,13 +298,16 @@ class ZFusePlan:
     k2y: torch.Tensor  # [ny]
     k2x: torch.Tensor  # [nxr]
     kernel: str = "dense"  # the kernel `apply` launches: one of KERNELS
-    # the FFT's passes and the bin each position holds after them (int16): of nz for the
-    # radix and mixed kernels, of m for the Bluestein kernel; None for the dense kernel
+    # the FFT's passes (of nz for the radix and mixed kernels, of m for the Bluestein
+    # kernel; None for the dense kernel) and, for the radix and mixed kernels, the bin each
+    # position holds after them (int16)
     passes: tuple[int, ...] | None = None
     bins: torch.Tensor | None = None
     # the Bluestein kernel's: its convolution length M, the chirp w_n = exp(-i*pi*(n^2 mod
     # 2 nz)/nz) [nz], the transform of the filter c (c_j = c_{M-j} = w_j, j < nz; 0 else)
-    # over M, FFT_M(c)/M [M] in bin order, and the M roots exp(-2*pi*i*j/M), all complex64
+    # over M, FFT_M(c)/M [M] in the order of the positions after the forward passes
+    # (filt[p] = FFT_M(c)[digit_reversed_bins(passes)[p]]/M), and the M roots
+    # exp(-2*pi*i*j/M), all complex64
     m: int | None = None
     chirp: torch.Tensor | None = None
     filt: torch.Tensor | None = None
@@ -234,18 +343,19 @@ def kernel_tables(nz: int, kernel: str, device: torch.device | str = "cpu") -> d
 
 def bluestein_tables(nz: int, m: int, device: torch.device | str = "cpu") -> dict:
     """The Bluestein kernel's `ZFusePlan` fields at ``nz`` with the convolution length
-    ``m`` (`kernel_tables` takes `bluestein_length`; a sweep may take another M)."""
+    ``m`` (`kernel_tables` takes `bluestein_length`; a sweep may take another M): an even
+    M >= 2 nz (the upper half of the first pass's inputs is then zero, and of the last
+    pass's outputs unused) of two passes or more."""
     passes = _passes(m, generic=False)
-    if m < 2 * nz - 1 or passes is None:
+    if m < 2 * nz or m % 2 or passes is None or len(passes) < 2:
         raise ValueError(f"M={m} is no convolution length of nz={nz}")
     n = np.arange(nz, dtype=np.int64)
     chirp = np.exp(-1j * np.pi * ((n * n) % (2 * nz)) / nz)  # float64, n^2 mod 2nz exact
     c = np.zeros(m, np.complex128)
     c[:nz] = chirp
     c[m - nz + 1:] = chirp[1:][::-1]
-    filt = (np.fft.fft(c) / m).astype(np.complex64)
-    bins = digit_reversed_bins(passes).astype(np.int16)
-    return dict(kernel="bluestein", passes=passes, bins=torch.from_numpy(bins).to(device),
+    filt = (np.fft.fft(c)[digit_reversed_bins(passes)] / m).astype(np.complex64)
+    return dict(kernel="bluestein", passes=passes, bins=None,
                 m=m, chirp=torch.from_numpy(chirp.astype(np.complex64)).to(device),
                 filt=torch.from_numpy(filt).to(device),
                 m_roots=torch.from_numpy(_roots(m)).to(device))
@@ -375,19 +485,21 @@ def apply_radix_plain(plan: ZFusePlan, s: torch.Tensor, ops: tuple[OpSpec, ...],
 
 def apply_bluestein_plain(plan: ZFusePlan, s: torch.Tensor, ops: tuple[OpSpec, ...],
                           dds: tuple = (), use_kappa: bool = True) -> list[torch.Tensor]:
-    """`apply` as the Bluestein kernel computes it, on tensors. With the chirp ``w``:
-    ``F_k = w_k * sum_n (s_n w_n) conj(w_(k-n))`` and, per op, ``out_n = conj(w_n) *
-    sum_k (G_k conj(w_k)) w_(n-k)`` with ``G = F * op / nz``. Each sum is a circular
-    convolution of length M: the input zero-padded to M, the mixed forward passes of M
-    (digit-reversed), times the filter's transform at the bin each position holds
-    (``conj(filt)`` forward, ``filt`` inverse: the filter ``c`` is even, so the transform of
-    ``conj(c)`` is ``conj(FFT_M(c))``), the inverse passes, the first nz kept. The 1/M is in
-    the table (``filt = FFT_M(c)/M``), the 1/nz in the operator, as in the kernel."""
+    """`apply` as the Bluestein kernel computes it, on tensors. With the chirp ``w``, the
+    DFT is ``F_k = w_k conv_k``, ``conv_k = sum_n (s_n w_n) conj(w_(k-n))``, and each op's
+    output ``out_n = conj(w_n) sum_k (G_k conj(w_k)) w_(n-k)`` with ``G = F op / nz``, so
+    that its input ``G_k conj(w_k) = conv_k op_k / nz``: F is never formed. Each sum is a
+    circular convolution of length M: the input (nz long) zero-padded to M, the mixed
+    forward passes of M (digit-reversed), times the filter's transform at each position
+    (``conj(filt)`` forward, ``filt`` inverse: the filter ``c`` is even, so the transform
+    of ``conj(c)`` is ``conj(FFT_M(c))``), the inverse passes, the first nz kept. The 1/M
+    is in the table (``filt = FFT_M(c)/M``, in position order), the 1/nz with the
+    operator, at the natural bin k, as in the kernel."""
     if plan.kernel != "bluestein" or plan.m is None:
         raise ValueError(f"the plan of nz={plan.nz} names the {plan.kernel} kernel, not "
                          f"the bluestein kernel and its tables")
     nz, m, tail = plan.nz, plan.m, tuple(s.shape[1:])
-    filt = plan.filt[plan.bins.long()].reshape(m, *[1] * len(tail))
+    filt = plan.filt.reshape(m, *[1] * len(tail))
     chirp = plan.chirp.reshape(nz, *[1] * len(tail))
 
     def convolve(a, f):  # the first nz of the circular convolution of a (nz long) with f
@@ -396,8 +508,8 @@ def apply_bluestein_plain(plan: ZFusePlan, s: torch.Tensor, ops: tuple[OpSpec, .
         return _inverse_passes(_forward_passes(padded, plan.passes, plan.m_roots) * f,
                                plan.passes, plan.m_roots)[:nz]
 
-    f = convolve(s * chirp, filt.conj()) * chirp
-    return [(convolve(f * (full / nz) * chirp.conj(), filt) * chirp.conj()).to(torch.complex64)
+    conv = convolve(s * chirp, filt.conj())
+    return [(convolve(conv * (full / nz), filt) * chirp.conj()).to(torch.complex64)
             for full in _op_list(plan, ops, dds, use_kappa)]
 
 
@@ -410,22 +522,25 @@ def _checked_tables(plan: ZFusePlan) -> tuple:
     generic = kernel == "mixed" and passes and passes[0] >= PRIME_MIN and _is_prime(passes[0])
     ok = kernel in KERNELS
     if ok and kernel != "dense":
-        ok = (n is not None and plan.bins is not None and tuple(plan.bins.shape) == (n,)
-              and int(np.prod(passes)) == n and len(passes) <= MAX_PASSES
+        ok = (n is not None and int(np.prod(passes)) == n and len(passes) <= MAX_PASSES
               and set(passes[1 if generic else 0:]) <= set(RADICES))
+    if ok and kernel in ("radix", "mixed"):
+        ok = plan.bins is not None and tuple(plan.bins.shape) == (n,)
     if ok and kernel == "bluestein":
-        ok = (n >= 2 * nz - 1 and all(t is not None and tuple(t.shape) == (k,) for t, k in
-                                      ((plan.chirp, nz), (plan.filt, n), (plan.m_roots, n))))
+        ok = n >= 2 * nz and n % 2 == 0 and len(passes) >= 2 and all(
+            t is not None and tuple(t.shape) == (k,)
+            for t, k in ((plan.chirp, nz), (plan.filt, n), (plan.m_roots, n)))
     if not ok:
         raise ValueError(f"the plan's kernel must be one of {KERNELS}, an FFT kernel needs "
                          f"passes of its radices whose product is its length (nz={nz}; M "
-                         f"for the bluestein kernel) and its bin table, and the bluestein "
-                         f"kernel M >= 2 nz - 1, the chirp, the filter and the M roots; got "
+                         f"for the bluestein kernel), the radix and mixed kernels their bin "
+                         f"table, and the bluestein kernel an even M >= 2 nz of two passes "
+                         f"or more, the chirp, the filter and the M roots; got "
                          f"{kernel!r}, passes {plan.passes}, M {plan.m}")
     if kernel == "dense":
         return ()
     if kernel == "bluestein":
-        return plan.bins, plan.chirp, plan.filt, plan.m_roots
+        return plan.chirp, plan.filt, plan.m_roots
     return (plan.bins,)
 
 
@@ -478,10 +593,11 @@ def apply(plan: ZFusePlan, s: torch.Tensor, ops: tuple[OpSpec, ...], dds: tuple 
 
 
 def _launch(lib, plan: ZFusePlan, s: torch.Tensor, ops: tuple[OpSpec, ...], dds: tuple,
-            use_kappa: bool) -> list[torch.Tensor]:
+            use_kappa: bool, tc: int = 0) -> list[torch.Tensor]:
     """`apply`'s launch of the kernel the plan names from the library ``lib`` (a sweep
     passes a variant built with ``-D`` switches, `_build.load_library(defines)`), on CUDA
-    tensors that `apply` checked; counts nothing."""
+    tensors that `apply` checked; counts nothing. ``tc``: the Bluestein kernel's tile width
+    (0: `bluestein_tile`'s; a sweep may name another)."""
     outs = [torch.empty_like(s) for _ in ops]
     dd_iter = iter(dds)
     dd_ptrs = [next(dd_iter).data_ptr() if op.kind == "grad" else None for op in ops]
@@ -504,10 +620,15 @@ def _launch(lib, plan: ZFusePlan, s: torch.Tensor, ops: tuple[OpSpec, ...], dds:
                                      plan.bins.data_ptr(), *fields, *args,
                                      len(plan.passes), *passes, stream)
         elif plan.kernel == "bluestein":
+            tile = bluestein_tile(plan.nz, plan.m, len(ops), tc)
+            if tile is None:
+                raise ValueError(f"no tile of {tc or 'any'} columns fits M={plan.m}")
+            staged = sum(1 << i for i, (name, _, _) in enumerate(_STAGED)
+                         if name in tile.staged)
             err = lib.kw_zfuse_bluestein(s.data_ptr(), plan.m_roots.data_ptr(),
-                                         plan.bins.data_ptr(), plan.chirp.data_ptr(),
-                                         plan.filt.data_ptr(), *fields, *args, plan.m,
-                                         len(plan.passes), *passes, stream)
+                                         plan.chirp.data_ptr(), plan.filt.data_ptr(),
+                                         *fields, *args, plan.m, len(plan.passes), *passes,
+                                         tile.tc, staged, stream)
         else:
             err = lib.kw_zfuse(s.data_ptr(), plan.roots.data_ptr(), *fields, *args, stream)
     if err != 0:

@@ -41,6 +41,16 @@ per launch from CUDA events, the stream held by a sleep kernel while the host en
   the generic pass (a z length with two such factors then takes the Bluestein kernel, at
   the shortest M without them); and both switched, the design before radices 11 and 13.
   Each output's largest difference from the default's over its peak.
+- ``k7bluestein``: the Bluestein kernel's convolution length M and tile width (the source
+  of `ops.zfuse.bluestein_length`'s cost and `ops.zfuse.bluestein_tile`'s rule): at nz =
+  127, 251, 509, 1009 and 1709, spectra [nz, 256, 129], one op and three (the fused step's
+  gradients, with kappa), the candidate lengths (every even M from 2 nz to the next power
+  of two whose passes the kernel takes) of least cost by the rule, the shortest one, and
+  at the rule's M every tile width that fits; each beside the cuFFT route
+  ``ifft(fft(s, 0) * op, 0)`` and with its output's largest difference from the rule's
+  over its peak. Then, at the rule's M and tile, the kernel's registers capped for three
+  blocks an SM (the default) and for two (``-D KW_BLUE_BLOCKS=2``), two builds timed in
+  turns.
 """
 
 from __future__ import annotations
@@ -279,8 +289,8 @@ K7_DESIGN_NZ = (192, 320, 384, 448, 256, 176, 208, 220, 352, 1331)
 def _design_plan(base, radix_11_13: bool):
     """``base``'s z length through the mixed kernel (its passes as `ops.zfuse.radix_passes`
     gives them; 256 too), or without butterflies of 11 and 13: one such prime as the
-    generic pass, first, and two or more through the Bluestein kernel at the shortest M
-    whose passes have neither."""
+    generic pass, first, and two or more through the Bluestein kernel at the shortest even
+    M >= 2 nz whose passes have neither."""
     import dataclasses
 
     from kwave_tpu_torch.ops import zfuse
@@ -298,10 +308,10 @@ def _design_plan(base, radix_11_13: bool):
         bins = zfuse.digit_reversed_bins(passes).astype(np.int16)
         return dataclasses.replace(base, kernel="mixed", passes=passes,
                                    bins=torch.from_numpy(bins).to(dev))
-    m = 2 * nz - 1
+    m = 2 * nz
     while (zfuse._passes(m, generic=False) is None
            or m % 11 == 0 or m % 13 == 0):
-        m += 1
+        m += 2
     return dataclasses.replace(base, **zfuse.bluestein_tables(nz, m, dev))
 
 
@@ -356,8 +366,97 @@ def sweep_k7design(iters: int) -> None:
         del s
 
 
+K7_BLUESTEIN_NZ = (127, 251, 509, 1009, 1709)
+K7_BLUESTEIN_CANDIDATES = 5  # the candidates of least cost timed at each nz
+# the register cap of csrc/zfuse_bluestein.cuh: three blocks an SM (the default) or two
+K7_BLUESTEIN_BUILDS = {"default": (), "two_blocks": ("KW_BLUE_BLOCKS=2",)}
+
+
+def sweep_k7bluestein(iters: int) -> None:
+    import dataclasses
+    from concurrent.futures import ThreadPoolExecutor
+
+    from kwave_tpu_torch.ops import _build, zfuse
+
+    with ThreadPoolExecutor(len(K7_BLUESTEIN_BUILDS)) as pool:
+        libs = dict(zip(K7_BLUESTEIN_BUILDS,
+                        pool.map(_build.load_library, K7_BLUESTEIN_BUILDS.values())))
+    lib = libs["default"]
+    n = 256
+    gen = torch.Generator(device="cuda").manual_seed(13)
+
+    def cplx(*shape):
+        return torch.view_as_complex(torch.randn(*shape, 2, device="cuda", generator=gen))
+
+    for nz in K7_BLUESTEIN_NZ:
+        k2 = [(2 * np.pi * np.fft.fftfreq(k, 1e-4)) ** 2 for k in (nz, n)]
+        k2.append((2 * np.pi * np.fft.rfftfreq(n, 1e-4)) ** 2)
+        base = zfuse.make_plan((nz, n, n), *k2, 1500.0 * 2e-8 / 2, "cuda")
+        lo = 2 * nz
+        cands = [(zfuse._bluestein_cost(nz, m, zfuse._passes(m, generic=False)), m)
+                 for m in range(lo, 1 << (lo - 1).bit_length() + 1, 2)
+                 if zfuse._passes(m, generic=False)]
+        cands.sort()
+        lengths = sorted({m for _, m in cands[:K7_BLUESTEIN_CANDIDATES]}
+                         | {min(m for _, m in cands)})
+        rule = zfuse.bluestein_length(nz)
+        cost = dict((m, c) for c, m in cands)
+        plans = {m: dataclasses.replace(base, **zfuse.bluestein_tables(nz, m, "cuda"))
+                 for m in lengths}
+        s = cplx(nz, n, n // 2 + 1)
+        dds = (cplx(n // 2 + 1), cplx(n), cplx(nz))
+        for n_ops in (1, 3):
+            specs = tuple(zfuse.OpSpec("grad", axis=a) for a in (2, 1, 0))[-n_ops:]
+            vecs = dds[-n_ops:]
+            ops_full = [zfuse.full_operator(base, sp, dd, True).to(torch.complex64)
+                        for sp, dd in zip(specs, vecs)]
+
+            def library():
+                f = torch.fft.fft(s, dim=0)
+                return [torch.fft.ifft(f * op, dim=0) for op in ops_full]
+
+            library_ms = time_ms(library, iters)
+            del ops_full
+            zfuse._check(plans[rule], s, specs, vecs)
+            want = zfuse._launch(lib, plans[rule], s, specs, vecs, True)
+            peak = max(float(o.abs().max()) for o in want)
+            runs = [(m, 0) for m in lengths]
+            runs += [(rule, tc) for tc in zfuse.BLUESTEIN_TC
+                     if zfuse.bluestein_tile(nz, rule, n_ops, tc)
+                     and tc != zfuse.bluestein_tile(nz, rule, n_ops).tc]
+            for m, tc in runs:
+                tile = zfuse.bluestein_tile(nz, m, n_ops, tc)
+
+                def call(m=m, tc=tc):
+                    return zfuse._launch(lib, plans[m], s, specs, vecs, True, tc)
+
+                diff = max(float((a - b).abs().max()) for a, b in zip(call(), want)) / peak
+                print(json.dumps(dict(
+                    sweep="k7bluestein", nz=nz, spectrum=list(s.shape), n_ops=n_ops, m=m,
+                    passes=list(plans[m].passes), rule=m == rule, cost=cost[m], tc=tile.tc,
+                    blocks=tile.blocks, staged=list(tile.staged), smem=tile.smem,
+                    ms=time_ms(call, iters), library_ms=library_ms, diff=diff)), flush=True)
+            # the register cap: each build at the rule's M and tile, in turns, three times
+            calls = {name: functools.partial(zfuse._launch, build, plans[rule], s, specs,
+                                             vecs, True)
+                     for name, build in libs.items()}
+            ms = {name: [] for name in calls}
+            for _ in range(3):
+                for name, call in calls.items():
+                    ms[name].append(time_ms(call, iters))
+            print(json.dumps(dict(sweep="k7bluestein", nz=nz, n_ops=n_ops, m=rule,
+                                  builds={k: list(v) for k, v in K7_BLUESTEIN_BUILDS.items()},
+                                  ms=ms, diff={name: max(float((a - b).abs().max())
+                                                         for a, b in zip(call(), want)) / peak
+                                               for name, call in calls.items()})),
+                  flush=True)
+            del want
+        del s
+
+
 SWEEPS = {"windows": sweep_windows, "k6": sweep_k6, "k3": sweep_k3, "k7": sweep_k7,
-          "k7prime": sweep_k7prime, "k7design": sweep_k7design}
+          "k7prime": sweep_k7prime, "k7design": sweep_k7design,
+          "k7bluestein": sweep_k7bluestein}
 
 
 def main(argv: list[str]) -> int:

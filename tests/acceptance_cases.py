@@ -457,16 +457,25 @@ def _attr(v):
     return v.decode() if isinstance(v, bytes) else v
 
 
-def _decoded_40bit(rows: np.ndarray, harmonics: int, e: int):
+def _words_40bit(rows: np.ndarray, harmonics: int):
     """40-bit rows (float32 whose bytes are the 5-byte words; any leading shape, one
-    coefficient stream a last-axis row, padded) -> (re, im) of every coefficient."""
+    coefficient stream a last-axis row, padded) -> the (header, mR, mI) fields of every
+    coefficient, [row, point * harmonics + harmonic]."""
     from kwave_tpu_torch import oracle
 
     width = rows.shape[-1] // harmonics  # ceil(1.25 n) floats for n points
     n = next(k for k in range(int(width / 1.25) + 2, 0, -1) if math.ceil(1.25 * k) == width)
     raw = np.ascontiguousarray(rows, np.float32).view(np.uint8)
     raw = raw.reshape(-1, raw.shape[-1])[:, : 5 * n * harmonics]
-    return oracle.decode40(*oracle.bytes_to_soa(np.ascontiguousarray(raw).reshape(-1)), e)
+    return tuple(f.reshape(raw.shape[0], n * harmonics)
+                 for f in oracle.bytes_to_soa(np.ascontiguousarray(raw).reshape(-1)))
+
+
+def _decoded_40bit(rows: np.ndarray, harmonics: int, e: int):
+    """40-bit rows -> (re, im) of every coefficient (`_words_40bit`'s layout)."""
+    from kwave_tpu_torch import oracle
+
+    return oracle.decode40(*_words_40bit(rows, harmonics), e)
 
 
 def _rel_l2(got: np.ndarray, want: np.ndarray) -> float:
@@ -482,6 +491,38 @@ def quantum_40bit(e: int) -> float:
     """The 40-bit word's absolute step for values below its largest exponent band:
     2^(e - 143), 2^-5 for pressure (e = 138) and 2^-29 for velocity (e = 114)."""
     return 2.0 ** (e - 143)
+
+
+def worst_40bit(want, got) -> dict:
+    """Where two 40-bit datasets of one layout (attributes ``c_harmonics``, ``c_max_exp``)
+    differ the most: the coefficient (frame row, sensor, harmonic, part) whose decoded
+    values are farthest apart, both values, and that distance in steps of the coarser of
+    its two words (a word's step is 2^(eS + e - 143), eS its shared exponent); and over
+    every coefficient part, how many differ by what number of steps, and the dataset's rel
+    L2 (of re or im, the larger, as `compare_outputs`) with and without the parts that
+    are at most one step apart."""
+    h, e = int(want.attrs["c_harmonics"]), int(want.attrs["c_max_exp"])
+    a, b = (np.asarray(x[...]) for x in (want, got))
+    vals, steps = [], []
+    for rows in (a, b):
+        hdr, mr, mi = _words_40bit(rows, h)
+        re, im = _decoded_40bit(rows, h, e)
+        vals.append(np.stack([re, im]).astype(np.float64))
+        steps.append(np.exp2((hdr & 0xF).astype(np.float64) + e - 143))
+    gap = np.abs(vals[1] - vals[0])
+    quanta = gap / np.maximum(steps[0], steps[1])[None]
+    part, row, k = np.unravel_index(int(np.argmax(gap)), gap.shape)
+    within_one = np.where(quanta <= 1.0, vals[0], vals[1])
+    counts = {str(q): int((np.ceil(quanta - 1e-9) == q).sum()) for q in (1, 2, 3, 4)}
+    counts["more"] = int((quanta > 4 + 1e-9).sum())
+    return dict(row=int(row), sensor=int(k // h), harmonic=int(k % h),
+                part=("re", "im")[part], want=float(vals[0][part, row, k]),
+                got=float(vals[1][part, row, k]), quanta=float(quanta[part, row, k]),
+                step=float(max(steps[0][row, k], steps[1][row, k])),
+                parts=int(gap.size), differ=counts,
+                rel_l2=max(_rel_l2(vals[1][i], vals[0][i]) for i in (0, 1)),
+                rel_l2_without_one_step=max(_rel_l2(within_one[i], vals[0][i])
+                                            for i in (0, 1)))
 
 
 def compare_outputs(want, got, rel_l2: float = REL_L2) -> tuple[dict, set]:

@@ -89,6 +89,40 @@ def _pair(p, rows, new_p=None, new_rows=None):
             _Group({"file_type": "output"}, p=_Data(p2), p_c=_Data(rows2, attrs40)))
 
 
+def test_worst_40bit_names_the_coefficient_and_its_distance_in_steps():
+    """`worst_40bit` finds the coefficient two 40-bit datasets differ in most, with its
+    distance in steps of its word (the step grows with the word's shared exponent), and
+    counts the parts by steps apart."""
+    import numpy as np
+
+    from kwave_tpu_torch import oracle
+
+    p = np.zeros((1, 20, 8), np.float32)
+    vals = np.array([[1.5, -2.0, 0.25, 1.5, 0.75, -0.5, 1.0, 2.5]], np.float32)
+    q = sweep.ac.quantum_40bit(138)
+
+    def rows(v):
+        raw = oracle.soa_to_bytes(*oracle.encode40(v, np.zeros_like(v), oracle.MAX_EXP_P))
+        return np.concatenate([raw, np.zeros(40 - raw.size, np.uint8)]).view(
+            np.float32).reshape(1, 1, 10)
+
+    near = vals.copy()
+    near[0, 2] += q  # one step
+    near[0, 6] += 3 * q  # three steps: the worst
+    want, got = _pair(p, rows(vals), new_rows=rows(near))
+    w = sweep.ac.worst_40bit(want["p_c"], got["p_c"])
+    assert (w["row"], w["sensor"], w["harmonic"], w["part"]) == (0, 6, 0, "re")
+    assert w["quanta"] == 3.0 and w["step"] == q and w["got"] - w["want"] == 3 * q
+    assert w["differ"] == {"1": 1, "2": 0, "3": 1, "4": 0, "more": 0} and w["parts"] == 16
+    assert w["rel_l2"] > w["rel_l2_without_one_step"] > 0
+    big = vals * np.float32(2 ** 20)  # -2^21 at sensor 1: shared exponent 10, step 2^5
+    bumped = big.copy()
+    bumped[0, 1] -= 64
+    want, got = _pair(p, rows(big), new_rows=rows(bumped))
+    w = sweep.ac.worst_40bit(want["p_c"], got["p_c"])
+    assert (w["sensor"], w["step"], w["quanta"]) == (1, 32.0, 2.0)
+
+
 def test_compare_outputs_holds_what_it_says():
     """`compare_outputs` passes equal outputs, fails float data 1e-3 off, and holds a
     40-bit coefficient near the word's absolute step by the quantum floor (passes three

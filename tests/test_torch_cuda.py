@@ -590,13 +590,13 @@ def test_zfuse_radix_kernel(nz, nx):
 @pytest.mark.parametrize("nx", [256, 260])
 @pytest.mark.parametrize("nz", [12, 24, 60, 96, 100, 192, 448, 1000, 1536,
                                 2, 6, 11, 13, 22, 26, 110, 176, 208, 1331,
-                                17, 34, 230, 172, 1708, 1616])
+                                17, 34, 230, 172, 1316, 1504])
 def test_zfuse_mixed_kernel(nz, nx):
     """The mixed-radix kernel at plans of one to four passes with radices 3, 5 and 7 and
     every tile width (32, 16, 8); at nz from 2 to 7 (one or two passes); with radices 11
     and 13 (22, 26, 110, 176 = 16 x 11, 208 = 16 x 13, 1331 = 11^3); with the generic pass
     of a prime, alone (17) and first before others (34, 230 = 23 x 2 x 5, 172 = 43 x 4,
-    1708 = 61 x 4 x 7, 1616 = 101 x 16, the largest prime); nxr = 129 and 131 (a ragged last
+    1316 = 47 x 4 x 7, 1504 = 47 x 8 x 4, the largest prime); nxr = 129 and 131 (a ragged last
     tile), one op, two and three, grad on each axis with and without kappa, and a nabla
     with its pole: within 2e-6 of the peak of a float64 FFT, 4e-6 of `apply_radix_plain`
     and of `apply_plain`; every launch counted as the mixed kernel's."""
@@ -645,12 +645,13 @@ def test_zfuse_mixed_kernel(nz, nx):
 @pytest.mark.parametrize("nz,named", [(127, False), (251, False), (1009, False),
                                       (1709, False), (230, True), (6, True), (2, True)])
 def test_zfuse_bluestein_kernel(nz, named, nx):
-    """The Bluestein kernel at the z lengths it takes (127: M = 256; 251: M = 504; 1009:
-    M = 2025, a tile of 4 columns; 1709, the largest: M = 3430) and through a plan that
-    names it at lengths of the mixed kernel (230, 6, 2), nxr = 129 and 131 (a ragged last
-    tile), one op, two and three, grad on each axis with and without kappa, and a nabla with
-    its pole: within 2e-6 of the peak of a float64 FFT, 4e-6 of `apply_bluestein_plain` and
-    of `apply_plain`; every launch counted as the Bluestein kernel's."""
+    """The Bluestein kernel at the z lengths it takes, at the M of `bluestein_length` (127:
+    M = 256, tiles of 32 columns; 251: 512, 16; 1009: 2048, 4; 1709, the largest: 3584 = 8 x
+    8 x 8 x 7, 2) and through a plan that names it at lengths of the
+    mixed kernel (230, 6, 2), nxr = 129 and 131 (a ragged last tile), one op, two and three,
+    grad on each axis with and without kappa, and a nabla with its pole: within 2e-6 of
+    the peak of a float64 FFT, 4e-6 of `apply_bluestein_plain` and of `apply_plain`; every
+    launch counted as the Bluestein kernel's."""
     import dataclasses
 
     from kwave_tpu_torch.ops import zfuse
@@ -692,6 +693,91 @@ def test_zfuse_bluestein_kernel(nz, named, nx):
             assert float((got - ref).abs().max()) <= 2e-6 * peak
             assert float((got - want_d).abs().max()) <= 4e-6 * peak
             assert float((got - want_b).abs().max()) <= 4e-6 * peak
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nz,m", [(251, 512), (251, 504), (143, 286), (1009, 2048),
+                                  (17, 64)])
+@pytest.mark.parametrize("tc", [32, 16, 8, 4, 2])
+def test_zfuse_bluestein_kernel_at_every_tile_width(nz, m, tc):
+    """The Bluestein kernel at each tile width it is built for (the rows swizzled below 16
+    columns where the last radix is a power of two: 512, 2048, 64; not at 504 = 8 x 3 x 3
+    x 7 or 286 = 2 x 11 x 13), at lengths M other than the rule's, nxr = 131 (a ragged last
+    tile), one op and three (with the nz tile), with and without kappa: within 2e-6 of a
+    float64 FFT's peak and 4e-6 of `apply_bluestein_plain`. A width whose tile does not fit
+    227 KB is refused before any launch."""
+    import dataclasses
+
+    from kwave_tpu_torch.ops import _build, zfuse
+
+    dev = require_cuda()
+    ny, nx = 4, 260
+    rng = np.random.default_rng(nz + tc)
+    sizes = (nz, ny, nx // 2 + 1)
+    s = torch.from_numpy((rng.standard_normal(sizes) + 1j * rng.standard_normal(sizes))
+                         .astype(np.complex64)).to(dev)
+    k2 = [(np.fft.fftfreq(n) * 2 * np.pi * n / 1e-2) ** 2 for n in (nz, ny)]
+    k2.append((np.fft.rfftfreq(nx) * 2 * np.pi * nx / 1e-2) ** 2)
+    plan = dataclasses.replace(zfuse.make_plan((nz, ny, nx), *k2, 1e-5, dev),
+                               **zfuse.bluestein_tables(nz, m, dev))
+    dds = [torch.from_numpy((rng.standard_normal(k) + 1j * rng.standard_normal(k))
+                            .astype(np.complex64)).to(dev) for k in sizes]
+    f64 = torch.fft.fft(s.to(torch.complex128), dim=0)
+    grad = [zfuse.OpSpec("grad", axis=a) for a in range(3)]
+    lib = _build.load_library()
+    for specs, dd, use_kappa in ((tuple(grad[::-1]), dds[::-1], True),
+                                 ((grad[0],), dds[:1], False), ((grad[0],), dds[:1], True)):
+        if zfuse.bluestein_tile(nz, m, len(specs), tc) is None:
+            with pytest.raises(ValueError, match="no tile"):
+                zfuse._launch(lib, plan, s, specs, dd, use_kappa, tc)
+            continue
+        outs = zfuse._launch(lib, plan, s, specs, dd, use_kappa, tc)
+        torch.cuda.synchronize()
+        blue = zfuse.apply_bluestein_plain(plan, s, specs, dd, use_kappa=use_kappa)
+        dd_iter = iter(dd)
+        for spec, got, want in zip(specs, outs, blue):
+            op = zfuse.full_operator(plan, spec, next(dd_iter), use_kappa)
+            ref = torch.fft.ifft(f64 * op, dim=0)
+            peak = float(ref.abs().max())
+            assert float((got - ref).abs().max()) <= 2e-6 * peak
+            assert float((got - want).abs().max()) <= 4e-6 * peak
+
+
+@pytest.mark.cuda
+def test_zfuse_bluestein_kernel_at_every_z_length_it_takes():
+    """The Bluestein kernel at each of the 1011 z lengths up to MAX_NZ that take it, at the
+    M and the tile the rules give (every M, width, staging and swizzle a run can reach), a
+    spectrum [nz, 2, 3], one grad op with kappa and three: within 2e-6 of a float64 FFT's
+    peak; every launch counted as the Bluestein kernel's."""
+    from kwave_tpu_torch.ops import zfuse
+
+    dev = require_cuda()
+    ny, nx = 2, 4
+    lengths = [nz for nz in range(2, zfuse.MAX_NZ + 1) if zfuse.kernel_for(nz) == "bluestein"]
+    assert len(lengths) == 1011
+    before = zfuse.KERNEL_LAUNCHES["bluestein"]
+    worst = 0.0
+    for nz in lengths:
+        rng = np.random.default_rng(nz)
+        sizes = (nz, ny, nx // 2 + 1)
+        s = torch.from_numpy((rng.standard_normal(sizes) + 1j * rng.standard_normal(sizes))
+                             .astype(np.complex64)).to(dev)
+        k2 = [(np.fft.fftfreq(n) * 2 * np.pi * n / 1e-2) ** 2 for n in (nz, ny)]
+        k2.append((np.fft.rfftfreq(nx) * 2 * np.pi * nx / 1e-2) ** 2)
+        plan = zfuse.make_plan((nz, ny, nx), *k2, 1e-5, dev)
+        dds = [torch.from_numpy((rng.standard_normal(m) + 1j * rng.standard_normal(m))
+                                .astype(np.complex64)).to(dev) for m in sizes]
+        f64 = torch.fft.fft(s.to(torch.complex128), dim=0)
+        grad = [zfuse.OpSpec("grad", axis=a) for a in range(3)]
+        for specs, dd in (((grad[0],), dds[:1]), (tuple(grad[::-1]), dds[::-1])):
+            outs = zfuse.apply(plan, s, specs, dd)
+            for spec, got, d in zip(specs, outs, dd):
+                ref = torch.fft.ifft(f64 * zfuse.full_operator(plan, spec, d, True), dim=0)
+                err = float((got - ref).abs().max() / ref.abs().max())
+                worst = max(worst, err)
+                assert err <= 2e-6, (nz, len(specs), err)
+    assert zfuse.KERNEL_LAUNCHES["bluestein"] - before == 2 * len(lengths)
+    assert worst > 0
 
 
 @pytest.mark.cuda
