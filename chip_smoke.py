@@ -3,8 +3,8 @@
 sources in this checkout, holds each against its plain PyTorch version and the NumPy
 oracle, then drives the port's paths: the simulation at 128^3 with 16384 index sensors,
 the codec round trip, the whole-record exact encode, the 256^3, 192^3, 220^3, 230^3 and
-251^3 simulations with the fused z stage (K7's radix, mixed and Bluestein kernels; the
-dense one, which no run takes, timed beside them), a run in checkpoint legs with the intensity and Q-term outputs, the
+251^3 simulations and a 6 x 1152 x 1152 slab with the fused z stage (K7's radix, mixed,
+Bluestein and column kernels; the dense one, which no run takes, timed beside them), a run in checkpoint legs with the intensity and Q-term outputs, the
 acceptance sweep's inputs on the card against the port on the CPU, and the mesh
 (`kwave_tpu_torch.parallel`) on the one card.
 
@@ -57,9 +57,10 @@ the final ok line):
    record of 13 windows (odd, no multiple of the 8 windows a thread) against the unsplit
    plain version and the window loop, and the same record cut at 3 windows a thread
    (chunks that start on odd and on even windows), bit for bit.
-8. fused z stage (path B), K7's four kernels (radix: nz a power of two from 8; mixed: other
-   nz with prime factors up to 13, or all but one prime up to 47 (a generic pass);
-   Bluestein: the rest from 2; dense: nz = 1, which no `run_simulation` reaches, since a
+8. fused z stage (path B), K7's five kernels (column: the short nz of
+   `ops.zfuse.COLUMN_NZ`; radix: nz a power of two from 32; mixed: other nz with prime
+   factors up to 13, or all but one prime up to `ops.zfuse.PRIME_MAX` (a generic pass);
+   Bluestein: the rest; dense: nz = 1, which no `run_simulation` reaches, since a
    grid of one z plane is 2D and the driver fuses 3D grids alone: it is timed as the
    kernel the FFT kernels replaced, through plans that name it, and its rows in the
    kernels line carry the main path's count, 0, with ``timing_only``): (a) K7 at the
@@ -69,22 +70,23 @@ the final ok line):
    generic pass of 23, Bluestein and dense), 251^3 (Bluestein, M = 512, and dense), 1009 x
    128 x 128 (Bluestein, M = 2048; its rows name the tile width, the blocks an SM and the
    staged tables, and time `apply_bluestein_plain` too) and 4 x 256 x 256, 6 x 256 x 256
-   (mixed and dense: nz below 8,
-   which the dense kernel took before), one op and three, against a float64 FFT (2e-6 of
+   (column, and mixed and dense through plans that name them: the kernels nz below 8
+   took before), one op and three, against a float64 FFT (2e-6 of
    the peak) and the kernel's own plain version (4e-6), timed beside `apply_plain` and the
    library route ``ifft(fft(s, 0) * op, 0)``, its launches counted under the kernel that
-   took them; (b) small spectra (ny = 8) at nz = 64, 128, 512 (radix), 2, 6, 11, 13, 17,
-   22, 24, 60, 96, 100, 110, 176, 230, 448, 1000, 1331, 1536 (mixed) and 127, 251, 1009,
-   1699, 1709 (Bluestein), each through the kernel `kernel_for` names, against the same
-   two; (c) `run_simulation` at 256^3, 192^3, 220^3 (4 x 5 x 11), 230^3 (23 x 2 x 5) and
-   251^3 (a prime), 16384 sensors, ``--p_raw --p_c --40-bit_complex``, 2 windows and a
+   took them; (b) small spectra (ny = 8) at nz = 64, 128, 512 (radix), 2, 6, 8, 11, 13, 15,
+   16 (column), 17, 22, 24, 60, 96, 100, 110, 176, 230, 448, 1000, 1331, 1536 (mixed) and
+   127, 251, 1009, 1699, 1709 (Bluestein), each through the kernel `kernel_for` names,
+   against the same two; (c) `run_simulation` at 256^3, 192^3, 220^3 (4 x 5 x 11), 230^3 (23 x 2 x 5),
+   251^3 (a prime) and the thin slab 6 x 1152 x 1152 (7.96 M points, a PML of 1 cell in
+   z), 16384 sensors, ``--p_raw --p_c --40-bit_complex``, 2 windows and a
    5-step tail, once with compact operators alone and once with ``fuse_z``: p_raw of the
    two within 1e-4 of the peak, each run's p_c bytes equal to the oracle's encoding of its
    own p_raw, every K7 launch the kernel `kernel_for` names (radix, mixed, mixed, mixed,
-   Bluestein), ms/step of both, and the device time by kernel of one profiled window of
-   each (of the fused run alone at 230); at 220 and 251 both runs are read a second time
-   after the first two, to tell the first use of the grid's FFT plans and buffers, which
-   the first run of a grid pays, from the steps.
+   Bluestein, column), ms/step of both, and the device time by kernel of one profiled
+   window of each (of the fused run alone at 230); at 220, 251 and the slab both runs are
+   read a second time after the first two, to tell the first use of the grid's FFT plans
+   and buffers, which the first run of a grid pays, from the steps.
 9. checkpoint legs and the intensity / Q-term outputs: `run_simulation` at phase 4's
    width (128^3, 16384 index sensors, period 16, H = 1) as ``--p_raw
    --u_non_staggered_raw --p_c --u_non_staggered_c --40-bit_complex --I_avg_c --Q_term_c
@@ -949,18 +951,23 @@ K7_SPECTRA = (((384,) * 3, ("mixed", "dense")), ((320,) * 3, ("mixed",)),
               ((208,) * 3, ("mixed", "dense")),
               ((230,) * 3, ("mixed", "bluestein", "dense")),
               ((251,) * 3, ("bluestein", "dense")), ((1009, 128, 128), ("bluestein",)),
-              ((4, 256, 256), ("mixed", "dense")), ((6, 256, 256), ("mixed", "dense")))
+              ((4, 256, 256), ("column", "mixed", "dense")),
+              ((6, 256, 256), ("column", "mixed", "dense")))
 # phase 8 (c): the runs after 256^3 and 192^3, each through the kernel kernel_for names:
-# (n, the runs profiled, the runs read again after both)
-FUSED_GRIDS = ((220, ("compact", "fused"), ("compact", "fused")), (230, ("fused",), ()),
-               (251, ("compact", "fused"), ("compact", "fused")))
+# (nz x ny x nx, the runs profiled, the runs read again after both); the thin slab 6 x
+# 1152 x 1152 (7.96 M points: compact operators by run_simulation's own rule) takes the column K7
+FUSED_GRIDS = (((220,) * 3, ("compact", "fused"), ("compact", "fused")),
+               ((230,) * 3, ("fused",), ()),
+               ((251,) * 3, ("compact", "fused"), ("compact", "fused")),
+               ((6, 1152, 1152), ("compact", "fused"), ("compact", "fused")))
 # K7's kernels that no run_simulation takes (the dense one: nz = 1 alone, a 2D grid, which
 # the driver does not fuse): their rows in the kernels line are timings beside the path's
 # kernels and carry the path's count, 0, with "timing_only"
 TIMING_ONLY = ("dense",)
 K7_SOURCES = {"radix": "kwave_tpu_torch/csrc/zfuse.cu", "dense": "kwave_tpu_torch/csrc/zfuse.cu",
-              "mixed": "kwave_tpu_torch/csrc/zfuse_mixed.cu",
-              "bluestein": "kwave_tpu_torch/csrc/zfuse_bluestein.cuh"}
+              "mixed": "kwave_tpu_torch/csrc/zfuse_mixed.cuh",
+              "bluestein": "kwave_tpu_torch/csrc/zfuse_bluestein.cuh",
+              "column": "kwave_tpu_torch/csrc/zfuse_column.cu"}
 
 
 def _bits_equal(a, b) -> bool:
@@ -1316,8 +1323,9 @@ def zfuse_kernel_phase(ops, shape: tuple[int, int, int], kernels: tuple[str, ...
 
 
 # phase 8 (b): small spectra [nz, 8, 129] and the kernel each must take
-SMALL_SPECTRA = ((64, "radix"), (128, "radix"), (512, "radix"), (2, "mixed"), (6, "mixed"),
-                 (11, "mixed"), (13, "mixed"), (17, "mixed"), (22, "mixed"), (24, "mixed"),
+SMALL_SPECTRA = ((64, "radix"), (128, "radix"), (512, "radix"), (2, "column"),
+                 (6, "column"), (8, "column"), (11, "column"), (13, "column"),
+                 (15, "column"), (16, "column"), (17, "mixed"), (22, "mixed"), (24, "mixed"),
                  (60, "mixed"), (96, "mixed"), (100, "mixed"), (110, "mixed"),
                  (176, "mixed"), (230, "mixed"), (448, "mixed"), (1000, "mixed"),
                  (1331, "mixed"), (1536, "mixed"), (127, "bluestein"), (251, "bluestein"),
@@ -1326,10 +1334,11 @@ SMALL_SPECTRA = ((64, "radix"), (128, "radix"), (512, "radix"), (2, "mixed"), (6
 
 def _zfuse_small_spectra():
     """K7 on small spectra [nz, 8, 129] (`SMALL_SPECTRA`): the radix kernel at two passes
-    of equal and of unequal radix and at three; the mixed kernel at nz from 2 to 7, radices
-    3, 5, 7, 11 and 13, the generic pass of 17 and of 23, three and four passes and the
-    widest tile (1536); the Bluestein kernel from M = 256 (127) to M = 4096 (1709). One op
-    and three, against a float64 FFT and the kernel's own plain version."""
+    of equal and of unequal radix and at three; the column kernel at nz = 2 to 16 (one
+    butterfly, or two with the twiddles between: 6, 15); the mixed kernel at radices 3, 5,
+    7, 11 and 13, the generic pass of 17 and of 23, three and four passes and the widest
+    tile (1536); the Bluestein kernel from M = 256 (127) to M = 4096 (1709). One op and
+    three, against a float64 FFT and the kernel's own plain version."""
     import torch
 
     from kwave_tpu_torch.ops import zfuse
@@ -1538,9 +1547,9 @@ def fused_phase():
     t1 = time.perf_counter()
     _zfuse_small_spectra()
     t2 = time.perf_counter()
-    for n, profile, again in FUSED_GRIDS:
-        kernel = zfuse.kernel_for(n)
-        add(kernel, _fused_runs(_input(steps, n), kernel, profile, again))
+    for shape, profile, again in FUSED_GRIDS:
+        kernel = zfuse.kernel_for(shape[0])
+        add(kernel, _fused_runs(_input(steps, shape=shape), kernel, profile, again))
         torch.cuda.empty_cache()
     t3 = time.perf_counter()
     print(f"[time] phase 8: K7_SPECTRA rows {t1 - t0:.1f} s, small spectra {t2 - t1:.1f} s, "
@@ -1548,22 +1557,26 @@ def fused_phase():
     return rows, launches
 
 
-def _input(nt: int, n: int = GRID_N):
-    """n^3 heterogeneous absorbing medium (128^3 unless told), p0 at the centre, 16384
-    random index sensors (the setup of tools/bench_driver_40bit.py), from seed 7."""
+def _input(nt: int, n: int = GRID_N, shape: tuple[int, int, int] | None = None):
+    """n^3 (or ``shape``, nz x ny x nx) heterogeneous absorbing medium (128^3 unless told),
+    p0 at the centre, 16384 random index sensors (the setup of
+    tools/bench_driver_40bit.py), from seed 7; a PML of 10 cells, or a quarter of an axis
+    shorter than 40."""
     from kwave_tpu_torch.io.input_file import InputData
     from kwave_tpu_torch.solver import Grid, Medium
 
     dx = 1e-4
-    grid = Grid(nx=n, ny=n, nz=n, dx=dx, dy=dx, dz=dx, dt=0.3 * dx / 1600.0, nt=nt)
+    nz, ny, nx = shape or (n, n, n)
+    grid = Grid(nx=nx, ny=ny, nz=nz, dx=dx, dy=dx, dz=dx, dt=0.3 * dx / 1600.0, nt=nt)
     rng = np.random.default_rng(7)
     medium = Medium(c0=(1500.0 + 100.0 * rng.random(grid.shape)).astype(np.float32),
                     rho0=(1000.0 + 50.0 * rng.random(grid.shape)).astype(np.float32),
                     alpha_coeff=0.75, alpha_power=1.5)
     mask = np.sort(rng.choice(grid.n_elements, N_SENSORS, replace=False)).astype(np.int64)
     p0 = np.zeros(grid.shape, np.float32)
-    p0[n // 2, n // 2, n // 2] = 1e5
-    return InputData(grid=grid, medium=medium, pml_size=(10, 10, 10),
+    p0[nz // 2, ny // 2, nx // 2] = 1e5
+    return InputData(grid=grid, medium=medium,
+                     pml_size=tuple(min(10, m // 4) for m in (nx, ny, nz)),
                      pml_alpha=(2.0, 2.0, 2.0), absorbing=True, sensor_mask_index=mask,
                      p0=p0)
 

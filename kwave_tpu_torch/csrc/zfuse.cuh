@@ -1,10 +1,10 @@
 // Fused z stage of the solver's spectral multiplies for Hopper (sm_90a): z-DFT -> pointwise
 // operator built in the kernel -> z-IDFT, for up to three operators off one forward
-// transform. What its four kernels share: the operators, the butterflies in registers and
+// transform. What its five kernels share: the operators, the butterflies in registers and
 // the mixed-radix passes in shared memory. The kernels: zfuse.cu (the dense and the radix
 // kernel), zfuse_mixed.cu (the mixed-radix kernel), zfuse_bluestein.cuh (the Bluestein
-// kernel, one source a tile width), each its own source so that nvcc builds them side by
-// side.
+// kernel, one source a tile width), zfuse_column.cu (the short z lengths, a column a
+// thread), each its own source so that nvcc builds them side by side.
 //
 // Replaces the TPU kernel of kwave_tpu/ops/zfuse.py (_kernel, entry apply).
 //
@@ -20,9 +20,10 @@
 // The TPU version does each contraction as a three-pass bf16 split on its matrix unit,
 // because that compiler has no fp32 matmul, and holds the [nz, nz] matrices in fast memory.
 // This card has fp32 FMAs, 227 KB of shared memory a block and far less arithmetic than
-// that unit per byte moved, so every z length but 1 takes an FFT in shared memory. Every
-// kernel zero-fills the ragged last tile on load and masks it on store, and needs more than
-// 48 KB of shared memory at the larger nz, so the launchers opt in to what they ask for.
+// that unit per byte moved, so every z length but 1 takes an FFT: in shared memory, or in
+// one thread's registers where a column is short. Every kernel with a tile zero-fills the
+// ragged last tile on load and masks it on store, and needs more than 48 KB of shared
+// memory at the larger nz, so the launchers opt in to what they ask for.
 
 #pragma once
 
@@ -57,22 +58,36 @@ struct ZOps {
   float2* out[kMaxOps];
 };
 
-// The multiplier of operator `op` at bin k of column (y, x), where k2 = |k|^2 there.
-__device__ __forceinline__ float2 op_value(const ZOps& ops, int op, int k, int y, int x,
-                                           float k2, float c_ref_dt_2, int use_kappa) {
+// kappa at |k|^2 = k2 (sin(a)/a with a = c_ref_dt_2*sqrt(k2), 1 at a == 0)
+__device__ __forceinline__ float kappa_at(float k2, float c_ref_dt_2) {
+  const float arg = c_ref_dt_2 * sqrtf(k2);
+  return arg == 0.f ? 1.f : sinf(arg) / arg;
+}
+
+// The multiplier of operator `op` at bin k of column (y, x), where k2 = |k|^2 there; a grad
+// op times kappa() with use_kappa (called only then: multiplying every op by a kappa of 1
+// instead made the radix kernel 5-13 % slower).
+template <typename Kappa>
+__device__ __forceinline__ float2 op_value_by(const ZOps& ops, int op, int k, int y, int x,
+                                              float k2, int use_kappa, Kappa kappa) {
   if (ops.kind[op] == 0) {
     const int at = ops.axis[op] == 0 ? k : (ops.axis[op] == 1 ? y : x);
     float2 d = ops.dd[op][at];
     if (use_kappa) {
-      const float arg = c_ref_dt_2 * sqrtf(k2);
-      const float kappa = arg == 0.f ? 1.f : sinf(arg) / arg;
-      d.x *= kappa;
-      d.y *= kappa;
+      const float f = kappa();
+      d.x *= f;
+      d.y *= f;
     }
     return d;
   }
   const float kmag = sqrtf(k2);
   return make_float2(kmag == 0.f ? 0.f : powf(kmag, ops.power[op]), 0.f);
+}
+
+// The same, kappa computed at the bin.
+__device__ __forceinline__ float2 op_value(const ZOps& ops, int op, int k, int y, int x,
+                                           float k2, float c_ref_dt_2, int use_kappa) {
+  return op_value_by(ops, op, k, y, x, k2, use_kappa, [&] { return kappa_at(k2, c_ref_dt_2); });
 }
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {

@@ -31,6 +31,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_MIXED = [_P] * 12 + [_I] * 10 + [ctypes.c_float] * 4 + [_I] * 10 + [_P]  # kw_zfuse_mixed's
 # C signatures of csrc/*.cu (pointers and the stream as void*)
 SIGNATURES = {
     # encode_window.cu
@@ -61,12 +62,21 @@ SIGNATURES = {
     # the same, then the radices of the three passes (1 for a pass that is not taken)
     "kw_zfuse_radix": [_P] * 11 + [_I] * 10 + [ctypes.c_float] * 4 + [_I] * 4 + [_P],
     # spectrum, roots, bins, k2z, k2y, k2x, 3 dd vectors, 3 outputs; the same ints and
-    # floats; use_kappa, the number of passes and seven radices (1 past the last pass)
-    "kw_zfuse_mixed": [_P] * 12 + [_I] * 10 + [ctypes.c_float] * 4 + [_I] * 9 + [_P],
+    # floats; use_kappa, the number of passes, seven radices (1 past the last pass) and the
+    # tile width (0: the kernel's rule)
+    "kw_zfuse_mixed": _MIXED,
+    # the same for a plan with a generic pass, the build capped for 2 and for 3 blocks an
+    # SM (zfuse_mixed_generic*.cu; kw_zfuse_mixed picks one, a sweep may name either)
+    "kw_zfuse_mixed_generic": _MIXED,
+    "kw_zfuse_mixed_generic3": _MIXED,
+    # the prime p: the entries of its generic pass's table
+    "kw_zfuse_generic_table_size": [_I],
     # spectrum, M roots, chirp, filter, k2z, k2y, k2x, 3 dd vectors, 3 outputs; the same
     # ints and floats; use_kappa, M, the number of passes, seven radices, the tile width
     # and the staged tables
     "kw_zfuse_bluestein": [_P] * 13 + [_I] * 10 + [ctypes.c_float] * 4 + [_I] * 12 + [_P],
+    # zfuse_column.cu: kw_zfuse's arguments
+    "kw_zfuse_column": [_P] * 11 + [_I] * 10 + [ctypes.c_float] * 4 + [_I] + [_P],
 }
 
 

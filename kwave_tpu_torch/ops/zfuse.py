@@ -13,25 +13,33 @@ bin order, after the x/y transforms):
 - "nabla" ops multiply by ``|k|^power`` with 0 at ``k == 0`` (the absorbing-term factors);
 - ``out = IDFT_z . G`` (with the 1/nz). Up to three ops share the one forward transform.
 
-Four kernels, all CUDA C++ for sm_90a in ``kwave_tpu_torch/csrc/`` (``zfuse.cu``: radix
-and dense; ``zfuse_mixed.cu``; ``zfuse_bluestein.cuh``, one source a tile width; what they
-share in ``zfuse.cuh``).
+Five kernels, all CUDA C++ for sm_90a in ``kwave_tpu_torch/csrc/`` (``zfuse.cu``: radix
+and dense; ``zfuse_mixed.cuh``, in ``zfuse_mixed.cu`` and, for plans with a generic pass,
+``zfuse_mixed_generic.cu`` / ``zfuse_mixed_generic3.cu``; ``zfuse_bluestein.cuh``, one
+source a tile width; ``zfuse_column.cu``; what they share in ``zfuse.cuh``).
 `make_plan` chooses one by ``nz`` (`kernel_for`) and records it in the plan with its tables
 (`kernel_tables`); `apply` launches the kernel its plan names, or raises:
 
-- "radix", for ``nz`` a power of two from 8 to 1024: a radix FFT in shared memory, one
-  instantiation per pass plan. `radix_passes` gives its passes (radix 16, 8 or 4; 256 =
-  16 x 16). Forward as decimation in frequency, which leaves ``F`` in digit-reversed order
+- "column", for the short ``nz`` of `COLUMN_NZ`: one thread a column, its nz values
+  transformed in registers, multiplied by each op's operator at the natural bin and
+  transformed back, without shared memory or a barrier (built for every ``nz`` from 2 to
+  `COLUMN_MAX_NZ`; a plan may name it there).
+- "radix", for ``nz`` a power of two from 32 to 1024 (built from 8; a plan may name it
+  at 8 and 16): a radix FFT in shared memory, one instantiation per pass plan.
+  `radix_passes` gives its passes (radix 16, 8 or 4; 256 = 16 x 16). Forward as
+  decimation in frequency, which leaves ``F`` in digit-reversed order
   (`digit_reversed_bins`); the operator is looked up at the bin each position holds;
   inverse as decimation in time, which takes that order and gives natural order. It is
   bound by the bytes it moves.
-- "mixed", for every other ``nz`` from 2 to `MIXED_MAX_NZ` whose prime factors are at
+- "mixed", for every other ``nz`` from 17 to `MIXED_MAX_NZ` whose prime factors are at
   most 13, or all of them but one prime from 17 to `PRIME_MAX` (192, 176 = 16 x 11, 230 =
   2 x 5 x 23, ...): the same FFT with the pass plan as a runtime argument, radices from
   `RADICES` (the power-of-two part in passes of up to 16, each odd factor a pass of its
-  own), the one larger prime a generic pass of its own, first (`radix_passes`), and the
-  bin table (`ZFusePlan.bins`) read from device memory.
-- "bluestein", for every other ``nz`` from 2 to `MAX_NZ` (127, 251, 1009, 1709, ...):
+  own), the one larger prime a generic pass of its own, first (`radix_passes`: its
+  butterfly's input pairs dealt to a few lanes that hold them in registers and add their
+  shares by warp shuffles, its roots in a table; its plans in sources of their own), and
+  the bin table (`ZFusePlan.bins`) read from device memory.
+- "bluestein", for every other ``nz`` up to `MAX_NZ` (53, 127, 251, 1009, 1709, ...):
   Bluestein's chirp-z transform, each z-DFT one circular convolution of an even length
   ``M >= 2 nz`` chosen by cost (`bluestein_length`: 512 at nz = 251, 2048 at 1009), the
   chirp and the filter's transform from float64 tables, the filter's in the order of the
@@ -46,7 +54,7 @@ share in ``zfuse.cuh``).
 
 `apply_radix_plain` is the radix and mixed kernels' passes on tensors,
 `apply_bluestein_plain` the Bluestein kernel's steps, `apply_plain` the dense sum as a
-matrix product.
+matrix product (the plain version of the dense and the column kernels).
 
 `apply` takes `apply_plain` only for tensors on the CPU. Spectra and ``dd`` vectors are
 complex64 tensors (the JAX package's re/im planes and ``[n, 128]`` / ``[8, n]`` tilings are
@@ -68,7 +76,7 @@ import torch
 LAUNCHES = {"zfuse_1op": 0, "zfuse_2op": 0, "zfuse_3op": 0}
 
 # The same launches by the kernel that took them.
-KERNEL_LAUNCHES = {"radix": 0, "mixed": 0, "bluestein": 0, "dense": 0}
+KERNEL_LAUNCHES = {"radix": 0, "mixed": 0, "bluestein": 0, "dense": 0, "column": 0}
 
 MAX_OPS = 3
 # dense: two tiles of nz x 8 columns (re/im planes) and the roots must fit a block's 227 KB;
@@ -84,14 +92,26 @@ MAX_PASSES = 7
 # with a larger prime factor, or two factors from 17 up, takes the Bluestein kernel.
 # PRIME_MAX is the measured crossover (`python -m kwave_tpu_torch.sweeps --only k7prime`
 # on an H100, z lengths 4p and 8p, one op and three, against the Bluestein kernel that
-# folds its pointwise steps into its passes): the generic pass is faster in all four cases
-# at every prime up to 23 and in 14 of the 24 from 29 to 47 (within 15 % either way), the
-# Bluestein kernel in all four at every prime from 53 to 127
+# folds its pointwise steps into its passes): with the generic pass of registers and a
+# table of roots, the generic pass is faster in all 36 cases from 17 to 47 (0.50-0.97 of
+# the Bluestein kernel's time), the Bluestein kernel in 39 of the 40 from 53 to 127 (the
+# 40th, 712 = 89 x 8 with three ops, 3.5 % slower)
 PRIME_MIN, PRIME_MAX = 17, 47
 # mixed: two tiles of nz x 8 columns of complex64 and the roots fit a block's 227 KB (the
-# bin table is read from device memory, as k2z is, so that 1701 = 3^5 x 7 fits too)
+# bin table is read from device memory, as k2z is, so that 1701 = 3^5 x 7 fits too); a
+# generic plan's table of roots (`generic_table_size`) must fit beside them
 MIXED_MAX_NZ = (227 * 1024) // (2 * 8 * 8 + 8)
-KERNELS = ("radix", "mixed", "bluestein", "dense")
+# the generic pass's pairs (m, p - m) a lane holds at most (csrc/zfuse_mixed.cuh)
+GENERIC_PAIRS = 12
+KERNELS = ("radix", "mixed", "bluestein", "dense", "column")
+# column: the z lengths the kernel is built for (csrc/zfuse_column.cu), and those
+# `kernel_for` sends to it: every one, since it was faster than the radix or mixed kernel
+# that took each before and than the cuFFT route at every one of them, one op and three
+# (`python -m kwave_tpu_torch.sweeps --only k7small` on an H100, spectra [nz, 256, 129]:
+# 0.0046 / 0.0058 ms at 4 against mixed 0.0187 / 0.0288; 0.0105 / 0.0148 at 16 against
+# radix 0.0192 / 0.0384)
+COLUMN_MAX_NZ = 16
+COLUMN_NZ = frozenset(range(2, COLUMN_MAX_NZ + 1))
 
 
 def reset_launch_counts() -> None:
@@ -132,22 +152,48 @@ def _passes(n: int, generic: bool) -> tuple[int, ...] | None:
     return passes if n >= 2 and rest == 1 and len(passes) <= MAX_PASSES else None
 
 
+def generic_table_size(p: int) -> int:
+    """Entries (complex64) of the generic pass's table of roots for the prime ``p``: H =
+    (p - 1)/2 rows of G lanes x K pairs, G the least power of two that leaves each lane at
+    most `GENERIC_PAIRS` pairs (csrc/zfuse_mixed.cuh `generic_table_size`)."""
+    h, lanes = (p - 1) // 2, 1
+    while lanes < 32 and -(-h // lanes) > GENERIC_PAIRS:
+        lanes *= 2
+    return h * lanes * -(-h // lanes)
+
+
 def radix_passes(nz: int) -> tuple[int, ...] | None:
     """The radices of the FFT kernels' forward passes, first pass first, or None where
     ``nz`` goes to the Bluestein (or, at 1, the dense) kernel, for ``nz`` from 2 to
     `MIXED_MAX_NZ`: one prime from `PRIME_MIN` to `PRIME_MAX` as a generic pass where
-    ``nz`` has one, then the power-of-two part in as few passes of radix <= 16 as there can
-    be, the widest first, then each factor 3, 5, 7, 11 and 13 a pass of its own."""
-    return _passes(nz, generic=True) if nz <= MIXED_MAX_NZ else None
+    ``nz`` has one (and its two tiles of 8 columns, the roots and its table fit a block:
+    not at 1692 = 47 x 36 or 1705 = 31 x 55), then the power-of-two part in as few passes
+    of radix <= 16 as there can be, the widest first, then each factor 3, 5, 7, 11 and 13
+    a pass of its own."""
+    passes = _passes(nz, generic=True) if nz <= MIXED_MAX_NZ else None
+    if passes and passes[0] >= PRIME_MIN and \
+            8 * (2 * nz * 8 + nz + generic_table_size(passes[0])) > SMEM_BLOCK:
+        return None
+    return passes
+
+
+def radix_takes(nz: int) -> bool:
+    """Whether the radix kernel is built for ``nz``: a power of two from `RADIX_MIN_NZ` to
+    `RADIX_MAX_NZ` (`kernel_for` sends it those above `COLUMN_MAX_NZ`; a plan may name it
+    at the others)."""
+    return not nz & (nz - 1) and RADIX_MIN_NZ <= nz <= RADIX_MAX_NZ
 
 
 def kernel_for(nz: int) -> str:
-    """Which of the four kernels a spectrum of ``nz`` bins takes: "radix", "mixed",
-    "bluestein" or "dense" (nz = 1, which only a direct `make_plan` / `make_pipeline`
-    reaches: `run_simulation` fuses 3D grids alone, so it never runs the dense kernel)."""
+    """Which of the five kernels a spectrum of ``nz`` bins takes: "column", "radix",
+    "mixed", "bluestein" or "dense" (nz = 1, which only a direct `make_plan` /
+    `make_pipeline` reaches: `run_simulation` fuses 3D grids alone, so it never runs the
+    dense kernel)."""
     if nz == 1:
         return "dense"
-    if not nz & (nz - 1) and RADIX_MIN_NZ <= nz <= RADIX_MAX_NZ:
+    if nz in COLUMN_NZ:
+        return "column"
+    if radix_takes(nz):
         return "radix"
     return "mixed" if radix_passes(nz) else "bluestein"
 
@@ -326,9 +372,13 @@ def kernel_tables(nz: int, kernel: str, device: torch.device | str = "cpu") -> d
                   m_roots=None)
     if kernel == "dense":
         return fields
+    if kernel == "column":
+        if not 2 <= nz <= COLUMN_MAX_NZ:
+            raise ValueError(f"the column kernel does not take nz={nz}")
+        return fields
     if kernel in ("radix", "mixed"):
         passes = radix_passes(nz)
-        if passes is None or (kernel == "radix" and kernel_for(nz) != "radix"):
+        if passes is None or (kernel == "radix" and not radix_takes(nz)):
             raise ValueError(f"the {kernel} kernel does not take nz={nz}")
         bins = digit_reversed_bins(passes)
     elif kernel == "bluestein":
@@ -521,7 +571,9 @@ def _checked_tables(plan: ZFusePlan) -> tuple:
     # the mixed kernel takes one generic pass of an odd prime, first
     generic = kernel == "mixed" and passes and passes[0] >= PRIME_MIN and _is_prime(passes[0])
     ok = kernel in KERNELS
-    if ok and kernel != "dense":
+    if kernel == "column":
+        ok = 2 <= nz <= COLUMN_MAX_NZ
+    elif ok and kernel != "dense":
         ok = (n is not None and int(np.prod(passes)) == n and len(passes) <= MAX_PASSES
               and set(passes[1 if generic else 0:]) <= set(RADICES))
     if ok and kernel in ("radix", "mixed"):
@@ -534,10 +586,11 @@ def _checked_tables(plan: ZFusePlan) -> tuple:
         raise ValueError(f"the plan's kernel must be one of {KERNELS}, an FFT kernel needs "
                          f"passes of its radices whose product is its length (nz={nz}; M "
                          f"for the bluestein kernel), the radix and mixed kernels their bin "
-                         f"table, and the bluestein kernel an even M >= 2 nz of two passes "
-                         f"or more, the chirp, the filter and the M roots; got "
+                         f"table, the bluestein kernel an even M >= 2 nz of two passes "
+                         f"or more, the chirp, the filter and the M roots, and the column "
+                         f"kernel nz from 2 to {COLUMN_MAX_NZ}; got "
                          f"{kernel!r}, passes {plan.passes}, M {plan.m}")
-    if kernel == "dense":
+    if kernel in ("dense", "column"):
         return ()
     if kernel == "bluestein":
         return plan.chirp, plan.filt, plan.m_roots
@@ -596,8 +649,9 @@ def _launch(lib, plan: ZFusePlan, s: torch.Tensor, ops: tuple[OpSpec, ...], dds:
             use_kappa: bool, tc: int = 0) -> list[torch.Tensor]:
     """`apply`'s launch of the kernel the plan names from the library ``lib`` (a sweep
     passes a variant built with ``-D`` switches, `_build.load_library(defines)`), on CUDA
-    tensors that `apply` checked; counts nothing. ``tc``: the Bluestein kernel's tile width
-    (0: `bluestein_tile`'s; a sweep may name another)."""
+    tensors that `apply` checked; counts nothing. ``tc``: the tile width of the Bluestein
+    kernel (0: `bluestein_tile`'s) or of the mixed kernel (32, 16 or 8; 0: its own rule);
+    a sweep or a test may name another."""
     outs = [torch.empty_like(s) for _ in ops]
     dd_iter = iter(dds)
     dd_ptrs = [next(dd_iter).data_ptr() if op.kind == "grad" else None for op in ops]
@@ -618,7 +672,7 @@ def _launch(lib, plan: ZFusePlan, s: torch.Tensor, ops: tuple[OpSpec, ...], dds:
         elif plan.kernel == "mixed":
             err = lib.kw_zfuse_mixed(s.data_ptr(), plan.roots.data_ptr(),
                                      plan.bins.data_ptr(), *fields, *args,
-                                     len(plan.passes), *passes, stream)
+                                     len(plan.passes), *passes, tc, stream)
         elif plan.kernel == "bluestein":
             tile = bluestein_tile(plan.nz, plan.m, len(ops), tc)
             if tile is None:
@@ -629,6 +683,9 @@ def _launch(lib, plan: ZFusePlan, s: torch.Tensor, ops: tuple[OpSpec, ...], dds:
                                          plan.chirp.data_ptr(), plan.filt.data_ptr(),
                                          *fields, *args, plan.m, len(plan.passes), *passes,
                                          tile.tc, staged, stream)
+        elif plan.kernel == "column":
+            err = lib.kw_zfuse_column(s.data_ptr(), plan.roots.data_ptr(), *fields, *args,
+                                      stream)
         else:
             err = lib.kw_zfuse(s.data_ptr(), plan.roots.data_ptr(), *fields, *args, stream)
     if err != 0:

@@ -31,6 +31,20 @@ per launch from CUDA events, the stream held by a sleep kernel while the host en
   127, spectra [nz, 128, 129], one op and three, the mixed kernel with a generic pass of p
   first (a plan built here past PRIME_MAX) beside the Bluestein kernel, with the two
   outputs' largest difference over the peak.
+- ``k7generic``: the mixed kernel's plans with a generic pass (`csrc/zfuse_mixed.cuh`) in
+  the two builds of the one library, registers capped for 2 blocks an SM
+  (``kw_zfuse_mixed_generic``) and for 3 (``kw_zfuse_mixed_generic3``), beside the build
+  ``kw_zfuse_mixed`` picks (``routed``), timed in turns, three times, at the spectra [230,
+  230, 116] and [k p, 128, 129] for every prime p from 17 to PRIME_MAX and k of
+  `K7_GENERIC_KS` (one, two and three radix passes after the generic pass), one op and
+  three (the fused step's gradients, with kappa), with each output's largest difference
+  from the 2-block build's over its peak.
+- ``k7small``: the column kernel at z lengths 2 to 16 (spectra [nz, 256, 129], one op and
+  three, the fused step's gradients with kappa) beside the shared-memory FFT kernel that
+  took each length before it (radix at 8 and 16, mixed at the others, through a plan that
+  names it) and the cuFFT route ``ifft(fft(s, 0) * op, 0)``, the three timed in turns,
+  three times (the source of `ops.zfuse.COLUMN_NZ`), with the kernels' largest difference
+  over the peak.
 - ``k7design``: the mixed kernel's two design switches (`csrc/zfuse.cuh`), each variant a
   library built with its ``-D`` flags, timed in turns in this process at the spectra
   [nz, n, n/2 + 1] (n = nz up to 512, else 128) of z lengths whose first inverse pass is
@@ -454,9 +468,122 @@ def sweep_k7bluestein(iters: int) -> None:
         del s
 
 
+# z lengths k p of ``k7generic``: one radix pass after the generic pass (4, 8), two (12, 20,
+# 24) and three (30, 60)
+K7_GENERIC_KS = (4, 8, 12, 20, 24, 30, 60)
+
+
+def _k7_inputs(nz: int, ny: int, nx: int, gen):
+    """A plan of the spectrum [nz, ny, nx/2 + 1] of `make_plan`'s choice, a random spectrum
+    and the three dd vectors (x, y, z), all on the card."""
+    from kwave_tpu_torch.ops import zfuse
+
+    def cplx(*shape):
+        return torch.view_as_complex(torch.randn(*shape, 2, device="cuda", generator=gen))
+
+    k2 = [(2 * np.pi * np.fft.fftfreq(n, 1e-4)) ** 2 for n in (nz, ny)]
+    k2.append((2 * np.pi * np.fft.rfftfreq(nx, 1e-4)) ** 2)
+    base = zfuse.make_plan((nz, ny, nx), *k2, 1500.0 * 2e-8 / 2, "cuda")
+    return base, cplx(nz, ny, nx // 2 + 1), (cplx(nx // 2 + 1), cplx(ny), cplx(nz))
+
+
+def _in_turns(calls: dict, iters: int, rounds: int = 3) -> dict:
+    """Each call's device ms, timed in turns ``rounds`` times."""
+    ms = {name: [] for name in calls}
+    for _ in range(rounds):
+        for name, call in calls.items():
+            ms[name].append(time_ms(call, iters))
+    return ms
+
+
+def _largest_diff(calls: dict, want) -> dict:
+    peak = max(float(o.abs().max()) for o in want)
+    return {name: max(float((a - b).abs().max()) for a, b in zip(call(), want)) / peak
+            for name, call in calls.items()}
+
+
+def sweep_k7generic(iters: int) -> None:
+    import types
+
+    from kwave_tpu_torch.ops import _build, zfuse
+
+    lib = _build.load_library()
+    # the two builds of the generic plans, each as the library `_launch` calls
+    builds = {"2 blocks": types.SimpleNamespace(kw_zfuse_mixed=lib.kw_zfuse_mixed_generic),
+              "3 blocks": types.SimpleNamespace(kw_zfuse_mixed=lib.kw_zfuse_mixed_generic3)}
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    shapes = [(230, 230, 230)] + [(k * p, 128, 256) for k in K7_GENERIC_KS
+                                  for p in K7_PRIMES if p <= zfuse.PRIME_MAX
+                                  and zfuse.radix_passes(k * p)]
+    for shape in shapes:
+        base, s, dds = _k7_inputs(*shape, gen)
+        plan = _generic_plan(base)
+        for n_ops in (1, 3):
+            specs = tuple(zfuse.OpSpec("grad", axis=a) for a in (2, 1, 0))[-n_ops:]
+            vecs = dds[-n_ops:]
+            zfuse._check(plan, s, specs, vecs)
+            calls = {name: functools.partial(zfuse._launch, b, plan, s, specs, vecs, True)
+                     for name, b in builds.items()}
+            calls["routed"] = functools.partial(zfuse._launch, lib, plan, s, specs, vecs, True)
+            print(json.dumps(dict(
+                sweep="k7generic", nz=shape[0], spectrum=list(s.shape), n_ops=n_ops,
+                passes=list(plan.passes), ms=_in_turns(calls, iters),
+                diff=_largest_diff(calls, calls["2 blocks"]()))), flush=True)
+        del s
+
+
+def _generic_plan(base):
+    """``base``'s z length through the mixed kernel with its prime from 17 up as a generic
+    pass, first (a plan built here past PRIME_MAX too)."""
+    import dataclasses
+
+    from kwave_tpu_torch.ops import zfuse
+
+    nz = base.nz
+    p = next(p for p in range(zfuse.PRIME_MIN, nz + 1) if nz % p == 0 and zfuse._is_prime(p))
+    passes = (p, *(zfuse.radix_passes(nz // p) if nz > p else ()))
+    bins = torch.from_numpy(zfuse.digit_reversed_bins(passes).astype(np.int16)).cuda()
+    return dataclasses.replace(base, kernel="mixed", passes=passes, bins=bins)
+
+
+K7_SMALL_NZ = tuple(range(2, 17))
+
+
+def sweep_k7small(iters: int) -> None:
+    import dataclasses
+
+    from kwave_tpu_torch.ops import zfuse
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    for nz in K7_SMALL_NZ:
+        base, s, dds = _k7_inputs(nz, 256, 256, gen)
+        tiled = "radix" if zfuse.radix_takes(nz) else "mixed"
+        plans = {kernel: dataclasses.replace(base, **zfuse.kernel_tables(nz, kernel, "cuda"))
+                 for kernel in ("column", tiled)}
+        for n_ops in (1, 3):
+            specs = tuple(zfuse.OpSpec("grad", axis=a) for a in (2, 1, 0))[-n_ops:]
+            vecs = dds[-n_ops:]
+            ops_full = [zfuse.full_operator(base, sp, dd, True).to(torch.complex64)
+                        for sp, dd in zip(specs, vecs)]
+
+            def library(ops_full=ops_full):
+                f = torch.fft.fft(s, dim=0)
+                return [torch.fft.ifft(f * op, dim=0) for op in ops_full]
+
+            calls = {kernel: functools.partial(zfuse.apply, plan, s, specs, vecs)
+                     for kernel, plan in plans.items()}
+            diff = _largest_diff(calls, library())
+            calls["library"] = library
+            print(json.dumps(dict(sweep="k7small", nz=nz, spectrum=list(s.shape),
+                                  n_ops=n_ops, routed=base.kernel, tiled=tiled,
+                                  passes=list(plans[tiled].passes), ms=_in_turns(calls, iters),
+                                  diff=diff)), flush=True)
+        del s
+
+
 SWEEPS = {"windows": sweep_windows, "k6": sweep_k6, "k3": sweep_k3, "k7": sweep_k7,
-          "k7prime": sweep_k7prime, "k7design": sweep_k7design,
-          "k7bluestein": sweep_k7bluestein}
+          "k7prime": sweep_k7prime, "k7generic": sweep_k7generic, "k7small": sweep_k7small,
+          "k7design": sweep_k7design, "k7bluestein": sweep_k7bluestein}
 
 
 def main(argv: list[str]) -> int:

@@ -9,6 +9,9 @@ repository root:
 is then unknown, which pytest only warns about.)
 """
 
+import itertools
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +20,7 @@ from kwave_tpu_torch import oracle
 from kwave_tpu_torch.basis import MAX_EXP_P, generate_basis
 from kwave_tpu_torch import bitpack, encoder
 from kwave_tpu_torch.ops import encode_window as ew
+from kwave_tpu_torch.ops import zfuse as zfuse_mod
 from torch_helpers import bits, real_series, require_cuda, stacked_tables
 
 N = 200  # not a multiple of 32 or 128: the kernels mask the ragged edge
@@ -542,11 +546,14 @@ def test_zfuse_kernel_matches_plain_and_float64(nz, ny, nx, n_ops):
 @pytest.mark.parametrize("nz", [8, 16, 32, 64, 128, 256, 512, 1024])
 def test_zfuse_radix_kernel(nz, nx):
     """The radix kernel at every pass plan it is built for (one, two and three passes,
-    equal and unequal radices), nxr = 129 and 131 (131 leaves a ragged last tile), one op
+    equal and unequal radices; at 8 and 16, which `kernel_for` sends to the column kernel,
+    through a plan that names it), nxr = 129 and 131 (131 leaves a ragged last tile), one op
     and three, grad on each axis with and without kappa, and nabla: within 2e-6 of the
     peak of a float64 FFT, 4e-6 of `apply_plain` (the dense fp32 sum, itself up to 1.3e-6
     off float64 where the radix passes are 2e-7 off: the sum of the two bounds) and of
     `apply_radix_plain`; every launch counted as the radix kernel's."""
+    import dataclasses
+
     from kwave_tpu_torch.ops import zfuse
 
     dev = require_cuda()
@@ -559,7 +566,9 @@ def test_zfuse_radix_kernel(nz, nx):
           (np.fft.fftfreq(ny) * 2 * np.pi * ny / 1e-2) ** 2,
           (np.fft.rfftfreq(nx) * 2 * np.pi * nx / 1e-2) ** 2]
     plan = zfuse.make_plan((nz, ny, nx), *k2, 1e-5, dev)
-    assert zfuse.kernel_for(nz) == "radix" and plan.passes == zfuse.radix_passes(nz)
+    assert zfuse.kernel_for(nz) == ("column" if nz in zfuse.COLUMN_NZ else "radix")
+    plan = dataclasses.replace(plan, **zfuse.kernel_tables(nz, "radix", dev))
+    assert plan.passes == zfuse.radix_passes(nz)
     dds = [torch.from_numpy((rng.standard_normal(m) + 1j * rng.standard_normal(m))
                             .astype(np.complex64)).to(dev) for m in sizes]
     f64 = torch.fft.fft(s.to(torch.complex128), dim=0)
@@ -593,13 +602,16 @@ def test_zfuse_radix_kernel(nz, nx):
                                 17, 34, 230, 172, 1316, 1504])
 def test_zfuse_mixed_kernel(nz, nx):
     """The mixed-radix kernel at plans of one to four passes with radices 3, 5 and 7 and
-    every tile width (32, 16, 8); at nz from 2 to 7 (one or two passes); with radices 11
+    every tile width (32, 16, 8); at nz = 2, 6, 11, 12 and 13 (one and two passes, through a
+    plan that names it: `kernel_for` sends nz up to 16 to the column kernel); with radices 11
     and 13 (22, 26, 110, 176 = 16 x 11, 208 = 16 x 13, 1331 = 11^3); with the generic pass
     of a prime, alone (17) and first before others (34, 230 = 23 x 2 x 5, 172 = 43 x 4,
     1316 = 47 x 4 x 7, 1504 = 47 x 8 x 4, the largest prime); nxr = 129 and 131 (a ragged last
     tile), one op, two and three, grad on each axis with and without kappa, and a nabla
     with its pole: within 2e-6 of the peak of a float64 FFT, 4e-6 of `apply_radix_plain`
     and of `apply_plain`; every launch counted as the mixed kernel's."""
+    import dataclasses
+
     from kwave_tpu_torch.ops import zfuse
 
     dev = require_cuda()
@@ -611,7 +623,8 @@ def test_zfuse_mixed_kernel(nz, nx):
     k2 = [(np.fft.fftfreq(n) * 2 * np.pi * n / 1e-2) ** 2 for n in (nz, ny)]
     k2.append((np.fft.rfftfreq(nx) * 2 * np.pi * nx / 1e-2) ** 2)
     plan = zfuse.make_plan((nz, ny, nx), *k2, 1e-5, dev)
-    assert plan.kernel == zfuse.kernel_for(nz) == "mixed"
+    assert plan.kernel == zfuse.kernel_for(nz) == ("column" if nz <= 16 else "mixed")
+    plan = dataclasses.replace(plan, **zfuse.kernel_tables(nz, "mixed", dev))
     dds = [torch.from_numpy((rng.standard_normal(m) + 1j * rng.standard_normal(m))
                             .astype(np.complex64)).to(dev) for m in sizes]
     f64 = torch.fft.fft(s.to(torch.complex128), dim=0)
@@ -638,6 +651,126 @@ def test_zfuse_mixed_kernel(nz, nx):
             assert float((got - ref).abs().max()) <= 2e-6 * peak
             assert float((got - want_d).abs().max()) <= 4e-6 * peak
             assert float((got - want_m).abs().max()) <= 4e-6 * peak
+
+
+def _zfuse_inputs(nz, ny, nx, seed, dev):
+    """A random spectrum [nz, ny, nx/2 + 1], its plan (`make_plan`'s kernel), the three dd
+    vectors (z, y, x) and the spectrum's float64 z-transform, on the card."""
+    from kwave_tpu_torch.ops import zfuse
+
+    rng = np.random.default_rng(seed)
+    sizes = (nz, ny, nx // 2 + 1)
+    s = torch.from_numpy((rng.standard_normal(sizes) + 1j * rng.standard_normal(sizes))
+                         .astype(np.complex64)).to(dev)
+    k2 = [(np.fft.fftfreq(n) * 2 * np.pi * n / 1e-2) ** 2 for n in (nz, ny)]
+    k2.append((np.fft.rfftfreq(nx) * 2 * np.pi * nx / 1e-2) ** 2)
+    plan = zfuse.make_plan((nz, ny, nx), *k2, 1e-5, dev)
+    dds = [torch.from_numpy((rng.standard_normal(m) + 1j * rng.standard_normal(m))
+                            .astype(np.complex64)).to(dev) for m in sizes]
+    return s, plan, dds, torch.fft.fft(s.to(torch.complex128), dim=0)
+
+
+def _hold_zfuse(plan, s, specs, dd, use_kappa, outs, f64, own_plain):
+    """Each output within 2e-6 of a float64 FFT's peak, 4e-6 of `apply_plain` and of the
+    kernel's own plain version."""
+    from kwave_tpu_torch.ops import zfuse
+
+    dense = zfuse.apply_plain(plan, s, specs, dd, use_kappa=use_kappa)
+    own = own_plain(plan, s, specs, dd, use_kappa=use_kappa)
+    dd_iter = iter(dd)
+    for spec, got, want_d, want_o in zip(specs, outs, dense, own):
+        op = zfuse.full_operator(plan, spec, next(dd_iter) if spec.kind == "grad" else None,
+                                 use_kappa)
+        ref = torch.fft.ifft(f64 * op, dim=0)
+        peak = float(ref.abs().max())
+        assert float((got - ref).abs().max()) <= 2e-6 * peak
+        assert float((got - want_d).abs().max()) <= 4e-6 * peak
+        assert float((got - want_o).abs().max()) <= 4e-6 * peak
+
+
+# the primes of the generic pass, from PRIME_MIN to PRIME_MAX (a fixed list: every worker
+# collects the same tests)
+GENERIC_PRIMES = [p for p in (17, 19, 23, 29, 31, 37, 41, 43, 47, 53, 59, 61, 67, 71, 73, 79,
+                              83, 89, 97, 101, 103, 107, 109, 113, 127)
+                  if p <= zfuse_mod.PRIME_MAX]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx", [256, 260])
+@pytest.mark.parametrize("k", [4, 8, 20])
+@pytest.mark.parametrize("p", GENERIC_PRIMES)
+def test_zfuse_generic_pass(p, k, nx):
+    """The mixed kernel's generic pass at every prime it takes (17 to PRIME_MAX), at z
+    lengths 4p and 8p (one radix pass after it: the build of 2 blocks an SM) and 20p (two:
+    the build of 3 where three blocks fit an SM), at each tile width (32, 16, 8; one whose
+    tiles and table do not fit a block refused before any launch) in both builds and the
+    kernel's own choice, nxr = 129 and 131 (a
+    ragged last tile), one op and three, grad with and without kappa, and a nabla: within
+    2e-6 of the peak of a float64 FFT, 4e-6 of `apply_radix_plain` and of `apply_plain`;
+    every launch through `apply` counted as the mixed kernel's. The host's
+    `generic_table_size` equals the kernel's."""
+    from kwave_tpu_torch.ops import _build, zfuse
+
+    dev = require_cuda()
+    nz = k * p
+    s, plan, dds, f64 = _zfuse_inputs(nz, 4, nx, nz + nx, dev)
+    assert plan.kernel == zfuse.kernel_for(nz) == "mixed" and plan.passes[0] == p
+    grad = [zfuse.OpSpec("grad", axis=a) for a in range(3)]
+    cases = [(tuple(grad[::-1]), dds[::-1], True), ((grad[0],), dds[:1], True),
+             ((grad[2],), dds[2:], False), ((zfuse.OpSpec("nabla", power=-0.5),), (), False)]
+    lib = _build.load_library()
+    # the host's copy of the table's size, which decides the tile fit below and the routing
+    assert lib.kw_zfuse_generic_table_size(p) == zfuse.generic_table_size(p)
+    # the builds capped for 2 and for 3 blocks an SM, each as the library `_launch` calls
+    builds = [types.SimpleNamespace(kw_zfuse_mixed=entry)
+              for entry in (lib.kw_zfuse_mixed_generic, lib.kw_zfuse_mixed_generic3)]
+    for specs, dd, use_kappa in cases:
+        before = dict(zfuse.KERNEL_LAUNCHES)
+        outs = zfuse.apply(plan, s, specs, dd, use_kappa=use_kappa)
+        torch.cuda.synchronize()
+        assert zfuse.KERNEL_LAUNCHES == {**before, "mixed": before["mixed"] + 1}
+        _hold_zfuse(plan, s, specs, dd, use_kappa, outs, f64, zfuse.apply_radix_plain)
+        for tc, build in itertools.product((32, 16, 8), builds):
+            # the tiles, the roots and the table of roots
+            tiles = 2 if len(specs) > 1 else 1
+            if (tiles * nz * tc + nz + zfuse.generic_table_size(p)) * 8 > 227 * 1024:
+                with pytest.raises(RuntimeError, match="cudaError"):
+                    zfuse._launch(build, plan, s, specs, dd, use_kappa, tc)
+                continue
+            outs = zfuse._launch(build, plan, s, specs, dd, use_kappa, tc)
+            torch.cuda.synchronize()
+            _hold_zfuse(plan, s, specs, dd, use_kappa, outs, f64, zfuse.apply_radix_plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nx", [256, 260])
+@pytest.mark.parametrize("nz", list(range(2, 17)))
+def test_zfuse_column_kernel(nz, nx):
+    """The column kernel at every z length it is built for (2 to COLUMN_MAX_NZ; through a
+    plan that names it where `kernel_for` sends the length elsewhere), nxr = 129 and 131,
+    one op, two and three, grad on each axis with and without kappa, and a nabla with its
+    pole: within 2e-6 of the peak of a float64 FFT and 4e-6 of `apply_plain` (its plain
+    version); every launch counted as the column kernel's."""
+    import dataclasses
+
+    from kwave_tpu_torch.ops import zfuse
+
+    dev = require_cuda()
+    assert zfuse.COLUMN_MAX_NZ == 16
+    s, plan, dds, f64 = _zfuse_inputs(nz, 8, nx, nz + nx, dev)
+    assert (plan.kernel == "column") == (nz in zfuse.COLUMN_NZ)
+    plan = dataclasses.replace(plan, **zfuse.kernel_tables(nz, "column", dev))
+    grad = [zfuse.OpSpec("grad", axis=a) for a in range(3)]
+    cases = [(tuple(grad[::-1]), dds[::-1], True),
+             ((grad[0],), dds[:1], False), ((grad[0],), dds[:1], True),
+             ((grad[1], zfuse.OpSpec("nabla", power=0.5)), dds[1:2], True),
+             ((grad[2],), dds[2:], False), ((zfuse.OpSpec("nabla", power=-0.5),), (), False)]
+    for specs, dd, use_kappa in cases:
+        before = dict(zfuse.KERNEL_LAUNCHES)
+        outs = zfuse.apply(plan, s, specs, dd, use_kappa=use_kappa)
+        torch.cuda.synchronize()
+        assert zfuse.KERNEL_LAUNCHES == {**before, "column": before["column"] + 1}
+        _hold_zfuse(plan, s, specs, dd, use_kappa, outs, f64, zfuse.apply_plain)
 
 
 @pytest.mark.cuda
@@ -745,7 +878,7 @@ def test_zfuse_bluestein_kernel_at_every_tile_width(nz, m, tc):
 
 @pytest.mark.cuda
 def test_zfuse_bluestein_kernel_at_every_z_length_it_takes():
-    """The Bluestein kernel at each of the 1011 z lengths up to MAX_NZ that take it, at the
+    """The Bluestein kernel at each of the 1013 z lengths up to MAX_NZ that take it, at the
     M and the tile the rules give (every M, width, staging and swizzle a run can reach), a
     spectrum [nz, 2, 3], one grad op with kappa and three: within 2e-6 of a float64 FFT's
     peak; every launch counted as the Bluestein kernel's."""
@@ -754,7 +887,7 @@ def test_zfuse_bluestein_kernel_at_every_z_length_it_takes():
     dev = require_cuda()
     ny, nx = 2, 4
     lengths = [nz for nz in range(2, zfuse.MAX_NZ + 1) if zfuse.kernel_for(nz) == "bluestein"]
-    assert len(lengths) == 1011
+    assert len(lengths) == 1013
     before = zfuse.KERNEL_LAUNCHES["bluestein"]
     worst = 0.0
     for nz in lengths:
@@ -808,8 +941,9 @@ def test_zfuse_bluestein_plan_without_its_tables_is_refused():
 
 @pytest.mark.cuda
 def test_zfuse_dense_kernel_takes_other_nz():
-    """nz = 1 goes to the dense kernel, and a plan that names it at nz = 176, 110 and 4
-    (which the mixed kernel takes) launches it; each counts as its launch."""
+    """nz = 1 goes to the dense kernel, and a plan that names it at nz = 176, 110 (which the
+    mixed kernel takes) and 4 (the column kernel's) launches it; each counts as its
+    launch."""
     import dataclasses
 
     from kwave_tpu_torch.ops import zfuse

@@ -135,6 +135,17 @@ RADIX_NZ = [8, 16, 32, 64, 128, 256, 512]
 # radices 3, 5 and 7 among the passes; 11 and 13 (22, 26, 110); a generic pass (34 = 17 x 2)
 MIXED_NZ = [12, 24, 60, 100, 192, 448, 22, 26, 34, 110]
 PLAIN_TOL = 4e-6  # radix passes against the dense sum: the sum of their two bounds
+# z lengths of the column kernel held to the JAX package's kernel
+COLUMN_JAX_NZ = [4, 6, 12]
+
+
+def _tiled(plan):
+    """``plan``, or where `kernel_for` sends its z length to the column kernel, a plan that
+    names the shared-memory FFT kernel of that length (radix at 8 and 16, else mixed)."""
+    if plan.kernel != "column":
+        return plan
+    tiled = "radix" if plan.nz in (8, 16) else "mixed"
+    return dataclasses.replace(plan, **zfuse.kernel_tables(plan.nz, tiled))
 
 
 def _radix_case(nz, n_ops, kind, use_kappa, seed, jax_plan=True):
@@ -167,6 +178,7 @@ def test_radix_plain_matches_float64_and_dense_plain(nz, n_ops, kind, use_kappa)
     the nabla at k == 0 (bin 0 of column 0 is in every case)."""
     s, plan, _, specs, dds, ops64 = _radix_case(nz, n_ops, kind, use_kappa, seed=nz + n_ops,
                                                 jax_plan=False)
+    plan = _tiled(plan)
     assert plan.passes == zfuse.radix_passes(nz) and int(np.prod(plan.passes)) == nz
     ddc = tuple(torch.from_numpy(d[:, 0] + 1j * d[:, 1]) for d in dds)
     got = zfuse.apply_radix_plain(plan, torch.from_numpy(s), specs, ddc, use_kappa=use_kappa)
@@ -196,8 +208,11 @@ def test_radix_plain_matches_the_jax_kernel():
                                        (1024, (16, 8, 8))])
 def test_radix_pass_plans_and_digit_reversal(nz, passes):
     """The plans the CUDA source instantiates, and the bin order they leave: a
-    permutation, equal to the kernel's own formula for three passes."""
-    assert zfuse.radix_passes(nz) == passes and zfuse.kernel_for(nz) == "radix"
+    permutation, equal to the kernel's own formula for three passes. `kernel_for` sends 8
+    and 16 to the column kernel; a plan may name the radix kernel there."""
+    assert zfuse.radix_passes(nz) == passes
+    assert zfuse.kernel_for(nz) == ("column" if nz in zfuse.COLUMN_NZ else "radix")
+    assert zfuse.kernel_tables(nz, "radix")["passes"] == passes
     bins = zfuse.digit_reversed_bins(passes)
     assert sorted(bins) == list(range(nz))
     # position p = q0*(nz/R0) + q1*(nz/(R0*R1)) + q2 holds bin q0 + R0*(q1 + R1*q2)
@@ -223,8 +238,8 @@ def test_mixed_plain_matches_the_jax_kernel(nz):
         _hold(g.numpy(), np.asarray(re) + 1j * np.asarray(im), _ref64(s, op64))
 
 
-@pytest.mark.parametrize("nz", [12, 24, 48, 60, 96, 100, 192, 320, 448, 1000, 1536, 1701,
-                                2, 6, 7, 11, 13, 22, 26, 110, 176, 208, 1331, 1573])
+@pytest.mark.parametrize("nz", [18, 24, 48, 60, 96, 100, 192, 320, 448, 1000, 1536, 1701,
+                                20, 21, 28, 33, 39, 22, 26, 110, 176, 208, 1331, 1573])
 def test_mixed_pass_plans(nz):
     """The mixed kernel's plans: radices from its set, at most MAX_PASSES of them, whose
     product is nz, the power-of-two part in the widest passes first and each odd factor a
@@ -272,14 +287,15 @@ def test_generic_pass_plans(nz):
     np.testing.assert_array_equal(plan.bins.numpy(), bins)
 
 
-@pytest.mark.parametrize("nz", [127, 251, 289, 1009, 1699, 1709])
+@pytest.mark.parametrize("nz", [127, 251, 289, 1009, 1699, 1709, 1692, 1705])
 def test_bluestein_plans(nz):
-    """A z length the mixed passes refuse (a prime above PRIME_MAX, or two prime factors
-    from 17 up: 289 = 17^2) takes the Bluestein kernel: M is the even length from 2 nz to
-    the next power of two, of passes that are all radices in registers, whose cost is
-    least (`bluestein_length`); the plan carries no bin table, the filter's transform
-    being in the order of the positions, a permutation of M; the chirp and the filter's
-    transform are float64's, rounded."""
+    """A z length the mixed passes refuse (a prime above PRIME_MAX, two prime factors from
+    17 up: 289 = 17^2, or a generic pass whose two tiles of 8 columns, roots and table of
+    roots do not fit a block: 1692 = 47 x 36, 1705 = 31 x 55) takes the Bluestein kernel:
+    M is the even length from 2 nz to the next power of two, of passes that are all
+    radices in registers, whose cost is least (`bluestein_length`); the plan carries no
+    bin table, the filter's transform being in the order of the positions, a permutation
+    of M; the chirp and the filter's transform are float64's, rounded."""
     assert zfuse.radix_passes(nz) is None and zfuse.kernel_for(nz) == "bluestein"
     _, _, plan, _ = _case(nz=nz, ny=2, nx=4, jax_plan=False)
     m = plan.m
@@ -306,16 +322,16 @@ def test_bluestein_plans(nz):
                                 13, 17, 23, 127, 1699, 1709])
 def test_other_nz_take_the_dense_kernel(nz):
     """The z lengths that took the dense kernel before every length had an FFT (below 8, a
-    prime factor of 11 or more), and more: each takes the kernel `kernel_for` names, and
-    only nz = 1 the dense one; the plan carries that kernel's tables and none of the
-    others'; the plain version of another kernel refuses it; `apply` on the CPU takes the
-    dense plain version and counts no launch."""
+    prime factor of 11 or more), and more: each takes the kernel `kernel_for` names (the
+    column kernel from 2 to 16), and only nz = 1 the dense one; the plan carries that
+    kernel's tables and none of the others'; the plain version of another kernel refuses
+    it; `apply` on the CPU takes the dense plain version and counts no launch."""
     want = {1: "dense", 127: "bluestein", 1009: "bluestein", 1699: "bluestein",
-            1709: "bluestein"}.get(nz, "mixed")
+            1709: "bluestein"}.get(nz, "column" if nz <= 16 else "mixed")
     assert zfuse.kernel_for(nz) == want
     s, _, plan, _ = _case(nz=nz, ny=2, nx=4, jax_plan=False)
     assert plan.kernel == want
-    assert (plan.passes is None) == (want == "dense")
+    assert (plan.passes is None) == (want in ("dense", "column"))
     assert (plan.m is None) == (want != "bluestein")
     if want == "mixed":
         assert plan.passes == zfuse.radix_passes(nz)
@@ -332,7 +348,7 @@ def test_other_nz_take_the_dense_kernel(nz):
     assert zfuse.KERNEL_LAUNCHES == before
     with pytest.raises(ValueError, match="nz must be in"):
         _case(nz=zfuse.MAX_NZ + 1, ny=2, nx=4, jax_plan=False)
-    assert set(zfuse.KERNEL_LAUNCHES) == {"radix", "mixed", "bluestein", "dense"}
+    assert set(zfuse.KERNEL_LAUNCHES) == {"radix", "mixed", "bluestein", "dense", "column"}
 
 
 @pytest.mark.parametrize("n_ops,kind", [(1, "grad0"), (1, "nabla"), (3, "grad"),
@@ -435,13 +451,13 @@ def test_bluestein_plain_at_the_rule_length_matches_float64_and_the_jax_kernel(n
 
 
 def test_bluestein_length_rule_at_every_z_length_it_takes():
-    """At each of the 1011 z lengths up to MAX_NZ that take the Bluestein kernel: M is even,
+    """At each of the 1013 z lengths up to MAX_NZ that take the Bluestein kernel: M is even,
     from 2 nz to the next power of two, of two to MAX_PASSES passes of radices in
     registers, the first a power of two (the kernel's half-zero first and last passes);
     the tile of one op, two and three fits a block's 227 KB and its blocks an SM's 228 KB;
     and its cost is at most that of the power of two and of the shortest candidate."""
     lengths = [nz for nz in range(2, zfuse.MAX_NZ + 1) if zfuse.kernel_for(nz) == "bluestein"]
-    assert len(lengths) == 1011 and lengths[-1] == zfuse.MAX_NZ == 1709
+    assert len(lengths) == 1013 and lengths[-1] == zfuse.MAX_NZ == 1709
     for nz in lengths:
         m = zfuse.bluestein_length(nz)
         top = 1 << (2 * nz - 1).bit_length()
@@ -501,6 +517,49 @@ def test_bluestein_plain_matches_the_jax_kernel(nz):
                           tuple(dds), use_kappa=True, interpret=True)
     for g, (re, im), op64 in zip(got, theirs, ops64):
         _hold(g.numpy(), np.asarray(re) + 1j * np.asarray(im), _ref64(s, op64))
+
+
+@pytest.mark.parametrize("n_ops,kind,use_kappa", [(1, "grad0", True), (1, "nabla", False),
+                                                  (3, "grad", True), (3, "grad", False)])
+@pytest.mark.parametrize("nz", COLUMN_JAX_NZ)
+def test_column_plain_matches_the_jax_kernel_and_float64(nz, n_ops, kind, use_kappa):
+    """The column kernel's z lengths: the plan names it, carries no passes and no bin table
+    (the kernel takes the operator at the natural bin), and `apply` on the CPU takes its
+    plain version, `apply_plain` (the dense product over z), and counts no launch; within
+    3e-5 of the JAX package's kernel in interpret mode and 2e-6 of a float64 FFT's peak."""
+    s, plan, jplan, specs, dds, ops64 = _radix_case(nz, n_ops, kind, use_kappa, seed=nz + 40)
+    assert plan.kernel == zfuse.kernel_for(nz) == "column"
+    assert plan.passes is None and plan.bins is None and plan.m is None
+    ddc = tuple(torch.from_numpy(d[:, 0] + 1j * d[:, 1]) for d in dds)
+    before = dict(zfuse.KERNEL_LAUNCHES)
+    got = zfuse.apply(plan, torch.from_numpy(s), specs, ddc, use_kappa=use_kappa)
+    assert zfuse.KERNEL_LAUNCHES == before
+    theirs = jzfuse.apply(jplan, jnp.asarray(s.real), jnp.asarray(s.imag),
+                          tuple(jzfuse.OpSpec(o.kind, o.axis, o.power) for o in specs),
+                          tuple(dds), use_kappa=use_kappa, interpret=True)
+    for g, (re, im), op64 in zip(got, theirs, ops64):
+        assert g.dtype == torch.complex64 and tuple(g.shape) == s.shape
+        _hold(g.numpy(), np.asarray(re) + 1j * np.asarray(im), _ref64(s, op64))
+
+
+@pytest.mark.parametrize("nz", list(range(2, 18)))
+def test_short_z_lengths_take_the_column_kernel_where_it_was_measured_faster(nz):
+    """Every z length from 2 to 16 takes the column kernel (COLUMN_NZ: measured faster
+    there than the radix or mixed kernel that took it before) and 17 the mixed kernel; a
+    plan may name the column kernel at any z length from 2 to COLUMN_MAX_NZ (the kernel is
+    built for each) and at no other, and the radix or mixed kernel at a column length."""
+    want = "column" if nz <= 16 else "mixed"
+    assert zfuse.kernel_for(nz) == want and (nz in zfuse.COLUMN_NZ) == (want == "column")
+    assert zfuse.COLUMN_NZ <= set(range(2, zfuse.COLUMN_MAX_NZ + 1))
+    if nz <= zfuse.COLUMN_MAX_NZ:
+        assert zfuse.kernel_tables(nz, "column") == dict(
+            kernel="column", passes=None, bins=None, m=None, chirp=None, filt=None,
+            m_roots=None)
+    else:
+        with pytest.raises(ValueError, match="column kernel does not take"):
+            zfuse.kernel_tables(nz, "column")
+    tiled = "radix" if nz in (8, 16) else "mixed"
+    assert zfuse.kernel_tables(nz, tiled)["passes"] == zfuse.radix_passes(nz)
 
 
 def test_apply_refuses_a_plan_without_its_fft_tables():
