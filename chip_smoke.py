@@ -150,19 +150,36 @@ the final ok line):
    checkpoint every window), bit for bit, and its first checkpoint resumed on one device
    against the one-leg run. Every part runs and reports before the phase fails on any of
    them.
+12. the window as one device program (CUDA graphs of the window, `driver.make_window_fn`):
+   phase 4's 128^3 main path, phase 8's 256^3 unfused and fused (radix K7), 251^3 fused
+   (Bluestein) and the 6 x 1152 x 1152 slab fused (column), each as runs of 13 windows
+   and a 5-step tail with every window eager (``RunConfig.cuda_graphs=False``, each
+   window through `driver._run_window`) and with graphs, in the order eager, graphs,
+   graphs, eager. Checks: the runs equal bit for bit, with equal launches of every
+   kernel; every graph run's windows as `driver.plan_windows` says (1 eager, 2 captured,
+   10 replayed). Prints warm ms/step each way (the median time from one window's start
+   to the next's, from the fourth window on, over o) beside the simulation phase's
+   ms/step, device ms/step of an eager 6-window run and of replayed windows (the
+   profiler's kernels; CUDA events around the replays beside them), the idle share each
+   way, capture and instantiation per key, and peak memory (allocated, reserved). Then the main path's other three variants, 6 windows and a tail, with
+   graphs against eager, bit for bit, each variant launched once per window-encode call
+   both ways. Phases 4 and 9 run through graphs too (their runs of 8 and 6 windows
+   replay from the fourth window on), and phase 4 holds its runs' windows to the plan.
 Then one JSON line with every kernel's numbers (its time beside its bound: the larger of
 its bytes over 3.35 TB/s and its fp32 operations over 67 TFLOP/s; for the 40-bit kernels
 also ``issue_ms``, the machine instructions that this run's build spends on their steps,
 counted from its SASS, over the card's instruction rate: a share of the time, no bound;
 ``launches`` the count of the kernel's path, which must be above 0 but where the row says
 ``timing_only``: a kernel no run takes, timed beside the one that replaced it, whose count
-must be 0) and ``launch_floor_us``, and as the last line
+must be 0; ``launches_graph_path`` phase 12's count, launches replayed from graphs
+included) and ``launch_floor_us``, and as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off throughout, so every plain version on the
 card computes in full fp32.
 
-``python3 chip_smoke.py --main-path-readings N [--package-from DIR]`` runs none of the
-phases: it builds the kernels and prints N readings of phase 4's first run as one JSON
-line, with the package of DIR where that is given. Two commits are compared by running
+``python3 chip_smoke.py --main-path-readings N [--main-path-windows W] [--package-from
+DIR]`` runs none of the phases: it builds the kernels and prints N readings of phase 4's
+first run (or of the same run at W windows) as one JSON line, with the package of DIR
+where that is given. Two commits are compared by running
 it for each in turns, several processes a commit, in one session on one card.
 
 ``python3 chip_smoke.py --mesh-processes N`` (N cards) runs none of the phases either:
@@ -1395,25 +1412,27 @@ KERNEL_GROUPS = (("nccl", "NCCL"), ("zfuse_", "K7 zfuse"), ("fft", "cuFFT"), ("w
                  ("Memset", "memset"))
 
 
-def _profile_window(data, flags, host_top=0, **run_fields):
+def _profile_window(data, flags, host_top=0, windows=1, **run_fields):
     """Device time by kind of kernel over one profiled window of `run_simulation` (16
-    steps): (device ms per step, [(kind, share), ...], ms of host-to-device copies, which
-    are the run's set-up and are left out of both, [(host op, self ms per step), ...] of
-    the ``host_top`` host events with the most time of their own). Only kernel events
-    count: the operator events above them carry the same time again. The run's set-up
-    (operators, sharding, the first window's plans) is inside the window."""
+    steps; or a run of ``windows`` windows): (device ms per step, [(kind, share), ...],
+    ms of host-to-device copies, which are the run's set-up and are left out of both,
+    [(host op, self ms per step), ...] of the ``host_top`` host events with the most time
+    of their own). Only kernel events count: the operator events above them carry the
+    same time again. The run's set-up (operators, sharding, the first window's plans) is
+    inside the window."""
     import dataclasses
 
     from torch.profiler import ProfilerActivity, profile
 
-    short = dataclasses.replace(data, grid=dataclasses.replace(data.grid, nt=O_SIZE))
+    steps = windows * O_SIZE
+    short = dataclasses.replace(data, grid=dataclasses.replace(data.grid, nt=steps))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _run(flags, 1, 0, data=short, **run_fields)
+        _run(flags, windows, 0, data=short, **run_fields)
     groups: dict[str, float] = {}
     host = []
     for e in prof.key_averages():
         if not str(e.device_type).endswith("CUDA"):
-            host.append((e.key, e.self_cpu_time_total / 1e3 / O_SIZE))
+            host.append((e.key, e.self_cpu_time_total / 1e3 / steps))
             continue
         t = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
         kind = next((g for frag, g in KERNEL_GROUPS if frag in e.key), "other")
@@ -1423,7 +1442,7 @@ def _profile_window(data, flags, host_top=0, **run_fields):
     _require(total > 0, "the profiler saw no device time")
     top = sorted(groups.items(), key=lambda r: -r[1])
     host = sorted(host, key=lambda r: -r[1])[:host_top]
-    return total / 1e3 / O_SIZE, [(k, t / total) for k, t in top], setup_ms, host
+    return total / 1e3 / steps, [(k, t / total) for k, t in top], setup_ms, host
 
 
 FUSED_FLAGS = ["--p_raw", "--p_c", "--40-bit_complex"]
@@ -1582,11 +1601,12 @@ def _input(nt: int, n: int = GRID_N, shape: tuple[int, int, int] | None = None):
 
 
 def _run(flags: list[str], windows: int, tail: int, data=None, out=None, resume_from=None,
-         device="cuda", mesh=None, **run_fields):
+         device="cuda", mesh=None, window_log=None, **run_fields):
     """One `run_simulation` through the CLI's parser into an in-memory group (``out``, or
     a new one); ``run_fields`` sets RunConfig fields that have no flag
-    (compact_operators, fuse_z) or that take a group here (checkpoint_file). Returns the
-    group, the seconds, the record's steps and the run's summary."""
+    (compact_operators, fuse_z, cuda_graphs) or that take a group here
+    (checkpoint_file); ``window_log`` (a list) receives the run's window objects. Returns
+    the group, the seconds, the record's steps and the run's summary."""
     import dataclasses
 
     import torch
@@ -1603,6 +1623,8 @@ def _run(flags: list[str], windows: int, tail: int, data=None, out=None, resume_
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     legs = {} if resume_from is None else {"resume_from": resume_from}
+    if window_log is not None:  # not passed otherwise: an older package takes no log
+        legs["window_log"] = window_log
     summary = run_simulation(data, run, out, device=device, mesh=mesh, **legs)
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0, data.grid.nt, summary
@@ -1666,9 +1688,10 @@ def main_path_phase():
     ew.reset_launch_counts()
     float_run = None
     for flags, windows, tail, variant in runs:
-        before = dict(ew.LAUNCHES)
-        out, secs, steps, _ = _run(flags, windows, tail)
+        before, log = dict(ew.LAUNCHES), []
+        out, secs, steps, _ = _run(flags, windows, tail, window_log=log)
         delta = {k: ew.LAUNCHES[k] - before[k] for k in ew.LAUNCHES}
+        actions = _check_actions(log, windows)
         calls = windows + (1 if tail else 0)  # full windows + the trailing partial one
         want = {k: (calls if k == variant else 0) for k in ew.LAUNCHES}
         if delta != want:
@@ -1680,11 +1703,24 @@ def main_path_phase():
               f"{sim_ms:.3f} ms/step in the simulation phase, "
               f"{secs / steps * 1e3:.3f} ms/step end to end; {variant} launched "
               f"{delta[variant]}x; Nc={steps // O_SIZE}; p_c == oracle(p_raw) bytes on "
-              f"{ORACLE_SENSORS} sensors, decoded diff {err:.3g} (peak {peak:.3g})",
-              flush=True)
+              f"{ORACLE_SENSORS} sensors, decoded diff {err:.3g} (peak {peak:.3g}); "
+              f"windows {actions}", flush=True)
         if flags == ["--p_raw", "--p_c"]:
             float_run = (out, steps)  # decoded on the card in phase 6
     return dict(ew.LAUNCHES), float_run
+
+
+def _check_actions(log: list, windows: int, t_first: int = 0, cfg=None) -> str:
+    """The windows of a run on the card ran as `driver.plan_windows` says (the first with
+    the p0 peel, eager, then the others); returns them counted by action."""
+    from kwave_tpu_torch import driver, solver
+
+    actions = [a for w in log for a in w.actions]
+    plan = driver.plan_windows(cfg or solver.SolverConfig(), O_SIZE, t_first, windows)
+    _require(actions == [(t, a) for t, _, a in plan],
+             f"the windows ran as {actions}, the plan says {plan}")
+    return ", ".join(f"{sum(a == k for _, a in actions)} {k}"
+                     for k in ("eager", "capture", "replay"))
 
 
 def _member(group, path: str):
@@ -2496,6 +2532,199 @@ def mesh_phase(smi):
     return {k: sum(launches[s][k] for s in (4, 2, 1)) for k in launches[4]}
 
 
+# phase 12: the window as one device program (CUDA graphs of the window)
+GRAPH_WINDOWS = 13  # 1 eager, 2 captured, 10 replayed
+GRAPH_TAIL = 5
+GRAPH_CELLS = (  # (what, nz x ny x nx, flags, RunConfig fields)
+    ("128^3 main path", (GRID_N,) * 3, ["--p_raw", "--p_c", "--40-bit_complex"], {}),
+    ("256^3 unfused", (BIG_N,) * 3, FUSED_FLAGS, RUN_FIELDS["compact"]),
+    ("256^3 fused", (BIG_N,) * 3, FUSED_FLAGS, RUN_FIELDS["fused"]),
+    ("251^3 fused", (251,) * 3, FUSED_FLAGS, RUN_FIELDS["fused"]),
+    ("6 x 1152^2 fused", (6, 1152, 1152), FUSED_FLAGS, RUN_FIELDS["fused"]),
+)
+GRAPH_VARIANT_WINDOWS = 6  # the main path's other three variants: 6 windows and the tail
+GRAPH_PROFILE_WINDOWS = 6  # the profiled eager run of each cell
+
+
+def _launch_counts() -> dict:
+    from kwave_tpu_torch.ops import encode_window as ew
+    from kwave_tpu_torch.ops import zfuse
+
+    return {**ew.LAUNCHES, **zfuse.LAUNCHES,
+            **{f"k7 {k}": v for k, v in zfuse.KERNEL_LAUNCHES.items()}}
+
+
+def _replay_ms(graphs, reps: int = 3) -> tuple[float, float]:
+    """Device ms per step of one captured window replayed ``reps`` times on its own static
+    state: (CUDA events around the replays, torch.profiler's kernel time of another
+    ``reps``). The launch counters are left as they were."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from kwave_tpu_torch.ops import encode_window as ew
+    from kwave_tpu_torch.ops import zfuse
+
+    saved = [(d, dict(d)) for d in (ew.LAUNCHES, zfuse.LAUNCHES, zfuse.KERNEL_LAUNCHES)]
+    key = next(iter(graphs.capture_seconds))
+    graphs.replay(key, graphs.static, 0)  # warm
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graphs.replay(key, graphs.static, 0)
+    end.record()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            graphs.replay(key, graphs.static, 0)
+        torch.cuda.synchronize()
+    kernels = sum(getattr(e, "self_device_time_total", None) or
+                  getattr(e, "self_cuda_time_total", 0) for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA"))
+    for d, was in saved:  # these replays are no path's launches
+        d.update(was)
+    steps = reps * O_SIZE
+    return start.elapsed_time(end) / steps, kernels / 1e3 / steps
+
+
+def _window_starts(calls: list):
+    """A context in which every call of a run's window object appends its start time on
+    the host's clock to ``calls`` (the windows themselves run unchanged)."""
+    import contextlib
+
+    from kwave_tpu_torch import driver
+
+    @contextlib.contextmanager
+    def recording():
+        orig = driver._Window.__call__
+
+        def call(self, *args, **kwargs):
+            calls.append(time.perf_counter())
+            return orig(self, *args, **kwargs)
+
+        driver._Window.__call__ = call
+        try:
+            yield
+        finally:
+            driver._Window.__call__ = orig
+
+    return recording()
+
+
+def _graph_cell(what, shape, flags, fields) -> dict:
+    """One cell of phase 12. After an eager warm-up run (the grid's first run pays its
+    set-up), runs of GRAPH_WINDOWS windows (and a tail) with every window eager and with
+    graphs, in the order eager, graphs, graphs, eager, each after the allocator's cache is
+    emptied: the first of each way equal bit for bit with equal launches, and give the
+    peak memory; the graph runs' windows as planned. Warm ms/step of each run: the median
+    time from one window's start to the next's over the windows from the fourth on (with
+    graphs: replayed windows only), over o; beside it the simulation phase's ms/step.
+    Device ms/step (torch.profiler's kernels) of an eager run and of replayed windows,
+    beside CUDA events around the replays; capture time per key. Returns the graph run's
+    launches and the cell's K7 kernel."""
+    import dataclasses
+
+    import torch
+
+    from kwave_tpu_torch.ops import zfuse
+
+    t0 = time.perf_counter()
+    base = _input(GRAPH_WINDOWS * O_SIZE + GRAPH_TAIL, shape=shape)
+    _run(flags, 2, GRAPH_TAIL, cuda_graphs=False, **fields, data=dataclasses.replace(
+        base, grid=dataclasses.replace(base.grid, nt=2 * O_SIZE + GRAPH_TAIL)))
+    outs, counts, logs, peak, warm, sim = {}, {}, {}, {}, {}, {}
+    for graphs in (False, True, True, False):
+        log, starts, before = [], [], _launch_counts()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with _window_starts(starts):
+            out, _, steps, _ = _run(flags, GRAPH_WINDOWS, GRAPH_TAIL, data=base,
+                                    window_log=log, cuda_graphs=graphs, **fields)
+        gaps = np.diff(starts[3:]) / O_SIZE * 1e3  # from the 4th window on
+        warm.setdefault(graphs, []).append(float(np.median(gaps)))
+        sim.setdefault(graphs, []).append(
+            float(out.attrs["simulation_phase_execution_time"]) / steps * 1e3)
+        if graphs not in outs:
+            outs[graphs], logs[graphs] = out, log
+            peak[graphs] = (torch.cuda.max_memory_allocated() / 2**30,
+                            torch.cuda.max_memory_reserved() / 2**30)
+            counts[graphs] = {k: v - before[k] for k, v in _launch_counts().items()}
+        if graphs:
+            acts = _check_actions(log, GRAPH_WINDOWS)
+        else:
+            _require(all(a == "eager" for x in log for _, a in x.actions),
+                     f"{what}: a window of the eager run was not eager")
+    differ = _same_bits(outs[False], outs[True])
+    _require(not differ, f"{what}: the graph run differs from the eager run in {differ}")
+    _require(counts[True] == counts[False],
+             f"{what}: launches with graphs {counts[True]}, eager {counts[False]}")
+    dev = {False: _profile_window(base, flags, windows=GRAPH_PROFILE_WINDOWS,
+                                  cuda_graphs=False, **fields)[0]}
+    replay, dev[True] = _replay_ms(logs[True][1].graphs)
+    capture = sorted(logs[True][1].graphs.capture_seconds.values())
+    idle = {g: 1 - dev[g] / float(np.mean(warm[g])) for g in (False, True)}
+    kernel = zfuse.kernel_for(shape[0]) if fields.get("fuse_z") else None
+    print(f"[12 graph] {what}: {GRAPH_WINDOWS} windows + {GRAPH_TAIL} with graphs == every "
+          f"window eager, bit for bit ({len(list(_datasets(outs[True])))} datasets); windows "
+          f"{acts}; launches eager == graph: "
+          f"{ {k: v for k, v in counts[True].items() if v} }", flush=True)
+    print(f"[12 graph] {what}: warm ms/step eager {warm[False]}, graph {warm[True]} "
+          f"(two runs each; simulation phase of the {GRAPH_WINDOWS}-window runs, first "
+          f"windows and captures included: eager {sim[False]}, graph {sim[True]}); "
+          f"device ms/step (profiler's kernels) "
+          f"eager {dev[False]:.4f} ({GRAPH_PROFILE_WINDOWS}-window run), graph "
+          f"{dev[True]:.4f} (replayed windows; CUDA events around them "
+          f"{replay:.4f}); idle eager {idle[False]:.1%}, graph "
+          f"{idle[True]:.1%}; capture + instantiate per key {capture} s; peak memory "
+          f"allocated / reserved eager {peak[False][0]:.3f} / {peak[False][1]:.3f} GiB, "
+          f"graph {peak[True][0]:.3f} / {peak[True][1]:.3f} GiB; the cell in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del outs, logs
+    torch.cuda.empty_cache()
+    return {"counts": counts[True], "kernel": kernel}
+
+
+def graph_phase(smi):
+    """Phase 12: `GRAPH_CELLS` (`_graph_cell`), then the main path's other three
+    variants at 128^3 with graphs against eager, bit for bit. Returns the launches of
+    the graph runs by `encode_window.LAUNCHES` key and, for K7, by kernel and op count."""
+    from kwave_tpu_torch.ops import encode_window as ew
+
+    print(f"[12 graph] card {smi}", flush=True)
+    window, k7 = {k: 0 for k in ew.LAUNCHES}, {}
+    for what, shape, flags, fields in GRAPH_CELLS:
+        got = _graph_cell(what, shape, flags, fields)
+        for k in window:
+            window[k] += got["counts"][k]
+        if got["kernel"] is not None:
+            _require(got["counts"][f"k7 {got['kernel']}"] > 0,
+                     f"{what}: no {got['kernel']} K7 launch")
+            have = k7.setdefault(got["kernel"], {})
+            for n in ("zfuse_1op", "zfuse_2op", "zfuse_3op"):
+                have[n] = have.get(n, 0) + got["counts"][n]
+    w = GRAPH_VARIANT_WINDOWS
+    for flags, variant in ((["--p_raw", "--p_c", "--no_overlap"], "wfloat_no_overlap"),
+                           (["--p_raw", "--p_c", "--40-bit_complex", "--no_overlap"],
+                            "w40_no_overlap"),
+                           (["--p_raw", "--p_c"], "wfloat_overlap")):
+        outs, counts = {}, {}
+        for graphs in (False, True):
+            log, before = [], _launch_counts()
+            outs[graphs], *_ = _run(flags, w, GRAPH_TAIL, window_log=log,
+                                    cuda_graphs=graphs)
+            counts[graphs] = {k: v - before[k] for k, v in _launch_counts().items()}
+        acts = _check_actions(log, w)
+        differ = _same_bits(outs[False], outs[True])
+        _require(not differ and counts[True] == counts[False]
+                 and counts[True][variant] == w + 1,
+                 f"{flags}: graph vs eager differ in {differ}; launches {counts}")
+        window[variant] += counts[True][variant]
+        print(f"[12 graph] {' '.join(flags)}: {w} windows + {GRAPH_TAIL} with graphs == "
+              f"eager, bit for bit; windows {acts}; {variant} launched "
+              f"{counts[True][variant]}x both ways", flush=True)
+    _require(all(window[k] > 0 for k in VARIANTS), f"phase 12: launches {window}")
+    return window, k7
+
+
 CARDS_GRIDS = (BIG_N, 512)  # --mesh-processes: phase 11 (a) at these n^3 across the cards
 
 
@@ -2582,14 +2811,15 @@ def cards_phase(world: int) -> int:
     return 0
 
 
-def readings_phase(readings: int, tree: Path) -> int:
+def readings_phase(readings: int, tree: Path, windows: int = 8) -> int:
     """``--main-path-readings``: phase 4's first run (128^3, 16384 sensors, 8 windows and a
-    5-step tail, 40-bit overlap) ``readings`` times in this process, after the build and
-    the same warm-up, with the package of ``tree``. One reading a run does not resolve 5 %
-    on a loop the host bounds; two trees are compared by such processes in turns."""
+    5-step tail, 40-bit overlap; or ``windows`` windows) ``readings`` times in this
+    process, after the build and the same warm-up, with the package of ``tree``. One
+    reading a run does not resolve 5 % on a loop the host bounds; two trees are compared
+    by such processes in turns."""
     _, smi = device_phase()
     build_phase()
-    flags, windows, tail = ["--p_raw", "--p_c", "--40-bit_complex"], 8, 5
+    flags, tail = ["--p_raw", "--p_c", "--40-bit_complex"], 5
     _run(flags, 1, 3)  # warm-up, as phase 4's
     sim, end = [], []
     for _ in range(readings):
@@ -2607,6 +2837,8 @@ def main(argv: list[str]) -> int:
     parser = argparse.ArgumentParser(description="The port's check on one NVIDIA H100.")
     parser.add_argument("--main-path-readings", type=int, default=0, metavar="N",
                         help="instead of the phases: N readings of phase 4's first run")
+    parser.add_argument("--main-path-windows", type=int, default=8, metavar="W",
+                        help="with --main-path-readings: the run's windows (8: phase 4's)")
     parser.add_argument("--package-from", type=Path, default=ROOT, metavar="DIR",
                         help="with --main-path-readings: the checkout whose "
                              "kwave_tpu_torch is read (another commit, for a comparison)")
@@ -2632,7 +2864,7 @@ def main(argv: list[str]) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     if args.main_path_readings:
-        return readings_phase(args.main_path_readings, tree)
+        return readings_phase(args.main_path_readings, tree, args.main_path_windows)
     if args.mesh_rank is not None:
         return _rank_phase(args.mesh_rank, args.mesh_processes, args.port)
     if args.mesh_processes:
@@ -2663,7 +2895,8 @@ def main(argv: list[str]) -> int:
     _require(legs_launches["w40_overlap"] > 0, "phase 9 launched no window kernel")
     acceptance_launches = timed(10, acceptance_phase, smi)
     mesh_launches = timed(11, mesh_phase, smi)
-    print(f"[time] phases 2-11 in {time.perf_counter() - t_run:.1f} s", flush=True)
+    graph_launches, graph_k7 = timed(12, graph_phase, smi)
+    print(f"[time] phases 2-12 in {time.perf_counter() - t_run:.1f} s", flush=True)
 
     rows = [dict(name=key, route="cuda", source="kwave_tpu_torch/csrc/encode_window.cu",
                  replaces=VARIANTS[key][2], launches=launches[key], **kernels[key])
@@ -2674,9 +2907,13 @@ def main(argv: list[str]) -> int:
     rows += [dict(name=key, route="cuda", source="kwave_tpu_torch/csrc/encode_series.cu",
                   replaces=replaces, launches=series_launches[key], **series[key])
              for key, (_, _, replaces) in SERIES_KERNELS.items()]
+    for r in rows:  # the window kernels' launches in phase 12's graph runs
+        r["launches_graph_path"] = graph_launches.get(r["name"], 0)
     for key, row in fused.items():  # launches: the runs of the row's kernel (phase 8)
         kernel, n_ops = row.pop("kernel"), row.pop("n_ops")
         extra = {"timing_only": True} if kernel in TIMING_ONLY else {}
+        if kernel in graph_k7:
+            extra["launches_graph_path"] = graph_k7[kernel][f"zfuse_{n_ops}op"]
         rows.append(dict(name=key, route="cuda", source=K7_SOURCES[kernel],
                          replaces="kwave_tpu/ops/zfuse.py:113",
                          launches=fused_launches.get(kernel, {}).get(f"zfuse_{n_ops}op", 0),

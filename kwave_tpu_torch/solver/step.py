@@ -14,8 +14,13 @@ over the last ``ndim`` axes, cuFFT on the card) by default, the mesh's pencil FF
 for every transform of the step: x/y transforms around one kernel that does z-DFT,
 operator and z-IDFT. The elementwise updates are plain tensor expressions in the JAX
 package's order; on a mesh they run shard by shard (`kwave_tpu_torch.parallel.Sharded`).
-Fields are float32 ``[nz, ny, nx]`` (``[ny, nx]`` in 2D), x fastest. The time index ``t``
-is a host integer, so source gating is a host branch. No tensor is updated in place.
+Fields are float32 ``[nz, ny, nx]`` (``[ny, nx]`` in 2D), x fastest. No tensor is updated
+in place.
+
+The time index ``t`` is a host integer, or a 0-d int64 tensor on the fields' device. Which
+sources act is a host branch either way: `source_phase` decides it from a host integer, or
+for a run of steps at once, where the steps share one captured CUDA graph whose ``t`` is a
+device value; the signals are then read by a gather at ``t`` on the device.
 """
 
 from __future__ import annotations
@@ -217,10 +222,41 @@ def _grad_fields(field: torch.Tensor, ops: Operators, ddx, ddy, ddz, shape,
     return gx, gy, gz
 
 
-def _source_value(signal: torch.Tensor, t: int, many: bool,
+class SourcePhase(NamedTuple):
+    """Which sources act on a step (the host's branches of `step`): the velocity, the
+    transducer and the pressure source (each while ``t`` is below its flag) and the
+    initial pressure (at ``t == 0`` under ``p0_source_flag``)."""
+
+    u: bool
+    transducer: bool
+    p: bool
+    p0: bool
+
+
+def source_phase(cfg: SolverConfig, t_first: int, t_last: int) -> Optional[SourcePhase]:
+    """The sources that act on every step from ``t_first`` to ``t_last``, or None where one
+    starts or stops in between (those steps take different branches of `step`)."""
+    def before(flag: int) -> Optional[bool]:
+        if flag <= 0 or t_first >= flag:
+            return False
+        return True if t_last < flag else None
+
+    p0 = False
+    if cfg.p0_source_flag and t_first == 0:
+        p0 = True if t_last == 0 else None
+    phase = (before(cfg.u_source_flag), before(cfg.transducer_source_flag),
+             before(cfg.p_source_flag), p0)
+    return None if None in phase else SourcePhase(*phase)
+
+
+def _source_value(signal: torch.Tensor, t, many: bool,
                   index: torch.Tensor) -> torch.Tensor:
     """Signal sample(s) at timestep t (clamped to the signal, as a JAX dynamic index):
-    scalar broadcast over ``index``'s points or per-point column."""
+    scalar broadcast over ``index``'s points or per-point column. A tensor ``t`` is read
+    by a gather on the device, to the same values."""
+    if isinstance(t, torch.Tensor):
+        col = signal.index_select(-1, torch.clamp(t, max=signal.size(-1) - 1).reshape(1))
+        return col.reshape(-1) if many else col.expand_as(index)
     t = min(t, signal.size(-1) - 1)
     if many:
         return signal[:, t]
@@ -255,13 +291,22 @@ def _scale_additive_source(index, value, ops: Operators, shape, fft: FftOps = LO
 # ---------------------------------------------------------------------------
 
 
-def step(state: SimState, t: int, ops: Operators, src: Sources, cfg: SolverConfig,
-         spectral_multi: Optional[Callable] = None, fft: FftOps = LOCAL_FFT) -> SimState:
+def step(state: SimState, t, ops: Operators, src: Sources, cfg: SolverConfig,
+         spectral_multi: Optional[Callable] = None, fft: FftOps = LOCAL_FFT,
+         phase: Optional[SourcePhase] = None) -> SimState:
     """One main-loop iteration (computeMainLoop body, KSpaceFirstOrderSolver.cpp:885-935).
     ``spectral_multi`` (3D only; `kwave_tpu_torch.ops.zfuse.make_pipeline`), when given,
     takes every spectral multiply of the step: ``(field, op_specs, dd_vectors, use_kappa)
     -> [real fields]``. Otherwise ``fft`` does every transform: on a mesh, the pencil FFT
-    (`kwave_tpu_torch.parallel.pencil_fft`) with z-sharded fields and operators."""
+    (`kwave_tpu_torch.parallel.pencil_fft`) with z-sharded fields and operators.
+
+    ``t`` is a host integer, or a 0-d int64 tensor on the fields' device; a tensor needs
+    ``phase`` (`source_phase` of the steps it stands for), an integer takes its own. Both
+    give the same bits."""
+    if phase is None:
+        if isinstance(t, torch.Tensor):
+            raise ValueError("a tensor time index needs the steps' source phase")
+        phase = source_phase(cfg, t, t)
     is3d = state.uz_sgz is not None
     shape = state.p.shape
     ndim = state.p.ndim
@@ -280,7 +325,7 @@ def step(state: SimState, t: int, ops: Operators, src: Sources, cfg: SolverConfi
         uz = (state.uz_sgz * pml_z_sg - ops.dt_rho0_sgz * dpz) * pml_z_sg
 
     # -- velocity source (addVelocitySource :2252-2303)
-    if cfg.u_source_flag > 0 and t < cfg.u_source_flag:
+    if phase.u:
         def add_u(u, signal):
             val = _source_value(signal, t, cfg.u_source_many, src.u_index)
             if cfg.u_source_mode == ADDITIVE:
@@ -295,7 +340,7 @@ def step(state: SimState, t: int, ops: Operators, src: Sources, cfg: SolverConfi
             uz = add_u(uz, src.uz_signal)
 
     # -- transducer source (addTransducerSource; delay mask per element)
-    if cfg.transducer_source_flag > 0 and t < cfg.transducer_source_flag:
+    if phase.transducer:
         sig = src.transducer_signal
         at = torch.clamp(src.delay_mask + t, max=sig.shape[0] - 1)
         ux = _apply_point_source(ux, src.transducer_index, sig[at], ADDITIVE_NO_CORRECTION)
@@ -337,7 +382,7 @@ def step(state: SimState, t: int, ops: Operators, src: Sources, cfg: SolverConfi
     rz = pml_z * (pml_z * state.rho_z - dt_f * rho0_x * duzdz) if is3d else None
 
     # -- pressure source (addPressureSource :2310-2333): applied to the split densities
-    if cfg.p_source_flag > 0 and t < cfg.p_source_flag:
+    if phase.p:
         val = _source_value(src.p_signal, t, cfg.p_source_many, src.p_index)
         if cfg.p_source_mode == ADDITIVE:
             scaled = _scale_additive_source(src.p_index, val, ops, shape, fft)
@@ -381,7 +426,7 @@ def step(state: SimState, t: int, ops: Operators, src: Sources, cfg: SolverConfi
     new = SimState(p=p, ux_sgx=ux, uy_sgy=uy, uz_sgz=uz, rho_x=rx, rho_y=ry, rho_z=rz)
     # -- initial pressure at t==0 (addInitialPressureSource :2359-2400); the driver peels
     # this out of its window loop and passes p0_source_flag=False
-    if cfg.p0_source_flag and t == 0:
+    if phase.p0:
         new = add_initial_pressure(new, ops, src.p0, spectral_multi, fft)
     return new
 
@@ -476,24 +521,88 @@ def _stack(rows: list):
     return torch.stack(rows)
 
 
+def state_tensors(state: SimState) -> list[torch.Tensor]:
+    """The state's fields that are not None, in `SimState`'s order."""
+    return [t for t in (getattr(state, f.name) for f in dataclasses.fields(SimState))
+            if t is not None]
+
+
+def with_state_tensors(like: SimState, tensors) -> SimState:
+    """A `SimState` with ``like``'s None fields and the others taken from ``tensors`` in
+    order (the inverse of `state_tensors`)."""
+    it = iter(tensors)
+    return SimState(**{f.name: None if getattr(like, f.name) is None else next(it)
+                       for f in dataclasses.fields(SimState)})
+
+
+def chunk_keys(cfg: SolverConfig, t0: int, n_steps: int, chunk: int
+               ) -> list[tuple[int, int, Optional[SourcePhase]]]:
+    """``n_steps`` steps from ``t0`` in runs of ``chunk``: (first step, steps, key) each;
+    the key is the run's `source_phase`, None for a short last run or where a source
+    starts or stops inside (those run eagerly)."""
+    out = []
+    for t in range(t0, t0 + n_steps, chunk):
+        n = min(chunk, t0 + n_steps - t)
+        out.append((t, n, source_phase(cfg, t, t + n - 1) if n == chunk else None))
+    return out
+
+
 def make_simulate_fn(ops: Operators, src: Sources, cfg: SolverConfig, n_steps: int,
                      sample_fn: Optional[Callable[[SimState], Any]] = None,
-                     spectral_multi: Optional[Callable] = None, fft: FftOps = LOCAL_FFT):
+                     spectral_multi: Optional[Callable] = None, fft: FftOps = LOCAL_FFT,
+                     graph_steps: Optional[int] = None):
     """The main loop as a function ``run(state, t0) -> (state, samples)``: ``n_steps``
     calls of `step` from time index ``t0`` (a host integer, so a checkpoint leg or a
     lead-in resumes anywhere). ``sample_fn(state)`` runs after every step and its
     outputs are stacked (`_stack`); ``samples`` is None without it. ``spectral_multi``
     (`kwave_tpu_torch.ops.zfuse.make_pipeline`) takes every spectral multiply, as in
     `step`; ``fft`` likewise (the pencil FFT on a mesh). The fields stay on the
-    operators' device throughout."""
+    operators' device throughout.
 
-    def run(state: SimState, t0: int = 0):
+    With ``graph_steps`` (no ``sample_fn``) and the fields on a CUDA device, the steps
+    go in runs of that many (`chunk_keys`), and the runs of one source phase replay one
+    captured CUDA graph (`kwave_tpu_torch.graphs`), as the JAX package's loop is one
+    program; the state then lives in the graphs' static buffers. On the CPU the
+    argument changes nothing."""
+    if graph_steps is not None and sample_fn is not None:
+        raise ValueError("graph_steps takes no sample_fn")
+
+    def steps(state: SimState, t0, n: int, phase=None):
         rows = []
-        for i in range(n_steps):
-            state = step(state, int(t0) + i, ops, src, cfg, spectral_multi, fft)
+        for i in range(n):
+            state = step(state, t0 + i, ops, src, cfg, spectral_multi, fft, phase)
             if sample_fn is not None:
                 rows.append(sample_fn(state))
-        return state, (_stack(rows) if rows else None)
+        return state, rows
+
+    graphs = None
+
+    def run(state: SimState, t0: int = 0):
+        nonlocal graphs
+        t0 = int(t0)
+        if graph_steps is None or not (isinstance(state.p, torch.Tensor) and state.p.is_cuda):
+            state, rows = steps(state, t0, n_steps)
+            return state, (_stack(rows) if rows else None)
+        from kwave_tpu_torch.graphs import Graphs, graph_actions
+
+        plan = chunk_keys(cfg, t0, n_steps, graph_steps)
+        for (t, n, key), action in zip(plan, graph_actions([k for _, _, k in plan])):
+            if graphs is not None and key in graphs:  # captured by an earlier run of it
+                static, _ = graphs.replay(key, state_tensors(state), t)
+                state = with_state_tensors(state, static)
+                continue
+            before = state
+            state, _ = steps(state, t, n)
+            if action == "capture":
+                if graphs is None:
+                    graphs = Graphs(state.p.device)
+
+                def body(static, t_dev, like=before, n=n, key=key):
+                    after, _ = steps(with_state_tensors(like, static), t_dev, n, key)
+                    return state_tensors(after), None
+
+                graphs.capture(key, state_tensors(before), body)
+        return state, None
 
     return run
 

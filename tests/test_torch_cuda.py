@@ -1113,3 +1113,180 @@ def test_pencil_fft_on_the_card_matches_torch_fft(s):
     assert float((torch.cat(k.shards, 1) - ref).abs().max() / ref.abs().max()) <= 1e-5
     back = torch.cat(dfft.dist_irfftn(k, 96, mesh).shards)
     assert float((back - x).abs().max() / x.abs().max()) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# The window as one device program: run_simulation with its windows replayed as CUDA
+# graphs against the same run with every window eager (RunConfig.cuda_graphs=False)
+# ---------------------------------------------------------------------------
+
+GRAPH_O = 8  # period 8: o = 8
+
+
+def _graph_input(shape, nt, p_flag=0, n_sensors=256):
+    """An nz x ny x nx heterogeneous absorbing medium with p0 at the centre (and, with
+    ``p_flag``, an additive pressure source acting on the steps below it), index sensors
+    from seed 7."""
+    from kwave_tpu_torch.io.input_file import InputData
+    from kwave_tpu_torch.solver import Grid, Medium
+
+    nz, ny, nx = shape
+    grid = Grid(nx=nx, ny=ny, nz=nz, dx=1e-4, dy=1e-4, dz=1e-4, dt=2e-8, nt=nt)
+    rng = np.random.default_rng(7)
+    medium = Medium(c0=(1500.0 + 100.0 * rng.random(shape)).astype(np.float32),
+                    rho0=(1000.0 + 50.0 * rng.random(shape)).astype(np.float32),
+                    alpha_coeff=0.75, alpha_power=1.5)
+    p0 = np.zeros(shape, np.float32)
+    p0[nz // 2, ny // 2, nx // 2] = 1e5
+    mask = np.sort(rng.choice(grid.n_elements, n_sensors, replace=False)).astype(np.int64)
+    extra = {}
+    if p_flag:
+        t = np.arange(nt, dtype=np.float32)
+        extra = dict(p_source_index=np.array([nx // 3 + nx * (ny // 3 + ny * (nz // 3))]),
+                     p_source_input=(2e-2 * np.sin(2 * np.pi * t / 8.0)).astype(np.float32),
+                     p_source_flag=p_flag, p_source_mode=2)
+    return InputData(grid=grid, medium=medium,
+                     pml_size=tuple(min(4, m // 4) for m in (nx, ny, nz)),
+                     pml_alpha=(2.0, 2.0, 2.0), absorbing=True, sensor_mask_index=mask,
+                     p0=p0, **extra)
+
+
+def _counts():
+    from kwave_tpu_torch.ops import zfuse
+
+    return {**ew.LAUNCHES, **zfuse.LAUNCHES,
+            **{f"kernel_{k}": v for k, v in zfuse.KERNEL_LAUNCHES.items()}}
+
+
+def _graph_run(data, flags, graphs, out=None, resume_from=None, **run_fields):
+    """One run on the card into an in-memory group: (group, launches, window actions)."""
+    import dataclasses
+
+    from chip_smoke import MemGroup
+    from kwave_tpu_torch import params
+    from kwave_tpu_torch.driver import run_simulation
+
+    args = params.build_parser().parse_args(["-i", "-", "-o", "-", "--period",
+                                             str(GRAPH_O), *flags])
+    run = dataclasses.replace(params.args_to_run_config(args, dt=data.grid.dt),
+                              cuda_graphs=graphs, **run_fields)
+    out = MemGroup() if out is None else out
+    before, log = _counts(), []
+    summary = run_simulation(data, run, out, device="cuda", resume_from=resume_from,
+                             window_log=log)
+    torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in _counts().items()}
+    return out, launches, [a for w in log for a in w.actions], summary
+
+
+def _same_outputs(a, b):
+    from chip_smoke import _datasets, _same_bits
+
+    assert dict(_datasets(a)).keys() == dict(_datasets(b)).keys()
+    assert not _same_bits(a, b), _same_bits(a, b)
+
+
+def _hold_graphs_to_eager(data, flags, min_replays=1, **run_fields):
+    """The run with graphs equals the run without bit for bit, with the same launches;
+    its windows ran as `driver.plan_windows` says, at least ``min_replays`` replayed."""
+    eager, n_eager, acts_eager, _ = _graph_run(data, flags, False, **run_fields)
+    graph, n_graph, acts, _ = _graph_run(data, flags, True, **run_fields)
+    _same_outputs(eager, graph)
+    assert n_graph == n_eager, (n_graph, n_eager)
+    assert all(a == "eager" for _, a in acts_eager)
+    assert sum(a == "replay" for _, a in acts) >= min_replays, acts
+    return acts, n_graph
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [["--p_raw", "--p_c", "--40-bit_complex"],
+                                   ["--p_raw", "--p_c", "--40-bit_complex", "--no_overlap"],
+                                   ["--p_raw", "--p_c"],
+                                   ["--p_raw", "--p_c", "--no_overlap"]],
+                         ids=["w40_overlap", "w40_no_overlap", "wfloat_overlap",
+                              "wfloat_no_overlap"])
+def test_graph_windows_equal_eager_windows(flags):
+    """The four window-encode variants at 24^3, 8 windows and a 3-step tail: windows 0
+    eager (p0, the mirror), 1 and 2 eager and captured, 3-7 replayed."""
+    from kwave_tpu_torch import driver, solver
+
+    require_cuda()
+    data = _graph_input((24, 24, 24), 8 * GRAPH_O + 3)
+    acts, launches = _hold_graphs_to_eager(data, flags, min_replays=5)
+    plan = driver.plan_windows(solver.SolverConfig(), GRAPH_O, 0, 8)
+    assert acts == [(t, a) for t, _, a in plan]
+    variant = ("w40" if "--40-bit_complex" in flags else "wfloat") + \
+        ("_no_overlap" if "--no_overlap" in flags else "_overlap")
+    assert launches[variant] == 9  # 8 windows and the tail, each one launch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kernel", [((32, 24, 24), "radix"), ((24, 24, 24), "mixed"),
+                                          ((46, 16, 16), "mixed"),  # 23 x 2: generic pass
+                                          ((53, 16, 16), "bluestein"),
+                                          ((12, 32, 32), "column")])
+def test_graph_windows_of_fused_runs_equal_eager_windows(shape, kernel):
+    """A fused run (compact operators, fuse_z) on each K7 kernel, 6 windows and a tail:
+    bit for bit, every K7 launch of both the kernel's and counted as many times."""
+    from kwave_tpu_torch.ops import zfuse
+
+    require_cuda()
+    assert zfuse.kernel_for(shape[0]) == kernel
+    data = _graph_input(shape, 6 * GRAPH_O + 3)
+    _, launches = _hold_graphs_to_eager(data, ["--p_raw", "--p_c", "--40-bit_complex"],
+                                        min_replays=3, compact_operators=True, fuse_z=True)
+    steps = 6 * GRAPH_O + 3
+    assert launches[f"kernel_{kernel}"] == steps + 5 * (steps - 1)
+    assert launches["zfuse_3op"] == steps and launches["zfuse_1op"] == 5 * (steps - 1)
+
+
+@pytest.mark.cuda
+def test_graph_windows_fold_the_whole_domain_and_replay_the_lead_in():
+    """p_max_all, p_min_all and u_max_all folded in replayed windows, after a lead-in of
+    20 steps (-s 21) whose runs of 8 steps replay too; the raw and rms streams beside."""
+    require_cuda()
+    data = _graph_input((24, 24, 24), 20 + 6 * GRAPH_O + 5)
+    _hold_graphs_to_eager(data, ["--p_raw", "--p_c", "--p_max_all", "--p_min_all",
+                                 "--u_max_all", "--p_rms", "-s", "21"], min_replays=3)
+
+
+@pytest.mark.cuda
+def test_graph_windows_around_a_pressure_source_that_stops():
+    """An additive p source whose flag (29) falls inside the window 24-31: that window
+    runs eagerly, as do the two before it (the source on; no later window takes their
+    keys); the windows after it (off) replay their own graphs from 48 on."""
+    from kwave_tpu_torch import driver, solver
+
+    require_cuda()
+    data = _graph_input((24, 24, 24), 12 * GRAPH_O, p_flag=29)
+    acts, _ = _hold_graphs_to_eager(data, ["--p_raw", "--p_c", "--40-bit_complex"],
+                                    min_replays=4)
+    cfg = solver.SolverConfig(p_source_flag=29)
+    assert acts == [(t, a) for t, _, a in driver.plan_windows(cfg, GRAPH_O, 0, 12)]
+    assert dict(acts)[24] == "eager" and dict(acts)[32] == "capture"
+    assert dict(acts)[48] == "replay"
+
+
+@pytest.mark.cuda
+def test_graph_windows_in_two_legs_equal_one_eager_run():
+    """Two legs (a checkpoint after 48 steps), each with its windows replayed where the
+    plan allows, equal one eager run of the whole record bit for bit; the launches too."""
+    from chip_smoke import MemGroup
+
+    require_cuda()
+    flags = ["--p_raw", "--p_c", "--40-bit_complex", "--p_max_all"]
+    data = _graph_input((24, 24, 24), 12 * GRAPH_O + 5)
+    one, n_one, _, _ = _graph_run(data, flags, False)
+    out, ckpt = MemGroup(), MemGroup()
+    _, n1, acts1, s1 = _graph_run(data, flags, True, out=out, checkpoint_file=ckpt,
+                                  checkpoint_interval_steps=6 * GRAPH_O)
+    assert s1["__checkpointed_at__"] == (6 * GRAPH_O,)
+    _, n2, acts2, s2 = _graph_run(data, flags, True, out=out, resume_from=ckpt,
+                                  checkpoint_file=MemGroup())
+    assert "__checkpointed_at__" not in s2
+    _same_outputs(one, out)
+    assert {k: n1[k] + n2[k] for k in n1} == n_one
+    assert [a for _, a in acts1] == ["eager", "capture", "capture", "replay", "replay",
+                                     "replay"]
+    assert [a for _, a in acts2] == ["capture", "capture", "replay", "replay", "replay",
+                                     "replay"]

@@ -111,8 +111,6 @@ NOT_PORTED = {
                     "that job on the card, so the pencil FFT (parallel/fft.py, "
                     "pencil_fft) takes no engine= and solver/step.py::FftOps has no "
                     "shift_axis / batched hooks",
-    "driver.py::make_window_fn": "the jitted window program (scan strategy, donation); the "
-                                 "port's window is a host loop over eager ops",
     "encoder.py::USE_PALLAS": "the TPU kernel switch; the port picks the kernel by the "
                               "tensor's device",
     "ops/fastpath.py::LANE": "the TPU's 128-lane tile",
