@@ -5,8 +5,9 @@ oracle, then drives the port's paths: the simulation at 128^3 with 16384 index s
 the codec round trip, the whole-record exact encode, the 256^3, 192^3, 220^3, 230^3 and
 251^3 simulations and a 6 x 1152 x 1152 slab with the fused z stage (K7's radix, mixed,
 Bluestein and column kernels; the dense one, which no run takes, timed beside them), a run in checkpoint legs with the intensity and Q-term outputs, the
-acceptance sweep's inputs on the card against the port on the CPU, and the mesh
-(`kwave_tpu_torch.parallel`) on the one card.
+acceptance sweep's inputs on the card against the port on the CPU, the mesh
+(`kwave_tpu_torch.parallel`) on the one card, and the windows replayed as CUDA graphs on
+one card and on the mesh.
 
     python3 chip_smoke.py
 
@@ -165,6 +166,12 @@ the final ok line):
    graphs against eager, bit for bit, each variant launched once per window-encode call
    both ways. Phases 4 and 9 run through graphs too (their runs of 8 and 6 windows
    replay from the fourth window on), and phase 4 holds its runs' windows to the plan.
+13. the mesh's window as one device program (CUDA graphs over the pencil FFT's trades):
+   phase 11 (a)'s 256^3 input on 4 shards of cuda:0 in one process, then through a
+   process group of one over NCCL, each as a cell of phase 12 (13 windows and a 5-step
+   tail, eager, graphs, graphs, eager; bit for bit, equal launches, the windows as
+   planned; warm and device ms/step, idle share, capture per key, peak memory). The
+   `kernels` line's ``launches_mesh_graph_path`` is its count of each window kernel.
 Then one JSON line with every kernel's numbers (its time beside its bound: the larger of
 its bytes over 3.35 TB/s and its fp32 operations over 67 TFLOP/s; for the 40-bit kernels
 also ``issue_ms``, the machine instructions that this run's build spends on their steps,
@@ -183,8 +190,11 @@ where that is given. Two commits are compared by running
 it for each in turns, several processes a commit, in one session on one card.
 
 ``python3 chip_smoke.py --mesh-processes N`` (N cards) runs none of the phases either:
-phase 11 (a)'s input at 256^3 and 512^3 as N processes over NCCL, one card each, held
-to card 0 alone, with the ms/step of both.
+phase 11 (a)'s input at 256^3 and 512^3, 13 windows and a 5-step tail, as N processes
+over NCCL, one card each, with every window eager and with graphs in turns (eager,
+graphs, graphs, eager; the graph run equal to the eager one bit for bit, launches
+equal), held to card 0 alone (run both ways too), with warm and simulation-phase
+ms/step of each run.
 """
 
 from __future__ import annotations
@@ -2454,11 +2464,7 @@ def mesh_phase(smi):
     part(q_run)
 
     def nccl():  # (d) the process communicator at world size 1 over NCCL
-        probe = __import__("socket").socket()
-        probe.bind(("localhost", 0))
-        port = probe.getsockname()[1]
-        probe.close()
-        initialize(f"localhost:{port}", 1, 0, "cuda")
+        initialize(f"localhost:{_free_port()}", 1, 0, "cuda")
         try:
             _require(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
             pg = make_mesh()
@@ -2610,7 +2616,8 @@ def _window_starts(calls: list):
     return recording()
 
 
-def _graph_cell(what, shape, flags, fields) -> dict:
+def _graph_cell(what, shape, flags, fields, mesh=None, tag="[12 graph]",
+                profile_windows=GRAPH_PROFILE_WINDOWS) -> dict:
     """One cell of phase 12. After an eager warm-up run (the grid's first run pays its
     set-up), runs of GRAPH_WINDOWS windows (and a tail) with every window eager and with
     graphs, in the order eager, graphs, graphs, eager, each after the allocator's cache is
@@ -2619,8 +2626,10 @@ def _graph_cell(what, shape, flags, fields) -> dict:
     time from one window's start to the next's over the windows from the fourth on (with
     graphs: replayed windows only), over o; beside it the simulation phase's ms/step.
     Device ms/step (torch.profiler's kernels) of an eager run and of replayed windows,
-    beside CUDA events around the replays; capture time per key. Returns the graph run's
-    launches and the cell's K7 kernel."""
+    beside CUDA events around the replays; capture time per key. On ``mesh`` where given
+    (phase 13); ``tag`` heads the printed lines; the eager run profiled has
+    ``profile_windows`` windows. Returns the graph run's launches and the cell's K7
+    kernel."""
     import dataclasses
 
     import torch
@@ -2629,8 +2638,9 @@ def _graph_cell(what, shape, flags, fields) -> dict:
 
     t0 = time.perf_counter()
     base = _input(GRAPH_WINDOWS * O_SIZE + GRAPH_TAIL, shape=shape)
-    _run(flags, 2, GRAPH_TAIL, cuda_graphs=False, **fields, data=dataclasses.replace(
-        base, grid=dataclasses.replace(base.grid, nt=2 * O_SIZE + GRAPH_TAIL)))
+    _run(flags, 2, GRAPH_TAIL, cuda_graphs=False, mesh=mesh, **fields,
+         data=dataclasses.replace(base, grid=dataclasses.replace(
+             base.grid, nt=2 * O_SIZE + GRAPH_TAIL)))
     outs, counts, logs, peak, warm, sim = {}, {}, {}, {}, {}, {}
     for graphs in (False, True, True, False):
         log, starts, before = [], [], _launch_counts()
@@ -2638,7 +2648,8 @@ def _graph_cell(what, shape, flags, fields) -> dict:
         torch.cuda.reset_peak_memory_stats()
         with _window_starts(starts):
             out, _, steps, _ = _run(flags, GRAPH_WINDOWS, GRAPH_TAIL, data=base,
-                                    window_log=log, cuda_graphs=graphs, **fields)
+                                    window_log=log, cuda_graphs=graphs, mesh=mesh,
+                                    **fields)
         gaps = np.diff(starts[3:]) / O_SIZE * 1e3  # from the 4th window on
         warm.setdefault(graphs, []).append(float(np.median(gaps)))
         sim.setdefault(graphs, []).append(
@@ -2657,27 +2668,29 @@ def _graph_cell(what, shape, flags, fields) -> dict:
     _require(not differ, f"{what}: the graph run differs from the eager run in {differ}")
     _require(counts[True] == counts[False],
              f"{what}: launches with graphs {counts[True]}, eager {counts[False]}")
-    dev = {False: _profile_window(base, flags, windows=GRAPH_PROFILE_WINDOWS,
-                                  cuda_graphs=False, **fields)[0]}
+    t_prof = time.perf_counter()
+    dev = {False: _profile_window(base, flags, windows=profile_windows,
+                                  cuda_graphs=False, mesh=mesh, **fields)[0]}
     replay, dev[True] = _replay_ms(logs[True][1].graphs)
+    t_prof = time.perf_counter() - t_prof
     capture = sorted(logs[True][1].graphs.capture_seconds.values())
     idle = {g: 1 - dev[g] / float(np.mean(warm[g])) for g in (False, True)}
     kernel = zfuse.kernel_for(shape[0]) if fields.get("fuse_z") else None
-    print(f"[12 graph] {what}: {GRAPH_WINDOWS} windows + {GRAPH_TAIL} with graphs == every "
+    print(f"{tag} {what}: {GRAPH_WINDOWS} windows + {GRAPH_TAIL} with graphs == every "
           f"window eager, bit for bit ({len(list(_datasets(outs[True])))} datasets); windows "
           f"{acts}; launches eager == graph: "
           f"{ {k: v for k, v in counts[True].items() if v} }", flush=True)
-    print(f"[12 graph] {what}: warm ms/step eager {warm[False]}, graph {warm[True]} "
+    print(f"{tag} {what}: warm ms/step eager {warm[False]}, graph {warm[True]} "
           f"(two runs each; simulation phase of the {GRAPH_WINDOWS}-window runs, first "
           f"windows and captures included: eager {sim[False]}, graph {sim[True]}); "
           f"device ms/step (profiler's kernels) "
-          f"eager {dev[False]:.4f} ({GRAPH_PROFILE_WINDOWS}-window run), graph "
+          f"eager {dev[False]:.4f} ({profile_windows}-window run), graph "
           f"{dev[True]:.4f} (replayed windows; CUDA events around them "
           f"{replay:.4f}); idle eager {idle[False]:.1%}, graph "
           f"{idle[True]:.1%}; capture + instantiate per key {capture} s; peak memory "
           f"allocated / reserved eager {peak[False][0]:.3f} / {peak[False][1]:.3f} GiB, "
           f"graph {peak[True][0]:.3f} / {peak[True][1]:.3f} GiB; the cell in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"{time.perf_counter() - t0:.1f} s, its profiles {t_prof:.1f} s", flush=True)
     del outs, logs
     torch.cuda.empty_cache()
     return {"counts": counts[True], "kernel": kernel}
@@ -2725,13 +2738,98 @@ def graph_phase(smi):
     return window, k7
 
 
-CARDS_GRIDS = (BIG_N, 512)  # --mesh-processes: phase 11 (a) at these n^3 across the cards
+# phase 13: the mesh's window as one device program (CUDA graphs over the pencil's trades)
+MESH_GRAPH_SHARDS = 4
+CARDS_GRIDS = (BIG_N, 512)  # --mesh-processes: phase 11 (a)'s input at these n^3 across the cards
+MESH_GRAPH_PROFILE_WINDOWS = 2  # the eager run profiled: S shards' launches slow the profiler
+
+
+def _free_port() -> int:
+    import socket
+
+    probe = socket.socket()
+    probe.bind(("localhost", 0))
+    port = probe.getsockname()[1]
+    probe.close()
+    return port
+
+
+def mesh_graph_phase(smi):
+    """Phase 13: phase 11 (a)'s 256^3 input (``MESH_FLAGS``, compact operators) on 4 shards
+    of cuda:0 in one process, then through a process group of one over NCCL, each as
+    phase 12's cell (`_graph_cell`: 13 windows and a 5-step tail, eager, graphs, graphs,
+    eager; bit for bit, equal launches, the windows as planned; warm and device ms/step,
+    idle share, capture per key, peak memory). Returns the graph runs' launches by
+    `encode_window.LAUNCHES` key."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from kwave_tpu_torch.ops import encode_window as ew
+    from kwave_tpu_torch.parallel import make_mesh
+    from kwave_tpu_torch.parallel.distributed import initialize
+
+    print(f"[13 mesh graph] card {smi}", flush=True)
+    compact = dict(compact_operators=True)
+    shape = (BIG_N,) * 3
+    mesh = _mesh(MESH_GRAPH_SHARDS)
+    _require(mesh.graph_device == torch.device("cuda", 0), f"{mesh}: no graph device")
+    got = _graph_cell(f"{BIG_N}^3, {MESH_GRAPH_SHARDS} shards of cuda:0", shape,
+                      MESH_FLAGS, compact, mesh=mesh, tag="[13 mesh graph]",
+                      profile_windows=MESH_GRAPH_PROFILE_WINDOWS)
+    launches = {k: got["counts"][k] for k in ew.LAUNCHES}
+    initialize(f"localhost:{_free_port()}", 1, 0, "cuda")
+    try:
+        pg = make_mesh()
+        _require(pg.graph_device == torch.device("cuda", 0), f"{pg}: no graph device")
+        got = _graph_cell(f"{BIG_N}^3, NCCL at world size 1", shape, MESH_FLAGS, compact,
+                          mesh=pg, tag="[13 mesh graph]",
+                          profile_windows=MESH_GRAPH_PROFILE_WINDOWS)
+    finally:
+        gc.collect()  # the graphs that hold NCCL's trades go before its communicator
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+    for k in launches:
+        launches[k] += got["counts"][k]
+    _require(launches["w40_overlap"] > 0, f"phase 13: launches {launches}")
+    return launches
+
+
+def _turns(data, mesh=None) -> tuple[dict, dict, dict, dict, str]:
+    """Phase 11 (a)'s flags on ``data`` (GRAPH_WINDOWS windows and a tail) with every
+    window eager and with graphs, in the order eager, graphs, graphs, eager: (the first
+    output of each way, their launches, warm ms/step (phase 12's measure) and simulation
+    phase ms/step of every run by way, the graph runs' windows by action)."""
+    outs, counts, warm, sim, acts = {}, {}, {}, {}, ""
+    for graphs in (False, True, True, False):
+        log, starts, before = [], [], _launch_counts()
+        with _window_starts(starts):
+            out, _, steps, _ = _run(MESH_FLAGS, GRAPH_WINDOWS, GRAPH_TAIL, data=data,
+                                    mesh=mesh, window_log=log, cuda_graphs=graphs,
+                                    compact_operators=True)
+        warm.setdefault(graphs, []).append(float(np.median(np.diff(starts[3:]))
+                                                 / O_SIZE * 1e3))
+        if "simulation_phase_execution_time" in out.attrs:  # the writer's output alone
+            sim.setdefault(graphs, []).append(
+                float(out.attrs["simulation_phase_execution_time"]) / steps * 1e3)
+        if graphs not in outs:
+            outs[graphs] = out
+            counts[graphs] = {k: v - before[k] for k, v in _launch_counts().items()}
+        if graphs:
+            acts = _check_actions(log, GRAPH_WINDOWS)
+    _require(counts[True] == counts[False],
+             f"launches with graphs {counts[True]}, eager {counts[False]}")
+    return outs, counts, warm, sim, acts
 
 
 def _rank_phase(rank: int, world: int, port: int) -> int:
     """One rank of ``--mesh-processes``: phase 11 (a)'s input at each of CARDS_GRIDS through
-    `run_simulation` on a mesh of one shard a process (NCCL, card ``rank``). Rank 0 also
-    runs the same input on its card alone and holds the mesh run to it."""
+    `run_simulation` on a mesh of one shard a process (NCCL, card ``rank``): 13 windows
+    and a tail eager and with graphs in turns (`_turns`; rank 0 holds the graph run to
+    the eager one bit for bit), then phase 11 (a)'s run of 2 windows and the tail, which
+    rank 0 holds to the same run on its card alone (the check's tolerances are read at
+    that length, module docstring phase 11)."""
     import dataclasses
 
     import torch
@@ -2743,39 +2841,64 @@ def _rank_phase(rank: int, world: int, port: int) -> int:
     initialize(f"localhost:{port}", world, rank, "cuda")
     try:
         mesh = make_mesh()
-        steps = MESH_WINDOWS * O_SIZE + MESH_TAIL
+        _require(mesh.graph_device is not None, f"{mesh}: no graph device")
+        steps = GRAPH_WINDOWS * O_SIZE + GRAPH_TAIL
         for n in CARDS_GRIDS:
             data = _input(steps, n)
-            short = dataclasses.replace(data, grid=dataclasses.replace(data.grid, nt=3))
-            _run(MESH_FLAGS, 0, 3, data=short, mesh=mesh, compact_operators=True)
-            out, secs, _, _ = _run(MESH_FLAGS, MESH_WINDOWS, MESH_TAIL, data=data,
-                                   mesh=mesh, compact_operators=True)
+            outs, counts, warm, sim, acts = _turns(data, mesh)  # its first run warms up
             if rank == 0:
-                ms = float(out.attrs["simulation_phase_execution_time"]) / steps * 1e3
-                _run(MESH_FLAGS, 0, 3, data=short, compact_operators=True)
-                one, one_secs, _, _ = _run(MESH_FLAGS, MESH_WINDOWS, MESH_TAIL, data=data,
-                                           compact_operators=True)
-                ms_one = float(one.attrs["simulation_phase_execution_time"]) / steps * 1e3
-                errs = _hold_mesh_run(one, out, f"{world} processes at {n}^3")
+                differ = _same_bits(outs[False], outs[True])
+                _require(not differ, f"{n}^3 on {world} cards: graphs differ from eager "
+                         f"in {differ}")
                 print(f"[cards] {n}^3, {N_SENSORS} sensors, {steps} steps, "
                       f"{' '.join(MESH_FLAGS)}: {world} processes over NCCL, one card "
-                      f"each: {ms:.3f} ms/step in the simulation phase ({secs / steps * 1e3:.3f} "
-                      f"end to end); card 0 alone {ms_one:.3f} ({one_secs / steps * 1e3:.3f}); "
-                      f"against it, of the peak: " + ", ".join(
-                          f"{k} {v:.2e}" for k, v in errs.items()), flush=True)
+                      f"each: graphs == eager bit for bit, launches equal (rank 0: "
+                      f"{ {k: v for k, v in counts[True].items() if v} }); windows {acts}; "
+                      f"warm ms/step eager {warm[False]}, graph {warm[True]}; simulation "
+                      f"phase ms/step eager {sim[False]}, graph {sim[True]}", flush=True)
+            del outs
+            two = dataclasses.replace(data, grid=dataclasses.replace(
+                data.grid, nt=MESH_WINDOWS * O_SIZE + MESH_TAIL))
+            out, secs, _, _ = _run(MESH_FLAGS, MESH_WINDOWS, MESH_TAIL, data=two, mesh=mesh,
+                                   compact_operators=True)
+            if rank == 0:
+                ms = float(out.attrs["simulation_phase_execution_time"]) / two.grid.nt * 1e3
+                _run(MESH_FLAGS, 0, 3, compact_operators=True, data=dataclasses.replace(
+                    data, grid=dataclasses.replace(data.grid, nt=3)))
+                one, one_secs, _, _ = _run(MESH_FLAGS, MESH_WINDOWS, MESH_TAIL, data=two,
+                                           compact_operators=True)
+                ms_one = float(one.attrs["simulation_phase_execution_time"]) / two.grid.nt \
+                    * 1e3
+                print(f"[cards] {n}^3, {two.grid.nt} steps: {world} processes "
+                      f"{ms:.3f} ms/step in the simulation phase "
+                      f"({secs / two.grid.nt * 1e3:.3f} end to end); card 0 alone "
+                      f"{ms_one:.3f} ({one_secs / two.grid.nt * 1e3:.3f})", flush=True)
+                errs = _hold_mesh_run(one, out, f"{world} processes at {n}^3")
+                print(f"[cards] {n}^3: the {world} processes against card 0 alone, of the "
+                      f"peak: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()),
+                      flush=True)
+                del one
             mesh.comm.barrier()
             del data, out
             torch.cuda.empty_cache()
     finally:
+        import gc
+
+        gc.collect()  # the graphs that hold NCCL's trades go before its communicator
+        torch.cuda.synchronize()
         dist.destroy_process_group()
     return 0
+
+
+CARDS_SECONDS = 1500  # --mesh-processes: the ranks' time, all grids
 
 
 def cards_phase(world: int) -> int:
     """``--mesh-processes N``: phase 11 (a) as N processes over NCCL, one card each (the
     kernels built once first); every rank's output is printed, and any rank's failure
-    fails the run."""
-    import socket
+    fails the run and ends the other ranks at once (they would wait in a collective for
+    NCCL's timeout)."""
+    import tempfile
 
     import torch
 
@@ -2783,27 +2906,29 @@ def cards_phase(world: int) -> int:
     have = torch.cuda.device_count()
     _require(have >= world, f"--mesh-processes {world} needs {world} cards; {have} present")
     build_phase()
-    probe = socket.socket()
-    probe.bind(("localhost", 0))
-    port = probe.getsockname()[1]
-    probe.close()
+    port = _free_port()
+    logs = [tempfile.TemporaryFile("w+") for _ in range(world)]
     procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
                                str(r), "--mesh-processes", str(world), "--port", str(port)],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                              stdout=logs[r], stderr=subprocess.STDOUT, text=True)
              for r in range(world)]
-    outs = []
+    deadline = time.monotonic() + CARDS_SECONDS
     try:
-        for p in procs:
-            outs.append((p.communicate(timeout=900)[0], p.returncode))
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline \
+                and not any(p.returncode for p in procs):
+            time.sleep(1.0)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-    for r, (text, rc) in enumerate(outs):
-        print(f"--- rank {r} (exit {rc}) ---", flush=True)
-        print("\n".join(line for line in text.splitlines() if "progress" not in line),
+                p.wait()
+    for r, (log, p) in enumerate(zip(logs, procs)):
+        log.seek(0)
+        print(f"--- rank {r} (exit {p.returncode}) ---", flush=True)
+        print("\n".join(line for line in log.read().splitlines() if "progress" not in line),
               flush=True)
-    _require(all(rc == 0 for _, rc in outs), f"ranks exited {[rc for _, rc in outs]}")
+    codes = [p.returncode for p in procs]
+    _require(all(rc == 0 for rc in codes), f"ranks exited {codes}")
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),
@@ -2896,7 +3021,8 @@ def main(argv: list[str]) -> int:
     acceptance_launches = timed(10, acceptance_phase, smi)
     mesh_launches = timed(11, mesh_phase, smi)
     graph_launches, graph_k7 = timed(12, graph_phase, smi)
-    print(f"[time] phases 2-12 in {time.perf_counter() - t_run:.1f} s", flush=True)
+    mesh_graph_launches = timed(13, mesh_graph_phase, smi)
+    print(f"[time] phases 2-13 in {time.perf_counter() - t_run:.1f} s", flush=True)
 
     rows = [dict(name=key, route="cuda", source="kwave_tpu_torch/csrc/encode_window.cu",
                  replaces=VARIANTS[key][2], launches=launches[key], **kernels[key])
@@ -2907,8 +3033,10 @@ def main(argv: list[str]) -> int:
     rows += [dict(name=key, route="cuda", source="kwave_tpu_torch/csrc/encode_series.cu",
                   replaces=replaces, launches=series_launches[key], **series[key])
              for key, (_, _, replaces) in SERIES_KERNELS.items()]
-    for r in rows:  # the window kernels' launches in phase 12's graph runs
+    for r in rows:  # the window kernels' launches in phase 12's and 13's graph runs
         r["launches_graph_path"] = graph_launches.get(r["name"], 0)
+        if r["name"] in mesh_graph_launches:
+            r["launches_mesh_graph_path"] = mesh_graph_launches[r["name"]]
     for key, row in fused.items():  # launches: the runs of the row's kernel (phase 8)
         kernel, n_ops = row.pop("kernel"), row.pop("n_ops")
         extra = {"timing_only": True} if kernel in TIMING_ONLY else {}

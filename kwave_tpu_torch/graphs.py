@@ -18,6 +18,14 @@ fails raises; nothing falls back to the eager program.
 The kernels' launch counters (`LAUNCHES` of the ops modules) are host increments, which a
 replay does not run: each graph's increments are taken back after its capture and added
 again at every replay, so that the counters go on counting launches on the device.
+
+On a mesh whose shards in this process all lie on one card (`parallel.Mesh.graph_device`)
+the carried state is the flat list of every shard's tensors, and a graph holds the S
+shards' steps with the pencil FFT's trades: tensor copies in one process, or NCCL's
+all-to-all across processes. Then every rank must capture and replay the same keys in
+the same order, since a rank that replays while another runs eagerly (or captures alone)
+leaves its trades unmatched; the plans are pure functions of the run's configuration, and
+`check_plans_agree` holds them equal once a run, on the host.
 """
 
 from __future__ import annotations
@@ -50,6 +58,16 @@ def graph_actions(keys: Sequence[Optional[Hashable]]) -> list[str]:
         else:
             out.append("eager")
     return out
+
+
+def check_plans_agree(plans: Sequence[Any]) -> None:
+    """Raise unless every rank's plan (gathered on the host, outside any capture, in rank
+    order) equals rank 0's."""
+    for rank, plan in enumerate(plans[1:], 1):
+        if plan != plans[0]:
+            raise RuntimeError(f"rank {rank} plans its graphs as {plan}, rank 0 as "
+                               f"{plans[0]}: the ranks' captures and replays would not "
+                               "match")
 
 
 class Graphs:

@@ -7,7 +7,11 @@
   `dist.all_to_all_single` on one contiguous buffer (NCCL for CUDA tensors, gloo for CPU
   tensors; complex buffers travel as `torch.view_as_real`).
 
-Both take and return lists of this process's shard tensors, in shard order.
+Both take and return lists of this process's shard tensors, in shard order. A trade
+neither waits on the host nor allocates outside PyTorch's allocator, so a CUDA graph can
+hold it (`Mesh.graph_device`): on one card `InProcess` is a `torch.cat` of views (the
+`.to` of a block to its own device is the block itself), and NCCL's `all_to_all_single`
+joins the current (the capturing) stream by events, with no wait on the host.
 """
 
 from __future__ import annotations
@@ -75,6 +79,7 @@ class ProcessGroup:
         self._dist = dist
         self.rank, self.n_processes = dist.get_rank(), dist.get_world_size()
         self.size = self.n_processes
+        self.backend = dist.get_backend()  # "nccl" or "gloo"
 
     def all_to_all(self, parts: list[torch.Tensor], split_dim: int,
                    concat_dim: int) -> list[torch.Tensor]:

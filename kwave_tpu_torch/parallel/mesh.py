@@ -38,6 +38,23 @@ class Mesh:
         """This process owns the output file (process 0)."""
         return self.comm.rank == 0
 
+    @property
+    def graph_device(self) -> Optional[torch.device]:
+        """The one CUDA device on which this process's windows can be captured as CUDA
+        graphs (`kwave_tpu_torch.graphs`): set where every shard of this process lies on
+        that device and the shards trade by tensor copies (`InProcess`) or over NCCL (a
+        `ProcessGroup` of one shard a rank). None for a mesh on the CPU (gloo) and for
+        an in-process mesh over several cards, whose windows run eagerly."""
+        devices = set(self.devices)
+        if len(devices) != 1:
+            return None
+        (device,) = devices
+        if device.type != "cuda":
+            return None
+        if isinstance(self.comm, InProcess) or getattr(self.comm, "backend", None) == "nccl":
+            return device
+        return None
+
     def __str__(self) -> str:
         kind = "in one process" if isinstance(self.comm, InProcess) else \
             f"{self.comm.n_processes} processes"

@@ -522,17 +522,43 @@ def _stack(rows: list):
 
 
 def state_tensors(state: SimState) -> list[torch.Tensor]:
-    """The state's fields that are not None, in `SimState`'s order."""
-    return [t for t in (getattr(state, f.name) for f in dataclasses.fields(SimState))
-            if t is not None]
+    """The state's fields that are not None, in `SimState`'s order; a sharded field
+    (`kwave_tpu_torch.parallel.Sharded`) gives its shards' tensors in shard order."""
+    out = []
+    for f in dataclasses.fields(SimState):
+        v = getattr(state, f.name)
+        if v is not None:
+            out += v.shards if hasattr(v, "shards") else [v]
+    return out
 
 
 def with_state_tensors(like: SimState, tensors) -> SimState:
     """A `SimState` with ``like``'s None fields and the others taken from ``tensors`` in
-    order (the inverse of `state_tensors`)."""
+    order, each sharded field of ``like`` again a `Sharded` of as many shards (the
+    inverse of `state_tensors`)."""
     it = iter(tensors)
-    return SimState(**{f.name: None if getattr(like, f.name) is None else next(it)
+
+    def take(v):
+        if v is None:
+            return None
+        if hasattr(v, "shards"):
+            return type(v)([next(it) for _ in v.shards], ids=v.ids, axis=v.axis)
+        return next(it)
+
+    return SimState(**{f.name: take(getattr(like, f.name))
                        for f in dataclasses.fields(SimState)})
+
+
+def graph_device(state: SimState) -> Optional[torch.device]:
+    """The CUDA device that holds every field of ``state`` (every shard's, on a mesh):
+    where its steps can be captured. None where the fields lie on the CPU; fields on
+    several devices (a mesh over several cards) raise, since no graph can hold them."""
+    devices = {t.device for t in state_tensors(state)}
+    if len(devices) != 1:
+        raise ValueError(f"a CUDA graph of the steps needs the fields on one device; they "
+                         f"lie on {sorted(map(str, devices))}")
+    (device,) = devices
+    return device if device.type == "cuda" else None
 
 
 def chunk_keys(cfg: SolverConfig, t0: int, n_steps: int, chunk: int
@@ -562,8 +588,9 @@ def make_simulate_fn(ops: Operators, src: Sources, cfg: SolverConfig, n_steps: i
     With ``graph_steps`` (no ``sample_fn``) and the fields on a CUDA device, the steps
     go in runs of that many (`chunk_keys`), and the runs of one source phase replay one
     captured CUDA graph (`kwave_tpu_torch.graphs`), as the JAX package's loop is one
-    program; the state then lives in the graphs' static buffers. On the CPU the
-    argument changes nothing."""
+    program; the state then lives in the graphs' static buffers. On a mesh every shard's
+    fields must lie on that one device (`parallel.Mesh.graph_device`), and the graph
+    holds the pencil FFT's trades. On the CPU the argument changes nothing."""
     if graph_steps is not None and sample_fn is not None:
         raise ValueError("graph_steps takes no sample_fn")
 
@@ -580,7 +607,8 @@ def make_simulate_fn(ops: Operators, src: Sources, cfg: SolverConfig, n_steps: i
     def run(state: SimState, t0: int = 0):
         nonlocal graphs
         t0 = int(t0)
-        if graph_steps is None or not (isinstance(state.p, torch.Tensor) and state.p.is_cuda):
+        device = None if graph_steps is None else graph_device(state)
+        if device is None:
             state, rows = steps(state, t0, n_steps)
             return state, (_stack(rows) if rows else None)
         from kwave_tpu_torch.graphs import Graphs, graph_actions
@@ -595,7 +623,7 @@ def make_simulate_fn(ops: Operators, src: Sources, cfg: SolverConfig, n_steps: i
             state, _ = steps(state, t, n)
             if action == "capture":
                 if graphs is None:
-                    graphs = Graphs(state.p.device)
+                    graphs = Graphs(device)
 
                 def body(static, t_dev, like=before, n=n, key=key):
                     after, _ = steps(with_state_tensors(like, static), t_dev, n, key)

@@ -1158,8 +1158,9 @@ def _counts():
             **{f"kernel_{k}": v for k, v in zfuse.KERNEL_LAUNCHES.items()}}
 
 
-def _graph_run(data, flags, graphs, out=None, resume_from=None, **run_fields):
-    """One run on the card into an in-memory group: (group, launches, window actions)."""
+def _graph_run(data, flags, graphs, out=None, resume_from=None, mesh=None, **run_fields):
+    """One run on the card (on ``mesh`` where given) into an in-memory group: (group,
+    launches, window actions)."""
     import dataclasses
 
     from chip_smoke import MemGroup
@@ -1173,7 +1174,7 @@ def _graph_run(data, flags, graphs, out=None, resume_from=None, **run_fields):
     out = MemGroup() if out is None else out
     before, log = _counts(), []
     summary = run_simulation(data, run, out, device="cuda", resume_from=resume_from,
-                             window_log=log)
+                             mesh=mesh, window_log=log)
     torch.cuda.synchronize()
     launches = {k: v - before[k] for k, v in _counts().items()}
     return out, launches, [a for w in log for a in w.actions], summary
@@ -1186,11 +1187,11 @@ def _same_outputs(a, b):
     assert not _same_bits(a, b), _same_bits(a, b)
 
 
-def _hold_graphs_to_eager(data, flags, min_replays=1, **run_fields):
+def _hold_graphs_to_eager(data, flags, min_replays=1, mesh=None, **run_fields):
     """The run with graphs equals the run without bit for bit, with the same launches;
     its windows ran as `driver.plan_windows` says, at least ``min_replays`` replayed."""
-    eager, n_eager, acts_eager, _ = _graph_run(data, flags, False, **run_fields)
-    graph, n_graph, acts, _ = _graph_run(data, flags, True, **run_fields)
+    eager, n_eager, acts_eager, _ = _graph_run(data, flags, False, mesh=mesh, **run_fields)
+    graph, n_graph, acts, _ = _graph_run(data, flags, True, mesh=mesh, **run_fields)
     _same_outputs(eager, graph)
     assert n_graph == n_eager, (n_graph, n_eager)
     assert all(a == "eager" for _, a in acts_eager)
@@ -1290,3 +1291,144 @@ def test_graph_windows_in_two_legs_equal_one_eager_run():
                                      "replay"]
     assert [a for _, a in acts2] == ["capture", "capture", "replay", "replay", "replay",
                                      "replay"]
+
+
+# ---------------------------------------------------------------------------
+# The mesh's window as one device program: S shards of cuda:0 in one process, and a
+# process group of one over NCCL, with their windows and lead-in replayed as CUDA graphs
+# ---------------------------------------------------------------------------
+
+MESH_GRAPH_FLAGS = [["--p_raw", "--p_c", "--40-bit_complex"],
+                    ["--p_raw", "--p_c", "--40-bit_complex", "--no_overlap"],
+                    ["--p_raw", "--p_c"], ["--p_raw", "--p_c", "--no_overlap"]]
+MESH_GRAPH_IDS = ["w40_overlap", "w40_no_overlap", "wfloat_overlap", "wfloat_no_overlap"]
+
+
+def _cuda_mesh(s):
+    from kwave_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(s, devices=["cuda:0"] * s)
+    assert mesh.graph_device == torch.device("cuda", 0)
+    return mesh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [4, 2])
+@pytest.mark.parametrize("flags", MESH_GRAPH_FLAGS, ids=MESH_GRAPH_IDS)
+def test_mesh_graph_windows_equal_eager_windows(flags, s):
+    """The four window-encode variants on S shards of cuda:0 at 24^3, 8 windows and a
+    3-step tail: the windows as planned (0 eager, 1 and 2 captured, 3-7 replayed), bit
+    for bit the eager run, each shard's kernel launched once a window and for the tail."""
+    from kwave_tpu_torch import driver, solver
+
+    require_cuda()
+    data = _graph_input((24, 24, 24), 8 * GRAPH_O + 3)
+    acts, launches = _hold_graphs_to_eager(data, flags, min_replays=5, mesh=_cuda_mesh(s))
+    plan = driver.plan_windows(solver.SolverConfig(), GRAPH_O, 0, 8)
+    assert acts == [(t, a) for t, _, a in plan]
+    variant = MESH_GRAPH_IDS[MESH_GRAPH_FLAGS.index(flags)]
+    assert launches[variant] == 9 * s
+
+
+@pytest.mark.cuda
+def test_mesh_graph_windows_fold_the_whole_domain_and_replay_the_lead_in():
+    """p_max_all, p_min_all and u_max_all folded on 4 shards in replayed windows, after a
+    lead-in of 20 steps (-s 21) whose runs of 8 replay too."""
+    require_cuda()
+    data = _graph_input((24, 24, 24), 20 + 6 * GRAPH_O + 5)
+    _hold_graphs_to_eager(data, ["--p_raw", "--p_c", "--p_max_all", "--p_min_all",
+                                 "--u_max_all", "--p_rms", "-s", "21"], min_replays=3,
+                          mesh=_cuda_mesh(4))
+
+
+@pytest.mark.cuda
+def test_mesh_graph_windows_of_a_shard_without_sensors():
+    """Every sensor in shard 0's slab: the other three shards encode nothing in the
+    captured windows either (the choice is the host's, from a static count), so the
+    40-bit kernel runs once a window and for the tail, with graphs as without."""
+    require_cuda()
+    data = _graph_input((24, 24, 24), 8 * GRAPH_O + 3)
+    data.sensor_mask_index = np.sort(np.random.default_rng(3).choice(
+        6 * 24 * 24, 256, replace=False)).astype(np.int64)
+    _, launches = _hold_graphs_to_eager(data, ["--p_raw", "--p_c", "--40-bit_complex"],
+                                        min_replays=5, mesh=_cuda_mesh(4))
+    assert launches["w40_overlap"] == 9
+
+
+@pytest.mark.cuda
+def test_mesh_graph_windows_in_two_legs_equal_one_eager_run():
+    """Two legs on 4 shards (a checkpoint after 48 steps), each with its windows replayed
+    where the plan allows, equal one eager run of the whole record bit for bit."""
+    from chip_smoke import MemGroup
+
+    require_cuda()
+    flags = ["--p_raw", "--p_c", "--40-bit_complex", "--p_max_all"]
+    data = _graph_input((24, 24, 24), 12 * GRAPH_O + 5)
+    one, n_one, _, _ = _graph_run(data, flags, False, mesh=_cuda_mesh(4))
+    out, ckpt = MemGroup(), MemGroup()
+    _, n1, acts1, s1 = _graph_run(data, flags, True, out=out, checkpoint_file=ckpt,
+                                  checkpoint_interval_steps=6 * GRAPH_O, mesh=_cuda_mesh(4))
+    assert s1["__checkpointed_at__"] == (6 * GRAPH_O,)
+    _, n2, acts2, _ = _graph_run(data, flags, True, out=out, resume_from=ckpt,
+                                 checkpoint_file=MemGroup(), mesh=_cuda_mesh(4))
+    _same_outputs(one, out)
+    assert {k: n1[k] + n2[k] for k in n1} == n_one
+    assert [a for _, a in acts1] == ["eager", "capture", "capture", "replay", "replay",
+                                     "replay"]
+    assert [a for _, a in acts2] == ["capture", "capture", "replay", "replay", "replay",
+                                     "replay"]
+
+
+@pytest.mark.cuda
+def test_mesh_graph_windows_over_nccl_at_world_size_1():
+    """A process group of one over NCCL (`initialize`, then `make_mesh()`): its windows
+    replay graphs that hold NCCL's all-to-all, bit for bit the eager run, with the same
+    launches; the lead-in too (-s 25: its runs of 8 steps from 9 on replay)."""
+    import gc
+    import socket
+
+    import torch.distributed as dist
+
+    from kwave_tpu_torch.parallel import make_mesh
+    from kwave_tpu_torch.parallel.comm import ProcessGroup
+    from kwave_tpu_torch.parallel.distributed import initialize
+
+    require_cuda()
+    probe = socket.socket()
+    probe.bind(("localhost", 0))
+    port = probe.getsockname()[1]
+    probe.close()
+    initialize(f"localhost:{port}", 1, 0, "cuda")
+    try:
+        mesh = make_mesh()
+        assert isinstance(mesh.comm, ProcessGroup) and mesh.comm.backend == "nccl"
+        assert mesh.graph_device == torch.device("cuda", 0)
+        data = _graph_input((24, 24, 24), 24 + 8 * GRAPH_O + 3)
+        acts, launches = _hold_graphs_to_eager(
+            data, ["--p_raw", "--p_c", "--40-bit_complex", "--p_max_all", "-s", "25"],
+            min_replays=5, mesh=mesh)
+        assert launches["w40_overlap"] == 9
+    finally:
+        gc.collect()  # the runs' graphs go before the communicator they hold
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env", ["TORCH_NCCL_BLOCKING_WAIT=1",
+                                 "TORCH_NCCL_ASYNC_ERROR_HANDLING=0"])
+def test_mesh_graph_windows_over_nccl_under_the_watchdog_settings(env):
+    """The NCCL test above in a process of its own under a blocking wait, and with the
+    watchdog's error handling off: captures that hold NCCL's trades take neither."""
+    import os
+    import subprocess
+    import sys
+
+    require_cuda()
+    key, value = env.split("=")
+    done = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-q",
+         __file__, "-k", "test_mesh_graph_windows_over_nccl_at_world_size_1"],
+        env=dict(os.environ, **{key: value}), capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert done.returncode == 0 and "1 passed" in done.stdout, done.stdout[-3000:]
