@@ -195,6 +195,20 @@ over NCCL, one card each, with every window eager and with graphs in turns (eage
 graphs, graphs, eager; the graph run equal to the eager one bit for bit, launches
 equal), held to card 0 alone (run both ways too), with warm and simulation-phase
 ms/step of each run.
+
+``python3 chip_smoke.py --mesh-cards N`` (N cards) runs none of the phases either: the
+in-process mesh over N cards that ``--devices N`` builds (one shard a card, the trades
+peer copies), whose windows and lead-in are one CUDA graph across the cards. First the
+probe (`cards_probe`: a pencil program captured across the cards without the package's
+`graphs.Graphs`, replayed against its eager steps bit for bit, eager tensors untouched);
+then phase 11 (a)'s input at 256^3 and 512^3, 13 windows and a 5-step tail, eager and
+with graphs in turns (bit for bit, launches equal; warm, simulation-phase and replayed
+device ms/step, idle share, capture per key, peak memory a card); then phase 11 (a)'s
+37 steps at 256^3 held to card 0 alone and bit for bit to N shards of cuda:0 and to N
+processes over NCCL (`--mesh-processes`' ranks, which save their output); and the
+reading of p_final over the 213 steps of the graph run against card 0 alone. It prints
+the window kernel's launches in its graph runs (``launches_cards_graph_path``) and ends
+with the ok line, its ``count`` N.
 """
 
 from __future__ import annotations
@@ -1610,6 +1624,17 @@ def _input(nt: int, n: int = GRID_N, shape: tuple[int, int, int] | None = None):
                      p0=p0)
 
 
+def _sync(mesh=None) -> None:
+    """Wait for the current card and for every card of ``mesh`` (an in-process mesh may
+    span several)."""
+    import torch
+
+    torch.cuda.synchronize()
+    for d in dict.fromkeys(mesh.devices if mesh is not None else ()):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
 def _run(flags: list[str], windows: int, tail: int, data=None, out=None, resume_from=None,
          device="cuda", mesh=None, window_log=None, **run_fields):
     """One `run_simulation` through the CLI's parser into an in-memory group (``out``, or
@@ -1630,13 +1655,13 @@ def _run(flags: list[str], windows: int, tail: int, data=None, out=None, resume_
     run = dataclasses.replace(params.args_to_run_config(args, dt=data.grid.dt),
                               **run_fields)
     out = out if out is not None else MemGroup()
-    torch.cuda.synchronize()
+    _sync(mesh)
     t0 = time.perf_counter()
     legs = {} if resume_from is None else {"resume_from": resume_from}
     if window_log is not None:  # not passed otherwise: an older package takes no log
         legs["window_log"] = window_log
     summary = run_simulation(data, run, out, device=device, mesh=mesh, **legs)
-    torch.cuda.synchronize()
+    _sync(mesh)
     return out, time.perf_counter() - t0, data.grid.nt, summary
 
 
@@ -2560,12 +2585,13 @@ def _launch_counts() -> dict:
             **{f"k7 {k}": v for k, v in zfuse.KERNEL_LAUNCHES.items()}}
 
 
-def _replay_ms(graphs, reps: int = 3) -> tuple[float, float]:
+def _replay_ms(graphs, reps: int = 3, profile: bool = True) -> tuple[float, float | None]:
     """Device ms per step of one captured window replayed ``reps`` times on its own static
-    state: (CUDA events around the replays, torch.profiler's kernel time of another
-    ``reps``). The launch counters are left as they were."""
+    state: (CUDA events around the replays on the capturing card, where a graph over
+    several cards also ends; torch.profiler's kernel time of another ``reps``, or None
+    without ``profile``). The launch counters are left as they were."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     from kwave_tpu_torch.ops import encode_window as ew
     from kwave_tpu_torch.ops import zfuse
@@ -2579,17 +2605,19 @@ def _replay_ms(graphs, reps: int = 3) -> tuple[float, float]:
         graphs.replay(key, graphs.static, 0)
     end.record()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            graphs.replay(key, graphs.static, 0)
-        torch.cuda.synchronize()
-    kernels = sum(getattr(e, "self_device_time_total", None) or
-                  getattr(e, "self_cuda_time_total", 0) for e in prof.key_averages()
-                  if str(e.device_type).endswith("CUDA"))
+    kernels = None
+    if profile:
+        with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                graphs.replay(key, graphs.static, 0)
+            torch.cuda.synchronize()
+        kernels = sum(getattr(e, "self_device_time_total", None) or
+                      getattr(e, "self_cuda_time_total", 0) for e in prof.key_averages()
+                      if str(e.device_type).endswith("CUDA")) / 1e3 / (reps * O_SIZE)
     for d, was in saved:  # these replays are no path's launches
         d.update(was)
-    steps = reps * O_SIZE
-    return start.elapsed_time(end) / steps, kernels / 1e3 / steps
+    return start.elapsed_time(end) / (reps * O_SIZE), kernels
 
 
 def _window_starts(calls: list):
@@ -2774,7 +2802,8 @@ def mesh_graph_phase(smi):
     compact = dict(compact_operators=True)
     shape = (BIG_N,) * 3
     mesh = _mesh(MESH_GRAPH_SHARDS)
-    _require(mesh.graph_device == torch.device("cuda", 0), f"{mesh}: no graph device")
+    _require(mesh.graph_devices == (torch.device("cuda", 0),) * MESH_GRAPH_SHARDS,
+             f"{mesh}: graphs on {mesh.graph_devices}")
     got = _graph_cell(f"{BIG_N}^3, {MESH_GRAPH_SHARDS} shards of cuda:0", shape,
                       MESH_FLAGS, compact, mesh=mesh, tag="[13 mesh graph]",
                       profile_windows=MESH_GRAPH_PROFILE_WINDOWS)
@@ -2782,7 +2811,8 @@ def mesh_graph_phase(smi):
     initialize(f"localhost:{_free_port()}", 1, 0, "cuda")
     try:
         pg = make_mesh()
-        _require(pg.graph_device == torch.device("cuda", 0), f"{pg}: no graph device")
+        _require(pg.graph_devices == (torch.device("cuda", 0),),
+                 f"{pg}: graphs on {pg.graph_devices}")
         got = _graph_cell(f"{BIG_N}^3, NCCL at world size 1", shape, MESH_FLAGS, compact,
                           mesh=pg, tag="[13 mesh graph]",
                           profile_windows=MESH_GRAPH_PROFILE_WINDOWS)
@@ -2796,40 +2826,69 @@ def mesh_graph_phase(smi):
     return launches
 
 
-def _turns(data, mesh=None) -> tuple[dict, dict, dict, dict, str]:
+def _turns(data, mesh=None) -> dict:
     """Phase 11 (a)'s flags on ``data`` (GRAPH_WINDOWS windows and a tail) with every
-    window eager and with graphs, in the order eager, graphs, graphs, eager: (the first
-    output of each way, their launches, warm ms/step (phase 12's measure) and simulation
-    phase ms/step of every run by way, the graph runs' windows by action)."""
-    outs, counts, warm, sim, acts = {}, {}, {}, {}, ""
+    window eager and with graphs, in the order eager, graphs, graphs, eager. Returns the
+    first output of each way ("outs") and its launches ("counts"), warm ms/step (phase
+    12's measure) and simulation phase ms/step of every run by way ("warm", "sim"), the
+    graph runs' windows by action ("acts"), the first graph run's window object
+    ("window": its graphs, and the operators, mask and tables that they read, which must
+    outlive any later replay) and the peak memory allocated on each card of the run, GiB,
+    in its first run each way ("peak")."""
+    import torch
+
+    cards = list(dict.fromkeys(mesh.devices)) if mesh is not None else \
+        [torch.device("cuda", torch.cuda.current_device())]
+    res = {"outs": {}, "counts": {}, "warm": {}, "sim": {}, "peak": {}}
     for graphs in (False, True, True, False):
         log, starts, before = [], [], _launch_counts()
+        for d in cards:
+            torch.cuda.reset_peak_memory_stats(d)
         with _window_starts(starts):
             out, _, steps, _ = _run(MESH_FLAGS, GRAPH_WINDOWS, GRAPH_TAIL, data=data,
                                     mesh=mesh, window_log=log, cuda_graphs=graphs,
                                     compact_operators=True)
-        warm.setdefault(graphs, []).append(float(np.median(np.diff(starts[3:]))
-                                                 / O_SIZE * 1e3))
+        res["warm"].setdefault(graphs, []).append(float(np.median(np.diff(starts[3:]))
+                                                        / O_SIZE * 1e3))
         if "simulation_phase_execution_time" in out.attrs:  # the writer's output alone
-            sim.setdefault(graphs, []).append(
+            res["sim"].setdefault(graphs, []).append(
                 float(out.attrs["simulation_phase_execution_time"]) / steps * 1e3)
-        if graphs not in outs:
-            outs[graphs] = out
-            counts[graphs] = {k: v - before[k] for k, v in _launch_counts().items()}
+        if graphs not in res["outs"]:
+            res["outs"][graphs] = out
+            res["counts"][graphs] = {k: v - before[k] for k, v in _launch_counts().items()}
+            res["peak"][graphs] = [torch.cuda.max_memory_allocated(d) / 2**30 for d in cards]
+            if graphs:
+                res["window"] = log[1]
         if graphs:
-            acts = _check_actions(log, GRAPH_WINDOWS)
-    _require(counts[True] == counts[False],
-             f"launches with graphs {counts[True]}, eager {counts[False]}")
-    return outs, counts, warm, sim, acts
+            res["acts"] = _check_actions(log, GRAPH_WINDOWS)
+    _require(res["counts"][True] == res["counts"][False],
+             f"launches with graphs {res['counts'][True]}, eager {res['counts'][False]}")
+    return res
 
 
-def _rank_phase(rank: int, world: int, port: int) -> int:
+MESH_DATASETS = ("p", "p_c", "p_max_all", "p_final")  # what --save-outputs keeps
+
+
+def _save_outputs(out, path: Path) -> None:
+    np.savez(path, **{k: np.asarray(out[k].data) for k in MESH_DATASETS})
+
+
+def _differ_from_saved(out, path: Path) -> list[str]:
+    """The datasets of ``out`` that differ in a bit from those `_save_outputs` wrote."""
+    with np.load(path) as saved:
+        return [k for k in MESH_DATASETS if not np.array_equal(
+            np.ascontiguousarray(out[k].data).view(np.uint8),
+            np.ascontiguousarray(saved[k]).view(np.uint8))]
+
+
+def _rank_phase(rank: int, world: int, port: int, save_to: Path | None = None) -> int:
     """One rank of ``--mesh-processes``: phase 11 (a)'s input at each of CARDS_GRIDS through
     `run_simulation` on a mesh of one shard a process (NCCL, card ``rank``): 13 windows
     and a tail eager and with graphs in turns (`_turns`; rank 0 holds the graph run to
     the eager one bit for bit), then phase 11 (a)'s run of 2 windows and the tail, which
     rank 0 holds to the same run on its card alone (the check's tolerances are read at
-    that length, module docstring phase 11)."""
+    that length, module docstring phase 11). With ``save_to`` (``--mesh-cards``) only
+    that last run at BIG_N, whose output rank 0 saves there (`_save_outputs`)."""
     import dataclasses
 
     import torch
@@ -2841,11 +2900,21 @@ def _rank_phase(rank: int, world: int, port: int) -> int:
     initialize(f"localhost:{port}", world, rank, "cuda")
     try:
         mesh = make_mesh()
-        _require(mesh.graph_device is not None, f"{mesh}: no graph device")
+        _require(mesh.graph_devices == (torch.device("cuda", rank),),
+                 f"{mesh}: graphs on {mesh.graph_devices}")
+        if save_to is not None:
+            data = _input(MESH_WINDOWS * O_SIZE + MESH_TAIL, BIG_N)
+            out, _, _, _ = _run(MESH_FLAGS, MESH_WINDOWS, MESH_TAIL, data=data, mesh=mesh,
+                                compact_operators=True)
+            if rank == 0:
+                _save_outputs(out, save_to)
+            mesh.comm.barrier()
+            return 0
         steps = GRAPH_WINDOWS * O_SIZE + GRAPH_TAIL
         for n in CARDS_GRIDS:
             data = _input(steps, n)
-            outs, counts, warm, sim, acts = _turns(data, mesh)  # its first run warms up
+            res = _turns(data, mesh)  # its first run warms up
+            outs, counts, warm, sim = (res[k] for k in ("outs", "counts", "warm", "sim"))
             if rank == 0:
                 differ = _same_bits(outs[False], outs[True])
                 _require(not differ, f"{n}^3 on {world} cards: graphs differ from eager "
@@ -2853,10 +2922,11 @@ def _rank_phase(rank: int, world: int, port: int) -> int:
                 print(f"[cards] {n}^3, {N_SENSORS} sensors, {steps} steps, "
                       f"{' '.join(MESH_FLAGS)}: {world} processes over NCCL, one card "
                       f"each: graphs == eager bit for bit, launches equal (rank 0: "
-                      f"{ {k: v for k, v in counts[True].items() if v} }); windows {acts}; "
+                      f"{ {k: v for k, v in counts[True].items() if v} }); windows "
+                      f"{res['acts']}; "
                       f"warm ms/step eager {warm[False]}, graph {warm[True]}; simulation "
                       f"phase ms/step eager {sim[False]}, graph {sim[True]}", flush=True)
-            del outs
+            del outs, res
             two = dataclasses.replace(data, grid=dataclasses.replace(
                 data.grid, nt=MESH_WINDOWS * O_SIZE + MESH_TAIL))
             out, secs, _, _ = _run(MESH_FLAGS, MESH_WINDOWS, MESH_TAIL, data=two, mesh=mesh,
@@ -2893,23 +2963,18 @@ def _rank_phase(rank: int, world: int, port: int) -> int:
 CARDS_SECONDS = 1500  # --mesh-processes: the ranks' time, all grids
 
 
-def cards_phase(world: int) -> int:
-    """``--mesh-processes N``: phase 11 (a) as N processes over NCCL, one card each (the
-    kernels built once first); every rank's output is printed, and any rank's failure
-    fails the run and ends the other ranks at once (they would wait in a collective for
-    NCCL's timeout)."""
+def _spawn_ranks(world: int, *extra: str) -> list[int]:
+    """``world`` processes of this script as the ranks of one NCCL group (``--mesh-rank
+    R``, one card each, with ``extra`` arguments): every rank's output is printed, and
+    any rank's failure ends the other ranks at once (they would wait in a collective for
+    NCCL's timeout). Returns their exit codes."""
     import tempfile
 
-    import torch
-
-    name, smi = device_phase()
-    have = torch.cuda.device_count()
-    _require(have >= world, f"--mesh-processes {world} needs {world} cards; {have} present")
-    build_phase()
     port = _free_port()
     logs = [tempfile.TemporaryFile("w+") for _ in range(world)]
     procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--mesh-rank",
-                               str(r), "--mesh-processes", str(world), "--port", str(port)],
+                               str(r), "--mesh-processes", str(world), "--port", str(port),
+                               *extra],
                               stdout=logs[r], stderr=subprocess.STDOUT, text=True)
              for r in range(world)]
     deadline = time.monotonic() + CARDS_SECONDS
@@ -2927,12 +2992,301 @@ def cards_phase(world: int) -> int:
         print(f"--- rank {r} (exit {p.returncode}) ---", flush=True)
         print("\n".join(line for line in log.read().splitlines() if "progress" not in line),
               flush=True)
-    codes = [p.returncode for p in procs]
+    return [p.returncode for p in procs]
+
+
+def cards_phase(world: int) -> int:
+    """``--mesh-processes N``: phase 11 (a) as N processes over NCCL, one card each (the
+    kernels built once first; `_spawn_ranks`)."""
+    import torch
+
+    name, smi = device_phase()
+    have = torch.cuda.device_count()
+    _require(have >= world, f"--mesh-processes {world} needs {world} cards; {have} present")
+    build_phase()
+    codes = _spawn_ranks(world)
     _require(all(rc == 0 for rc in codes), f"ranks exited {codes}")
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),
           flush=True)
+    return 0
+
+
+PROBE_N = 128  # the probe's grid, n^3 over the cards
+PROBE_STEPS = 5
+
+
+def cards_probe(n_cards: int) -> dict:
+    """One CUDA graph across ``n_cards`` cards, captured from this one thread without
+    the package's `graphs.Graphs`: a state-carrying program on an in-process mesh of one
+    shard a card (the pencil FFT's rfft2, all-to-all by peer copies, fft over z, a
+    spectral multiply, the inverse, and a signal read at a time index that lies on each
+    card), captured on a side stream of card 0 that the other cards' side streams join
+    by events, their allocations in a `torch.cuda.MemPool` a card. Replayed
+    PROBE_STEPS times from the state of an eager run, it must give that run's bits, and
+    tensors made eagerly on every card after the capture must keep their values through
+    the replays (no eager allocation lands in the graph's memory). Returns the peer
+    access, the bits, the clobber check and eager / replayed ms per step."""
+    import contextlib
+
+    import torch
+
+    from kwave_tpu_torch.parallel import make_mesh
+    from kwave_tpu_torch.parallel.fft import dist_irfftn, dist_rfftn, spectral_sharding
+    from kwave_tpu_torch.parallel.mesh import field_sharding, replicated
+    from kwave_tpu_torch.parallel.sharded import Sharded
+
+    devs = [torch.device("cuda", k) for k in range(n_cards)]
+    peer = {f"{i}->{j}": torch.cuda.can_device_access_peer(i, j)
+            for i in range(n_cards) for j in range(n_cards) if i != j}
+    mesh = make_mesh(n_cards)
+    n = PROBE_N
+    rng = np.random.default_rng(5)
+    x0 = rng.standard_normal((n, n, n)).astype(np.float32)
+    kern = np.exp(-rng.random((n, n, n // 2 + 1))).astype(np.complex64)
+    signal = replicated(mesh, rng.standard_normal(PROBE_STEPS).astype(np.float32))
+    k_sh = spectral_sharding(mesh, kern)
+
+    def step(x, t):
+        y = dist_irfftn(dist_rfftn(x, mesh) * k_sh, n, mesh)
+        at = signal.index_select(0, torch.clamp(t, max=PROBE_STEPS - 1).reshape(1))
+        return y * 0.5 + x * at
+
+    def sync():
+        for d in devs:
+            torch.cuda.synchronize(d)
+
+    def eager_run():
+        x = field_sharding(mesh, x0)
+        for t in range(PROBE_STEPS):
+            x = step(x, Sharded([torch.tensor(t, device=d) for d in devs]))
+        return [s.cpu() for s in x.shards]
+
+    want = eager_run()  # also the warm-up: cuFFT plans, peer access
+    sync()
+    t0 = time.perf_counter()
+    eager_run()
+    sync()
+    eager_ms = (time.perf_counter() - t0) / PROBE_STEPS * 1e3
+
+    static = field_sharding(mesh, x0)
+    t_dev = [torch.zeros((), dtype=torch.int64, device=d) for d in devs]
+    graph = torch.cuda.CUDAGraph()
+    pools = []
+    for d in devs[1:]:
+        with torch.cuda.device(d):  # a MemPool belongs to the card current when it is made
+            pools.append(torch.cuda.MemPool())
+    streams = [torch.cuda.Stream(d) for d in devs]
+    for s, d in zip(streams, devs):
+        s.wait_stream(torch.cuda.current_stream(d))
+    t_cap = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for s in reversed(streams):  # card 0's last: the capture's device is current
+            stack.enter_context(torch.cuda.stream(s))
+        for pool, d in zip(pools, devs[1:]):
+            stack.enter_context(torch.cuda.use_mem_pool(pool, d))
+        graph.capture_begin(pool=torch.cuda.graph_pool_handle())
+        try:
+            for s in streams[1:]:
+                s.wait_stream(streams[0])  # joins the capture
+            new = step(static, Sharded(t_dev))
+            for a, b in zip(static.shards, new.shards):
+                a.copy_(b)
+            for s in streams[1:]:
+                streams[0].wait_stream(s)  # joins back before the capture ends
+        finally:
+            graph.capture_end()
+    capture_s = time.perf_counter() - t_cap
+    for s, d in zip(streams, devs):
+        torch.cuda.current_stream(d).wait_stream(s)
+    witness = [torch.full((1 << 20,), float(k + 1), device=d) for k, d in enumerate(devs)]
+
+    def replay(t):
+        for tk in t_dev:
+            tk.fill_(t)
+        main = torch.cuda.current_stream(devs[0])
+        for d in devs[1:]:
+            main.wait_stream(torch.cuda.current_stream(d))
+        graph.replay()
+        for d in devs[1:]:
+            torch.cuda.current_stream(d).wait_stream(main)
+
+    for a, x in zip(static.shards, field_sharding(mesh, x0).shards):
+        a.copy_(x)
+    for t in range(PROBE_STEPS):
+        replay(t)
+    got = [s.cpu() for s in static.shards]
+    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, want))
+    kept = all(bool((w == k + 1).all()) for k, w in enumerate(witness))
+    sync()
+    t0 = time.perf_counter()
+    for t in range(PROBE_STEPS):
+        replay(t)
+    sync()
+    replay_ms = (time.perf_counter() - t0) / PROBE_STEPS * 1e3
+    out = {"cards": n_cards, "peer_access": all(peer.values()), "bits_equal": same,
+           "eager_tensors_kept": kept, "capture_s": capture_s, "eager_ms_per_step": eager_ms,
+           "replayed_ms_per_step": replay_ms}
+    print(f"[cards probe] {n_cards} cards, {n}^3, {PROBE_STEPS} steps: {json.dumps(out)}",
+          flush=True)
+    del graph, pools
+    _require(same and kept, f"the graph across {n_cards} cards: {out}")
+    return out
+
+
+def _cards_cell(grid: int, mesh, smi: str) -> dict:
+    """One grid of ``--mesh-cards``: phase 11 (a)'s input at grid^3, GRAPH_WINDOWS
+    windows and a tail, eager and with graphs in turns on ``mesh`` (`_turns`): bit for
+    bit, launches equal; prints warm and simulation-phase ms/step, device ms/step of a
+    replayed window (CUDA events on card 0, where the graph over the cards ends), the
+    idle share each way against it, capture + instantiate per key and the peak memory a
+    card. Returns the turns' results."""
+    res = _turns(_input(GRAPH_WINDOWS * O_SIZE + GRAPH_TAIL, grid), mesh)
+    n = len(mesh.devices)
+    differ = _same_bits(res["outs"][False], res["outs"][True])
+    _require(not differ, f"{grid}^3 on {n} cards in one process: graphs differ from "
+             f"eager in {differ}")
+    graphs = res["window"].graphs
+    device, _ = _replay_ms(graphs, profile=False)
+    idle = {g: 1 - device / float(np.mean(res["warm"][g])) for g in (False, True)}
+    capture = sorted(graphs.capture_seconds.values())
+    peak = {g: [round(x, 3) for x in res["peak"][g]] for g in (False, True)}
+    print(f"[cards graph] {grid}^3, {N_SENSORS} sensors, {GRAPH_WINDOWS * O_SIZE + GRAPH_TAIL} "
+          f"steps, {' '.join(MESH_FLAGS)}, {mesh}: graphs == eager bit for bit, launches "
+          f"equal ({ {k: v for k, v in res['counts'][True].items() if v} }); windows "
+          f"{res['acts']}; warm ms/step eager {res['warm'][False]}, graph "
+          f"{res['warm'][True]}; simulation phase ms/step eager {res['sim'][False]}, graph "
+          f"{res['sim'][True]}; device ms/step of a replayed window (events) {device:.4f}; "
+          f"idle eager {idle[False]:.1%}, graph {idle[True]:.1%}; capture + instantiate "
+          f"per key {capture} s; peak GiB allocated a card eager {peak[False]}, graph "
+          f"{peak[True]}; card {smi}", flush=True)
+    return res
+
+
+def _cards_trade(mesh, n: int, reps: int = 10) -> tuple[float, float]:
+    """One z-for-y trade of an n^3 spectrum over the in-process mesh's cards: (device
+    ms, from a graph of a round trip, z for y and back, captured with `graphs.Graphs` and
+    replayed ``reps`` times between CUDA events on card 0, where the graph ends; the
+    bytes that cross between cards in one trade)."""
+    import torch
+
+    from kwave_tpu_torch.graphs import Graphs
+    from kwave_tpu_torch.parallel import Sharded, field_sharding
+    from kwave_tpu_torch.parallel import fft as dfft
+
+    xk = torch.fft.rfft(torch.randn(n, n, n, device=mesh.devices[0]), dim=2)
+    parts = field_sharding(mesh, xk).shards
+
+    def round_trip(static, t):
+        return dfft.y_to_z(dfft.z_to_y(Sharded(static), mesh), mesh).shards, None
+
+    round_trip(parts, None)  # eager first: peer access, the allocator's blocks
+    graphs = Graphs(mesh.devices)
+    graphs.capture("trade", parts, round_trip)
+    graphs.replay("trade", parts, 0)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.cuda.device(mesh.devices[0]):
+        start.record()
+        for _ in range(reps):
+            graphs.replay("trade", graphs.static, 0)
+        end.record()
+        torch.cuda.synchronize()
+    s = len(mesh.devices)
+    return start.elapsed_time(end) / (2 * reps), xk.numel() * xk.element_size() * (s - 1) / s
+
+
+def mesh_cards_phase(n: int) -> int:
+    """``--mesh-cards N``: the in-process mesh over N cards (``--devices N``, one shard a
+    card, `InProcess` peer copies), its windows and lead-in one CUDA graph across the
+    cards. The probe (`cards_probe`); each of CARDS_GRIDS as `_cards_cell`; phase 11
+    (a)'s 37 steps at BIG_N held to card 0 alone (`_hold_mesh_run`) and bit for bit to
+    N shards of cuda:0 and to the ``--mesh-processes N`` run of the same input (N
+    processes over NCCL, `_spawn_ranks`); p_final over the 213 steps of the turns'
+    graph run against card 0 alone and N shards of cuda:0 (a reading, no bound). Prints
+    the window kernel's launches in the graph runs (``launches_cards_graph_path``) and
+    the contract's last line with ``count`` N."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from kwave_tpu_torch import cli, params
+    from kwave_tpu_torch.ops import encode_window as ew
+
+    name, smi = device_phase()
+    have = torch.cuda.device_count()
+    _require(have >= n, f"--mesh-cards {n} needs {n} cards; {have} present")
+    build_phase()
+    cards_probe(n)
+    parser = params.build_parser()
+    mesh = cli.mesh_from_args(parser, parser.parse_args(
+        ["-i", "-", "-o", "-", "--devices", str(n)]), torch.device("cuda"))
+    _require(mesh.graph_devices == tuple(torch.device("cuda", k) for k in range(n)),
+             f"--devices {n}: {mesh} is graphed on {mesh.graph_devices}")
+    launches = {k: 0 for k in ew.LAUNCHES}
+    long_run = None
+    for grid in CARDS_GRIDS:
+        res = _cards_cell(grid, mesh, smi)
+        for k in launches:
+            launches[k] += res["counts"][True][k]
+        if grid == BIG_N:
+            long_run = res["outs"][True]
+        del res
+        torch.cuda.empty_cache()
+        ms, cross = _cards_trade(mesh, grid)
+        print(f"[cards graph] {grid}^3: one z-for-y trade over the {n} cards {ms:.4f} ms "
+              f"(replayed), {cross / 1e6:.1f} MB across cards, {cross / ms / 1e6:.1f} GB/s",
+              flush=True)
+        torch.cuda.empty_cache()
+
+    def cut(data, nt):
+        return dataclasses.replace(data, grid=dataclasses.replace(data.grid, nt=nt))
+
+    long_data = _input(GRAPH_WINDOWS * O_SIZE + GRAPH_TAIL, BIG_N)
+    data = cut(long_data, MESH_WINDOWS * O_SIZE + MESH_TAIL)
+    compact = dict(compact_operators=True)
+    _run(MESH_FLAGS, 0, 3, data=cut(data, 3), **compact)
+    one, one_secs, steps, _ = _run(MESH_FLAGS, MESH_WINDOWS, MESH_TAIL, data=data, **compact)
+    out, secs, _, _ = _run(MESH_FLAGS, MESH_WINDOWS, MESH_TAIL, data=data, mesh=mesh,
+                           **compact)
+    errs = _hold_mesh_run(one, out, f"{n} cards in one process at {BIG_N}^3")
+    shards, _, _, _ = _run(MESH_FLAGS, MESH_WINDOWS, MESH_TAIL, data=data, mesh=_mesh(n),
+                           **compact)
+    differ_shards = _same_bits(shards, out)
+    del shards
+    saved = Path(tempfile.mkdtemp()) / "ranks.npz"
+    codes = _spawn_ranks(n, "--save-outputs", str(saved))
+    _require(all(rc == 0 for rc in codes), f"the {n} ranks exited {codes}")
+    differ_ranks = _differ_from_saved(out, saved)
+    print(f"[cards graph] {BIG_N}^3, {steps} steps: {n} cards in one process "
+          f"{secs / steps * 1e3:.3f} ms/step end to end, card 0 alone "
+          f"{one_secs / steps * 1e3:.3f}; against card 0 alone, of the peak: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f"; against {n} shards of cuda:0 differ in {differ_shards}; against {n} "
+          f"processes over NCCL differ in {differ_ranks}", flush=True)
+    _require(not differ_shards and not differ_ranks,
+             f"{n} cards in one process differ from {n} shards of cuda:0 in "
+             f"{differ_shards}, from {n} processes in {differ_ranks}")
+    long_one, _, _, _ = _run(MESH_FLAGS, GRAPH_WINDOWS, GRAPH_TAIL, data=long_data,
+                             **compact)
+    long_shards, _, _, _ = _run(MESH_FLAGS, GRAPH_WINDOWS, GRAPH_TAIL, data=long_data,
+                                mesh=_mesh(n), **compact)
+    a = np.asarray(long_one["p_final"].data, np.float64)
+    b = np.asarray(long_run["p_final"].data, np.float64)
+    print(f"[cards graph] {BIG_N}^3, {long_data.grid.nt} steps: p_final of {n} cards in "
+          f"one process (graphs) against card 0 alone {np.abs(b - a).max() / np.abs(a).max():.3e}"
+          f" of its peak (FINAL_ATOL {FINAL_ATOL:g} holds at {steps} steps; not checked "
+          f"here); against {n} shards of cuda:0 differ in "
+          f"{_same_bits(long_shards, long_run)}", flush=True)
+    rows = [dict(name=key, route="cuda", source="kwave_tpu_torch/csrc/encode_window.cu",
+                 replaces=VARIANTS[key][2], launches_cards_graph_path=launches[key])
+            for key in VARIANTS]
+    _require(launches["w40_overlap"] > 0, f"--mesh-cards: launches {launches}")
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": n}}), flush=True)
     return 0
 
 
@@ -2970,8 +3324,13 @@ def main(argv: list[str]) -> int:
     parser.add_argument("--mesh-processes", type=int, default=0, metavar="N",
                         help="instead of the phases: phase 11 (a) as N processes over "
                              "NCCL, one card each (needs N cards)")
+    parser.add_argument("--mesh-cards", type=int, default=0, metavar="N",
+                        help="instead of the phases: the in-process mesh over N cards "
+                             "(--devices N), eager and as one CUDA graph across them "
+                             "(needs N cards)")
     parser.add_argument("--mesh-rank", type=int, default=None, help=argparse.SUPPRESS)
     parser.add_argument("--port", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--save-outputs", type=Path, default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     tree = args.package_from.resolve()
     if not (tree / "kwave_tpu_torch").is_dir():
@@ -2991,9 +3350,11 @@ def main(argv: list[str]) -> int:
     if args.main_path_readings:
         return readings_phase(args.main_path_readings, tree, args.main_path_windows)
     if args.mesh_rank is not None:
-        return _rank_phase(args.mesh_rank, args.mesh_processes, args.port)
+        return _rank_phase(args.mesh_rank, args.mesh_processes, args.port, args.save_outputs)
     if args.mesh_processes:
         return cards_phase(args.mesh_processes)
+    if args.mesh_cards:
+        return mesh_cards_phase(args.mesh_cards)
 
     name, smi = device_phase()
     print(f"[1 device] allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "

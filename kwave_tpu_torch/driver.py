@@ -17,10 +17,11 @@ On a mesh (`kwave_tpu_torch.parallel.make_mesh`) the fields are z-sharded and ev
 spectral transform is the pencil FFT; each shard samples and encodes the sensors of its
 own slab (the codec state is per sensor), and process 0 alone assembles the emissions in
 the mask's order (`parallel.distributed.WriterGather`) and writes the file. Where this
-process's shards all lie on one card (`parallel.Mesh.graph_device`: S shards of one card
-in one process, or one shard a rank over NCCL) the windows and the lead-in are CUDA
-graphs as on one card, each holding every shard's steps and the pencil FFT's trades; an
-in-process mesh over several cards, and a mesh on the CPU, runs its windows eagerly.
+process's shards lie on CUDA cards (`parallel.Mesh.graph_devices`: S shards in one
+process, on one card or on several, or one shard a rank over NCCL) the windows and the
+lead-in are CUDA graphs as on one card, each holding every shard's steps and the pencil
+FFT's trades (peer copies inside the one graph where the shards lie on several cards); a
+mesh on the CPU or under gloo runs its windows eagerly.
 
 Covered: the lead-in before sampling starts (-s), the t==0 initial-pressure peel, the
 trailing partial window, the tiny-record lastStep rule, the auto no-overlap rule,
@@ -109,7 +110,7 @@ class RunConfig:
     # nz with prime factors up to 7, a dense DFT for the rest). None = off, as in
     # kwave_tpu, until a benchmark cell shows where it pays. Needs 3D compact operators.
     fuse_z: Optional[bool] = None
-    # On one CUDA device (or a mesh with a `graph_device`), replay the windows and the
+    # On one CUDA device (or a mesh with `graph_devices`), replay the windows and the
     # lead-in as CUDA graphs where `plan_windows` allows (False: every window runs as
     # eager ops, to compare and time).
     cuda_graphs: bool = True
@@ -303,12 +304,12 @@ def window_key(cfg: SolverConfig, o: int, t0: int) -> Optional[tuple]:
 def plan_windows(cfg: SolverConfig, o: int, t_first: int, n_windows: int
                  ) -> list[tuple[int, Optional[tuple], str]]:
     """What each of ``n_windows`` full windows from ``t_first`` runs as on one CUDA
-    device, or on a mesh with a `graph_device`: (t0, `window_key`, action), the action
+    device, or on a mesh with `graph_devices`: (t0, `window_key`, action), the action
     "eager", "capture" (eager, then captured: the first window of a key that a later one
     takes) or "replay" (`graphs.graph_actions`). A pure function of its arguments, so
     every rank of a process group plans alike. Eager besides, outside this plan: the
     steps of a leg resumed inside a window (up to its boundary), the trailing partial
-    window, every window on the CPU and on a mesh without a `graph_device`."""
+    window, every window on the CPU and on a mesh without `graph_devices`."""
     ts = [t_first + w * o for w in range(n_windows)]
     keys = [window_key(cfg, o, t) for t in ts]
     return list(zip(ts, keys, graph_actions(keys)))
@@ -370,14 +371,14 @@ class _Window:
     """The window that `make_window_fn` returns (see there)."""
 
     def __init__(self, r: _Run, o: int, steps: int, emit: bool, peel_p0: bool,
-                 device: Optional[torch.device], graphs: bool):
+                 devices, graphs: bool):
         if peel_p0 and r.cfg.p0_source_flag:
             raise ValueError("peel_p0 replaces the in-step p0 branch: p0_source_flag must "
                              "be False")
         self.r, self.o, self.steps, self.emit, self.peel_p0 = r, o, steps, emit, peel_p0
         # only a full, emitting window without the peel has a captured program
         full = steps == o and emit and not peel_p0
-        self.graphs = Graphs(device) if graphs and full else None
+        self.graphs = Graphs(devices) if graphs and full else None
         self.actions: list[tuple[int, str]] = []
         self._advance: dict = {}  # key -> how far a window moves each encoder counter
 
@@ -466,9 +467,10 @@ def make_window_fn(specs: list[StreamSpec], basis: Optional[CompressionBasis],
     the emissions are lists of one dict a shard of this process.
 
     A full window with a `window_key` replays a CUDA graph of the whole window
-    (`kwave_tpu_torch.graphs`) on one CUDA device, and on a mesh whose
-    `Mesh.graph_device` is set (every shard of this process on one card; the graph then
-    holds every shard's steps, gathers and encodes and the trades between them). The
+    (`kwave_tpu_torch.graphs`) on one CUDA device, and on a mesh with
+    `Mesh.graph_devices` (every shard of this process on a card: the graph then holds
+    every shard's steps, gathers and encodes and the trades between them, across the
+    cards where the shards lie on several). The
     first window of each key runs eagerly as the capture's warm-up and is captured after
     it, where the call's ``capture`` (True by default) asks for it (`run_simulation`
     asks where `plan_windows` says that a later window takes the key). The state then
@@ -477,7 +479,7 @@ def make_window_fn(specs: list[StreamSpec], basis: Optional[CompressionBasis],
     on the host as an eager window advances them; the emissions are copied out of the
     graph's buffers, the caller's to keep. ``window.actions`` lists each call's (t0,
     "eager" | "capture" | "replay"), ``window.graphs.capture_seconds`` each key's
-    capture and instantiation. On the CPU, and on a mesh without a `graph_device`, every
+    capture and instantiation. On the CPU, and on a mesh without `graph_devices`, every
     window runs eagerly.
 
     The JAX function's ``strategy`` (how its scan stacks the rows, a workaround of the
@@ -487,10 +489,10 @@ def make_window_fn(specs: list[StreamSpec], basis: Optional[CompressionBasis],
     if isinstance(mask, Sharded):
         if mesh is None:
             raise ValueError("a sharded mask needs the mesh")
-        masks, device = mask.shards, mesh.graph_device
+        masks, devices = mask.shards, mesh.graph_devices or None
     else:
-        masks, device = [mask], mask.device
-        device = device if device.type == "cuda" else None
+        masks, devices = [mask], mask.device
+        devices = devices if devices.type == "cuda" else None
     if sum(int(m.numel()) for m in masks) != n_sensors:
         raise ValueError(f"mask holds {sum(int(m.numel()) for m in masks)} sensors; "
                          f"n_sensors is {n_sensors}")
@@ -501,7 +503,7 @@ def make_window_fn(specs: list[StreamSpec], basis: Optional[CompressionBasis],
              whole_domain=[s for s in specs if s.op in ("max_all", "min_all")],
              spectral_multi=spectral_multi, fft=fft or LOCAL_FFT)
     return _Window(r, o_size, o_size if n_steps is None else n_steps, emit, peel_p0,
-                   device, graphs=device is not None)
+                   devices, graphs=devices is not None)
 
 
 def require_device(device: torch.device) -> None:
@@ -631,7 +633,7 @@ def run_simulation(data: InputData, run: RunConfig, output,
     reads the checkpoint and the output on every process (a shared filesystem), and a
     checkpoint resumes on one device or on a mesh, whichever wrote it.
 
-    On one CUDA device, and on a mesh whose `Mesh.graph_device` is set, the full
+    On one CUDA device, and on a mesh with `Mesh.graph_devices`, the full
     windows and the lead-in replay CUDA graphs where `plan_windows` allows
     (`make_window_fn`; ``run.cuda_graphs=False`` runs them all eagerly); under a process
     group every rank's plan is held to rank 0's first. ``window_log``, a list, receives
@@ -881,10 +883,10 @@ def run_simulation(data: InputData, run: RunConfig, output,
 
         # lead-in: steps before sampling starts (the reference skips storage until
         # t >= s, KSpaceFirstOrderSolver.cpp:1060-1068), in runs of o steps that replay
-        # CUDA graphs on one card, or on a mesh whose shards here share one card
-        graph_device = (device if device.type == "cuda" else None) if mesh is None \
-            else mesh.graph_device
-        graphs_on = graph_device is not None and run.cuda_graphs
+        # CUDA graphs on one card, or on a mesh whose shards here lie on cards
+        graph_devices = (device if device.type == "cuda" else None) if mesh is None \
+            else mesh.graph_devices or None
+        graphs_on = graph_devices is not None and run.cuda_graphs
         if run.sampling_start > t0:
             t_lead, lead_from = _time.time(), t0
             if peel_pending:  # t == 0
@@ -930,8 +932,8 @@ def run_simulation(data: InputData, run: RunConfig, output,
             # replayed window meet an eager one's on another rank
             check_plans_agree(mesh.comm.all_gather(plan))
         # the first window with the p0 peel, and the others
-        windows = (_Window(r, o, o, True, True, graph_device, graphs=False),
-                   _Window(r, o, o, True, False, graph_device, graphs=graphs_on))
+        windows = (_Window(r, o, o, True, True, graph_devices, graphs=False),
+                   _Window(r, o, o, True, False, graph_devices, graphs=graphs_on))
         if window_log is not None:
             window_log.extend(windows)
         interrupted = False

@@ -9,9 +9,13 @@
 
 Both take and return lists of this process's shard tensors, in shard order. A trade
 neither waits on the host nor allocates outside PyTorch's allocator, so a CUDA graph can
-hold it (`Mesh.graph_device`): on one card `InProcess` is a `torch.cat` of views (the
-`.to` of a block to its own device is the block itself), and NCCL's `all_to_all_single`
-joins the current (the capturing) stream by events, with no wait on the host.
+hold it (`Mesh.graph_devices`): on one card `InProcess` is a `torch.cat` of views (the
+`.to` of a block to its own device is the block itself); across cards each `.to` is a
+peer copy on the source card's current stream, which PyTorch orders by events after the
+destination card's current stream and before the destination's next op (in a capture
+those streams are the capture's, so the events are the graph's edges); and NCCL's
+`all_to_all_single` joins the current (the capturing) stream by events, with no wait on
+the host.
 """
 
 from __future__ import annotations

@@ -39,21 +39,18 @@ class Mesh:
         return self.comm.rank == 0
 
     @property
-    def graph_device(self) -> Optional[torch.device]:
-        """The one CUDA device on which this process's windows can be captured as CUDA
-        graphs (`kwave_tpu_torch.graphs`): set where every shard of this process lies on
-        that device and the shards trade by tensor copies (`InProcess`) or over NCCL (a
-        `ProcessGroup` of one shard a rank). None for a mesh on the CPU (gloo) and for
-        an in-process mesh over several cards, whose windows run eagerly."""
-        devices = set(self.devices)
-        if len(devices) != 1:
-            return None
-        (device,) = devices
-        if device.type != "cuda":
-            return None
+    def graph_devices(self) -> tuple[torch.device, ...]:
+        """The devices of this process's shards, in shard order, where its windows and
+        its lead-in are captured as CUDA graphs (`kwave_tpu_torch.graphs`): every shard
+        on a CUDA card, trading by tensor copies (`InProcess`: on one card, or across
+        several, whose peer copies the one graph then holds) or over NCCL (a
+        `ProcessGroup` of one shard a rank). Empty for a mesh on the CPU and under gloo,
+        whose windows run eagerly."""
+        if any(d.type != "cuda" for d in self.devices):
+            return ()
         if isinstance(self.comm, InProcess) or getattr(self.comm, "backend", None) == "nccl":
-            return device
-        return None
+            return tuple(self.devices)
+        return ()
 
     def __str__(self) -> str:
         kind = "in one process" if isinstance(self.comm, InProcess) else \

@@ -17,7 +17,8 @@ package's order; on a mesh they run shard by shard (`kwave_tpu_torch.parallel.Sh
 Fields are float32 ``[nz, ny, nx]`` (``[ny, nx]`` in 2D), x fastest. No tensor is updated
 in place.
 
-The time index ``t`` is a host integer, or a 0-d int64 tensor on the fields' device. Which
+The time index ``t`` is a host integer, or a 0-d int64 tensor on the fields' device (one a
+shard on a mesh whose graph spans several cards). Which
 sources act is a host branch either way: `source_phase` decides it from a host integer, or
 for a run of steps at once, where the steps share one captured CUDA graph whose ``t`` is a
 device value; the signals are then read by a gather at ``t`` on the device.
@@ -249,12 +250,18 @@ def source_phase(cfg: SolverConfig, t_first: int, t_last: int) -> Optional[Sourc
     return None if None in phase else SourcePhase(*phase)
 
 
+def _on_device(t) -> bool:
+    """A time index held on the device: a 0-d tensor, or on a mesh whose graph spans
+    several cards one a shard (a `Sharded`)."""
+    return isinstance(t, torch.Tensor) or hasattr(t, "shards")
+
+
 def _source_value(signal: torch.Tensor, t, many: bool,
                   index: torch.Tensor) -> torch.Tensor:
     """Signal sample(s) at timestep t (clamped to the signal, as a JAX dynamic index):
     scalar broadcast over ``index``'s points or per-point column. A tensor ``t`` is read
     by a gather on the device, to the same values."""
-    if isinstance(t, torch.Tensor):
+    if _on_device(t):
         col = signal.index_select(-1, torch.clamp(t, max=signal.size(-1) - 1).reshape(1))
         return col.reshape(-1) if many else col.expand_as(index)
     t = min(t, signal.size(-1) - 1)
@@ -300,11 +307,12 @@ def step(state: SimState, t, ops: Operators, src: Sources, cfg: SolverConfig,
     -> [real fields]``. Otherwise ``fft`` does every transform: on a mesh, the pencil FFT
     (`kwave_tpu_torch.parallel.pencil_fft`) with z-sharded fields and operators.
 
-    ``t`` is a host integer, or a 0-d int64 tensor on the fields' device; a tensor needs
-    ``phase`` (`source_phase` of the steps it stands for), an integer takes its own. Both
-    give the same bits."""
+    ``t`` is a host integer, or a 0-d int64 tensor on the fields' device (on sharded
+    fields also a `Sharded` of one a shard, on its device); a tensor needs ``phase``
+    (`source_phase` of the steps it stands for), an integer takes its own. All give the
+    same bits."""
     if phase is None:
-        if isinstance(t, torch.Tensor):
+        if _on_device(t):
             raise ValueError("a tensor time index needs the steps' source phase")
         phase = source_phase(cfg, t, t)
     is3d = state.uz_sgz is not None
@@ -549,16 +557,22 @@ def with_state_tensors(like: SimState, tensors) -> SimState:
                        for f in dataclasses.fields(SimState)})
 
 
-def graph_device(state: SimState) -> Optional[torch.device]:
-    """The CUDA device that holds every field of ``state`` (every shard's, on a mesh):
-    where its steps can be captured. None where the fields lie on the CPU; fields on
-    several devices (a mesh over several cards) raise, since no graph can hold them."""
-    devices = {t.device for t in state_tensors(state)}
-    if len(devices) != 1:
-        raise ValueError(f"a CUDA graph of the steps needs the fields on one device; they "
-                         f"lie on {sorted(map(str, devices))}")
-    (device,) = devices
-    return device if device.type == "cuda" else None
+def graph_devices(state: SimState):
+    """Where the steps of ``state`` can be captured (`kwave_tpu_torch.graphs.Graphs`):
+    the CUDA device of its fields, or for sharded fields the device of each shard, in
+    shard order (one card or several: one graph then spans them). None where the fields
+    lie on the CPU; shards on the CPU and on a card at once raise."""
+    p = state.p
+    if not hasattr(p, "shards"):
+        return p.device if p.device.type == "cuda" else None
+    devices = tuple(x.device for x in p.shards)
+    kinds = {d.type for d in devices}
+    if kinds == {"cpu"}:
+        return None
+    if kinds != {"cuda"}:
+        raise ValueError(f"the shards lie on {', '.join(map(str, devices))}: a CUDA graph "
+                         "needs every shard on a card")
+    return devices
 
 
 def chunk_keys(cfg: SolverConfig, t0: int, n_steps: int, chunk: int
@@ -588,9 +602,10 @@ def make_simulate_fn(ops: Operators, src: Sources, cfg: SolverConfig, n_steps: i
     With ``graph_steps`` (no ``sample_fn``) and the fields on a CUDA device, the steps
     go in runs of that many (`chunk_keys`), and the runs of one source phase replay one
     captured CUDA graph (`kwave_tpu_torch.graphs`), as the JAX package's loop is one
-    program; the state then lives in the graphs' static buffers. On a mesh every shard's
-    fields must lie on that one device (`parallel.Mesh.graph_device`), and the graph
-    holds the pencil FFT's trades. On the CPU the argument changes nothing."""
+    program; the state then lives in the graphs' static buffers. On a mesh the graph
+    holds every shard's steps and the pencil FFT's trades, on one card or across the
+    shards' cards (`graph_devices`; the caller passes ``graph_steps`` where
+    `parallel.Mesh.graph_devices` says so). On the CPU the argument changes nothing."""
     if graph_steps is not None and sample_fn is not None:
         raise ValueError("graph_steps takes no sample_fn")
 
@@ -607,8 +622,8 @@ def make_simulate_fn(ops: Operators, src: Sources, cfg: SolverConfig, n_steps: i
     def run(state: SimState, t0: int = 0):
         nonlocal graphs
         t0 = int(t0)
-        device = None if graph_steps is None else graph_device(state)
-        if device is None:
+        devices = None if graph_steps is None else graph_devices(state)
+        if devices is None:
             state, rows = steps(state, t0, n_steps)
             return state, (_stack(rows) if rows else None)
         from kwave_tpu_torch.graphs import Graphs, graph_actions
@@ -623,7 +638,7 @@ def make_simulate_fn(ops: Operators, src: Sources, cfg: SolverConfig, n_steps: i
             state, _ = steps(state, t, n)
             if action == "capture":
                 if graphs is None:
-                    graphs = Graphs(device)
+                    graphs = Graphs(devices)
 
                 def body(static, t_dev, like=before, n=n, key=key):
                     after, _ = steps(with_state_tensors(like, static), t_dev, n, key)

@@ -1308,7 +1308,7 @@ def _cuda_mesh(s):
     from kwave_tpu_torch.parallel import make_mesh
 
     mesh = make_mesh(s, devices=["cuda:0"] * s)
-    assert mesh.graph_device == torch.device("cuda", 0)
+    assert mesh.graph_devices == (torch.device("cuda", 0),) * s
     return mesh
 
 
@@ -1402,7 +1402,7 @@ def test_mesh_graph_windows_over_nccl_at_world_size_1():
     try:
         mesh = make_mesh()
         assert isinstance(mesh.comm, ProcessGroup) and mesh.comm.backend == "nccl"
-        assert mesh.graph_device == torch.device("cuda", 0)
+        assert mesh.graph_devices == (torch.device("cuda", 0),)
         data = _graph_input((24, 24, 24), 24 + 8 * GRAPH_O + 3)
         acts, launches = _hold_graphs_to_eager(
             data, ["--p_raw", "--p_c", "--40-bit_complex", "--p_max_all", "-s", "25"],
@@ -1432,3 +1432,154 @@ def test_mesh_graph_windows_over_nccl_under_the_watchdog_settings(env):
         env=dict(os.environ, **{key: value}), capture_output=True, text=True, timeout=600,
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     assert done.returncode == 0 and "1 passed" in done.stdout, done.stdout[-3000:]
+
+
+# ---------------------------------------------------------------------------
+# The in-process mesh over several cards (``--devices N``) as one device program: one
+# CUDA graph a window spans the cards, the trades' peer copies inside it. Each test
+# skips unless the machine has the cards it names.
+# ---------------------------------------------------------------------------
+
+CARDS_FLAGS = ["--p_raw", "--p_c", "--40-bit_complex", "--p_max_all", "--p_final"]
+
+
+def _cards_mesh(n):
+    """`make_mesh(n)`: one shard a card, on cuda:0 .. cuda:n-1 (or a skip)."""
+    from kwave_tpu_torch.parallel import make_mesh
+
+    require_cuda()
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} cards; {torch.cuda.device_count()} present")
+    mesh = make_mesh(n)
+    assert mesh.graph_devices == tuple(torch.device("cuda", k) for k in range(n))
+    return mesh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 2])
+@pytest.mark.parametrize("flags", MESH_GRAPH_FLAGS, ids=MESH_GRAPH_IDS)
+def test_cards_graph_windows_equal_eager_windows(flags, n):
+    """The four window-encode variants on n cards at 24^3, 8 windows and a 3-step
+    tail: the windows as planned (0 eager, 1 and 2 captured, 3-7 replayed), bit for bit
+    the eager run, each card's kernel launched once a window and for the tail."""
+    from kwave_tpu_torch import driver, solver
+
+    data = _graph_input((24, 24, 24), 8 * GRAPH_O + 3)
+    acts, launches = _hold_graphs_to_eager(data, flags, min_replays=5, mesh=_cards_mesh(n))
+    plan = driver.plan_windows(solver.SolverConfig(), GRAPH_O, 0, 8)
+    assert acts == [(t, a) for t, _, a in plan]
+    variant = MESH_GRAPH_IDS[MESH_GRAPH_FLAGS.index(flags)]
+    assert launches[variant] == 9 * n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 2])
+def test_cards_graph_windows_against_one_device_and_shards_of_one_card(n):
+    """The graph run on n cards, 4 windows and a 5-step tail, equals the graph run on n
+    shards of cuda:0 bit for bit (the same kernels on the same shapes; the trades are
+    copies either way), launches too, and holds p, p_max_all and p_final of one device
+    to the mesh's tolerance: rtol 2e-5, atol 2e-6 of each one's peak (p_final 5e-6)."""
+    from kwave_tpu_torch import driver, solver
+
+    data = _graph_input((24, 24, 24), 4 * GRAPH_O + 5)
+    cards, n_cards, acts, _ = _graph_run(data, CARDS_FLAGS, True, mesh=_cards_mesh(n))
+    plan = driver.plan_windows(solver.SolverConfig(), GRAPH_O, 0, 4)
+    assert acts == [(t, a) for t, _, a in plan] and acts[-1][1] == "replay"
+    shards, n_shards, _, _ = _graph_run(data, CARDS_FLAGS, True, mesh=_cuda_mesh(n))
+    _same_outputs(cards, shards)
+    assert n_cards == n_shards
+    one, _, _, _ = _graph_run(data, CARDS_FLAGS, True)
+    for name, atol in (("p", 2e-6), ("p_max_all", 2e-6), ("p_final", 5e-6)):
+        a, b = (np.asarray(x[name].data, np.float64) for x in (one, cards))
+        np.testing.assert_allclose(b, a, rtol=2e-5, atol=atol * np.abs(a).max(),
+                                   err_msg=name)
+
+
+@pytest.mark.cuda
+def test_cards_graph_windows_fold_the_whole_domain_and_replay_the_lead_in():
+    """p_max_all, p_min_all and u_max_all folded on 4 cards in replayed windows, after a
+    lead-in of 20 steps (-s 21) whose runs of 8 replay too."""
+    data = _graph_input((24, 24, 24), 20 + 6 * GRAPH_O + 5)
+    _hold_graphs_to_eager(data, ["--p_raw", "--p_c", "--p_max_all", "--p_min_all",
+                                 "--u_max_all", "--p_rms", "-s", "21"], min_replays=3,
+                          mesh=_cards_mesh(4))
+
+
+@pytest.mark.cuda
+def test_cards_graph_windows_of_a_card_without_sensors():
+    """Every sensor in card 0's slab: the other three cards encode nothing in the
+    captured windows either, so the 40-bit kernel runs once a window and for the tail."""
+    data = _graph_input((24, 24, 24), 8 * GRAPH_O + 3)
+    data.sensor_mask_index = np.sort(np.random.default_rng(3).choice(
+        6 * 24 * 24, 256, replace=False)).astype(np.int64)
+    _, launches = _hold_graphs_to_eager(data, ["--p_raw", "--p_c", "--40-bit_complex"],
+                                        min_replays=5, mesh=_cards_mesh(4))
+    assert launches["w40_overlap"] == 9
+
+
+@pytest.mark.cuda
+def test_cards_graph_windows_in_two_legs_equal_one_eager_run():
+    """Two legs on 4 cards (a checkpoint after 48 steps), each with its windows replayed
+    where the plan allows, equal one eager run of the whole record bit for bit."""
+    from chip_smoke import MemGroup
+
+    flags = ["--p_raw", "--p_c", "--40-bit_complex", "--p_max_all"]
+    data = _graph_input((24, 24, 24), 12 * GRAPH_O + 5)
+    one, n_one, _, _ = _graph_run(data, flags, False, mesh=_cards_mesh(4))
+    out, ckpt = MemGroup(), MemGroup()
+    _, n1, acts1, s1 = _graph_run(data, flags, True, out=out, checkpoint_file=ckpt,
+                                  checkpoint_interval_steps=6 * GRAPH_O, mesh=_cards_mesh(4))
+    assert s1["__checkpointed_at__"] == (6 * GRAPH_O,)
+    _, n2, acts2, _ = _graph_run(data, flags, True, out=out, resume_from=ckpt,
+                                 checkpoint_file=MemGroup(), mesh=_cards_mesh(4))
+    _same_outputs(one, out)
+    assert {k: n1[k] + n2[k] for k in n1} == n_one
+    assert [a for _, a in acts1] == ["eager", "capture", "capture", "replay", "replay",
+                                     "replay"]
+    assert [a for _, a in acts2] == ["capture", "capture", "replay", "replay", "replay",
+                                     "replay"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 2])
+def test_cards_graph_of_a_pencil_program_keeps_its_memory_apart(n):
+    """`graphs.Graphs` over n cards on a state-carrying program of the pencil FFT (peer
+    copies in both trades) and a signal read at the time index of each shard: five
+    replays equal five eager steps bit for bit, and tensors made eagerly on every card
+    after the capture keep their values through the replays, the allocator's cache
+    emptied between them (each card's allocations during the capture lie in the graphs'
+    own pools, which the graphs hold)."""
+    from kwave_tpu_torch.graphs import Graphs
+    from kwave_tpu_torch.parallel import Sharded, field_sharding, replicated
+    from kwave_tpu_torch.parallel.fft import dist_irfftn, dist_rfftn, spectral_sharding
+
+    mesh = _cards_mesh(n)
+    m, steps = 32, 5
+    rng = np.random.default_rng(5)
+    x0 = rng.standard_normal((m, m, m)).astype(np.float32)
+    kern = spectral_sharding(mesh, np.exp(-rng.random((m, m, m // 2 + 1))).astype(
+        np.complex64))
+    signal = replicated(mesh, rng.standard_normal(steps).astype(np.float32))
+
+    def step(x, t):
+        y = dist_irfftn(dist_rfftn(x, mesh) * kern, m, mesh)
+        return y * 0.5 + x * signal.index_select(0, torch.clamp(t, max=steps - 1).reshape(1))
+
+    x = field_sharding(mesh, x0)
+    for t in range(steps):
+        x = step(x, Sharded([torch.tensor(t, device=d) for d in mesh.devices]))
+    want = [s.cpu() for s in x.shards]
+    graphs = Graphs(mesh.devices)
+    start = field_sharding(mesh, x0).shards
+    graphs.capture("step", start, lambda static, t: (step(Sharded(static), t).shards, None))
+    assert [p.use_count() for p in graphs._pools] == [1] * (n - 1)  # held by the graphs
+    torch.cuda.empty_cache()  # frees no block of the graphs' pools
+    witness = [torch.full((1 << 20,), float(k + 1), device=d)
+               for k, d in enumerate(mesh.devices)]
+    state = start
+    for t in range(steps):
+        state, _ = graphs.replay("step", state, t)
+        torch.cuda.empty_cache()
+    assert all(torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+               for a, b in zip(state, want))
+    assert all(bool((w == k + 1).all()) for k, w in enumerate(witness))

@@ -13,7 +13,7 @@ p_c bytes equal the oracle's encoding of the port's own p series.
 of `tests/test_torch_window.py` (the captured Python replayed eagerly): replayed windows
 and a replayed lead-in equal eager ones bit for bit, in the fields, every shard's counters
 and emissions and p_max_all, a shard without sensors included.
-(c) `Mesh.graph_device` for each kind of mesh, and a mesh without one running eagerly.
+(c) `Mesh.graph_devices` for each kind of mesh, and a mesh without them running eagerly.
 (d) The ranks' plans held equal. (e) `state_tensors` round-tripping a `Sharded` state,
 and a tensor time index on sharded fields giving the integer path's bits.
 """
@@ -152,7 +152,7 @@ def _hold(got, want, what):
 def test_sharded_window_matches_the_jax_window_on_its_mesh(mode40):
     jops, jems, jstate, jstates = _jax_windows(mode40)
     first, rest, state, states, split = _port_setup(jops, mode40)
-    assert first.graphs is None and rest.graphs is None  # a CPU mesh: no graph_device
+    assert first.graphs is None and rest.graphs is None  # a CPU mesh: no graph_devices
     ems = []
     for w in range(2):
         state, states, em = (first if w == 0 else rest)(state, states, w * O)
@@ -251,7 +251,7 @@ class CountingGraphs(EagerGraphs):
 
 def test_a_mesh_run_replays_its_windows_and_lead_in_as_eager_ones(jax_ops, monkeypatch,
                                                                   tmp_path):
-    """`run_simulation` on a 4-shard mesh whose `graph_device` is made the CPU, with the
+    """`run_simulation` on a 4-shard mesh whose `graph_devices` are made the CPU, with the
     stand-in for the graphs: a lead-in of 24 steps (-s 25, its runs of 8 replayed from
     the third on) and 6 windows (p_max_all folded in replayed ones) give the file of the
     run with every window eager, bit for bit, and the windows run as planned."""
@@ -277,10 +277,10 @@ def test_a_mesh_run_replays_its_windows_and_lead_in_as_eager_ones(jax_ops, monke
             out = {k: np.asarray(f[k]) for k in ("p", "p_c", "p_max_all")}
         return out, [a for w in log for a in w.actions]
 
-    eager, eager_acts = run(True, tmp_path / "eager.h5")  # no graph_device: eager
+    eager, eager_acts = run(True, tmp_path / "eager.h5")  # no graph_devices: eager
     assert all(a == "eager" for _, a in eager_acts)
-    monkeypatch.setattr(Mesh, "graph_device", property(lambda self: torch.device("cpu")))
-    monkeypatch.setattr(step_mod, "graph_device", lambda state: torch.device("cpu"))
+    monkeypatch.setattr(Mesh, "graph_devices", property(lambda self: tuple(self.devices)))
+    monkeypatch.setattr(step_mod, "graph_devices", lambda state: torch.device("cpu"))
     monkeypatch.setattr(driver, "Graphs", CountingGraphs)
     monkeypatch.setattr(graphs, "Graphs", CountingGraphs)
     CountingGraphs.replays = {}
@@ -298,7 +298,7 @@ def test_a_mesh_run_replays_its_windows_and_lead_in_as_eager_ones(jax_ops, monke
 
 
 # ---------------------------------------------------------------------------
-# (c) Mesh.graph_device, (d) the ranks' plans, (e) sharded state tensors
+# (c) Mesh.graph_devices, (d) the ranks' plans, (e) sharded state tensors
 # ---------------------------------------------------------------------------
 
 
@@ -309,15 +309,18 @@ def _process_group(backend, devices):
 
 
 def test_graph_device_of_each_kind_of_mesh():
+    """Every in-process mesh on cards, over one card or several, and an NCCL rank are
+    graphed on their shards' devices (in shard order); the CPU and gloo run eagerly."""
     cuda0 = torch.device("cuda", 0)
-    assert make_mesh(S, devices=["cpu"] * S).graph_device is None
-    assert Mesh([cuda0] * 4, InProcess(4), 4, [0, 1, 2, 3]).graph_device == cuda0
-    assert Mesh([cuda0], InProcess(1), 1, [0]).graph_device == cuda0
+    assert make_mesh(S, devices=["cpu"] * S).graph_devices == ()
+    assert Mesh([cuda0] * 4, InProcess(4), 4, [0, 1, 2, 3]).graph_devices == (cuda0,) * 4
+    assert Mesh([cuda0], InProcess(1), 1, [0]).graph_devices == (cuda0,)
     two_cards = [cuda0, torch.device("cuda", 1)]
-    assert Mesh(two_cards, InProcess(2), 2, [0, 1]).graph_device is None
-    assert Mesh(two_cards * 2, InProcess(4), 4, [0, 1, 2, 3]).graph_device is None
-    assert _process_group("nccl", ["cuda:0"]).graph_device == cuda0
-    assert _process_group("gloo", ["cpu"]).graph_device is None
+    assert Mesh(two_cards, InProcess(2), 2, [0, 1]).graph_devices == tuple(two_cards)
+    assert Mesh(two_cards * 2, InProcess(4), 4, [0, 1, 2, 3]).graph_devices == \
+        tuple(two_cards * 2)
+    assert _process_group("nccl", ["cuda:0"]).graph_devices == (cuda0,)
+    assert _process_group("gloo", ["cpu"]).graph_devices == ()
 
 
 def test_a_gloo_process_group_mesh_has_no_graph_device():
@@ -335,7 +338,7 @@ def test_a_gloo_process_group_mesh_has_no_graph_device():
     try:
         mesh = make_mesh()
         assert isinstance(mesh.comm, ProcessGroup) and mesh.comm.backend == "gloo"
-        assert mesh.graph_device is None
+        assert mesh.graph_devices == ()
         graphs.check_plans_agree(mesh.comm.all_gather(driver.plan_windows(
             solver.SolverConfig(), O, 0, 6)))
     finally:
