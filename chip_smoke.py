@@ -170,8 +170,11 @@ the final ok line):
    phase 11 (a)'s 256^3 input on 4 shards of cuda:0 in one process, then through a
    process group of one over NCCL, each as a cell of phase 12 (13 windows and a 5-step
    tail, eager, graphs, graphs, eager; bit for bit, equal launches, the windows as
-   planned; warm and device ms/step, idle share, capture per key, peak memory). The
-   `kernels` line's ``launches_mesh_graph_path`` is its count of each window kernel.
+   planned; warm and device ms/step, idle share, capture per key, peak memory); then that
+   group with 2 shards of cuda:0 (C = 2 shards a rank: one slot group a shard, split from
+   the default group), eager and with graphs in turns, bit for bit to 2 shards of cuda:0
+   in one process, its K1a launches printed. The `kernels` line's
+   ``launches_mesh_graph_path`` is the phase's count of each window kernel.
 Then one JSON line with every kernel's numbers (its time beside its bound: the larger of
 its bytes over 3.35 TB/s and its fp32 operations over 67 TFLOP/s; for the 40-bit kernels
 also ``issue_ms``, the machine instructions that this run's build spends on their steps,
@@ -194,7 +197,13 @@ phase 11 (a)'s input at 256^3 and 512^3, 13 windows and a 5-step tail, as N proc
 over NCCL, one card each, with every window eager and with graphs in turns (eager,
 graphs, graphs, eager; the graph run equal to the eager one bit for bit, launches
 equal), held to card 0 alone (run both ways too), with warm and simulation-phase
-ms/step of each run.
+ms/step of each run. With ``--cards-per-process C`` (N x C cards) each process drives C
+cards (the JAX package's multi-process mesh, P processes x C local devices): each rank
+reads both grids as ``--mesh-cards`` reads them (eager and graphs in turns, bit for bit;
+warm, simulation-phase and replayed device ms/step, idle share, capture per key, one
+trade) and saves phase 11 (a)'s 37 steps at 256^3, which N x C one-card processes save
+too; this process holds both, bit for bit, to ``--devices N x C`` in one process and to
+N x C shards of cuda:0.
 
 ``python3 chip_smoke.py --mesh-cards N`` (N cards) runs none of the phases either: the
 in-process mesh over N cards that ``--devices N`` builds (one shard a card, the trades
@@ -2489,6 +2498,7 @@ def mesh_phase(smi):
     part(q_run)
 
     def nccl():  # (d) the process communicator at world size 1 over NCCL
+        one_shard = _mesh(1)  # made first: under a process group the mesh is the group's
         initialize(f"localhost:{_free_port()}", 1, 0, "cuda")
         try:
             _require(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
@@ -2507,7 +2517,7 @@ def mesh_phase(smi):
                   f"device {ms_step.get(0, float('nan')):.3f} ({smi})", flush=True)
             errs = _hold_mesh_run(outs[0], out, "NCCL world 1")
             differ = _same_bits(outs[1], out)
-            for name, mesh in (("NCCL world 1", pg), ("S=1 in one process", _mesh(1))):
+            for name, mesh in (("NCCL world 1", pg), ("S=1 in one process", one_shard)):
                 dev_ms, top, _, host = _profile_window(data, MESH_FLAGS, host_top=6,
                                                        mesh=mesh, **compact)
                 print(f"[11 mesh] (d) profile, {name}, one {O_SIZE}-step run with its "
@@ -2787,8 +2797,10 @@ def mesh_graph_phase(smi):
     of cuda:0 in one process, then through a process group of one over NCCL, each as
     phase 12's cell (`_graph_cell`: 13 windows and a 5-step tail, eager, graphs, graphs,
     eager; bit for bit, equal launches, the windows as planned; warm and device ms/step,
-    idle share, capture per key, peak memory). Returns the graph runs' launches by
-    `encode_window.LAUNCHES` key."""
+    idle share, capture per key, peak memory); then that group with 2 shards of cuda:0
+    (C = 2: one slot group a shard, each split from the default group), eager and with
+    graphs in turns (`_turns`), bit for bit to 2 shards of cuda:0 in one process.
+    Returns the graph runs' launches by `encode_window.LAUNCHES` key."""
     import gc
 
     import torch
@@ -2796,6 +2808,7 @@ def mesh_graph_phase(smi):
 
     from kwave_tpu_torch.ops import encode_window as ew
     from kwave_tpu_torch.parallel import make_mesh
+    from kwave_tpu_torch.parallel.comm import ProcessGroup
     from kwave_tpu_torch.parallel.distributed import initialize
 
     print(f"[13 mesh graph] card {smi}", flush=True)
@@ -2808,6 +2821,32 @@ def mesh_graph_phase(smi):
                       MESH_FLAGS, compact, mesh=mesh, tag="[13 mesh graph]",
                       profile_windows=MESH_GRAPH_PROFILE_WINDOWS)
     launches = {k: got["counts"][k] for k in ew.LAUNCHES}
+    data = _input(GRAPH_WINDOWS * O_SIZE + GRAPH_TAIL, BIG_N)
+    # made before the group: under one make_mesh builds the group's mesh
+    in_process, _, _, _ = _run(MESH_FLAGS, GRAPH_WINDOWS, GRAPH_TAIL, data=data,
+                               mesh=_mesh(2), **compact)
+
+    def slots():  # C = 2 shards of cuda:0 under the group of one
+        two = make_mesh(2, devices=["cuda:0"] * 2)
+        _require(isinstance(two.comm, ProcessGroup) and two.comm.local == 2
+                 and two.shard_ids == [0, 1]
+                 and two.graph_devices == (torch.device("cuda", 0),) * 2,
+                 f"{two}: graphs on {two.graph_devices}")
+        res = _turns(data, two)
+        differ = _same_bits(res["outs"][False], res["outs"][True])
+        differ_one = _same_bits(res["outs"][True], in_process)
+        counts = res["counts"][True]
+        print(f"[13 mesh graph] {BIG_N}^3, NCCL at world size 1 with 2 shards of cuda:0 "
+              f"({two}): graphs == eager bit for bit ({differ or 'equal'}), launches equal; "
+              f"== 2 shards of cuda:0 in one process ({differ_one or 'equal'}); windows "
+              f"{res['acts']}; K1a (w40_overlap) launches {counts['w40_overlap']}; warm "
+              f"ms/step eager {res['warm'][False]}, graph {res['warm'][True]}; simulation "
+              f"phase ms/step eager {res['sim'][False]}, graph {res['sim'][True]}",
+              flush=True)
+        _require(not differ and not differ_one, f"C = 2 on cuda:0: graphs differ from eager "
+                 f"in {differ}, from one process in {differ_one}")
+        return counts
+
     initialize(f"localhost:{_free_port()}", 1, 0, "cuda")
     try:
         pg = make_mesh()
@@ -2816,13 +2855,15 @@ def mesh_graph_phase(smi):
         got = _graph_cell(f"{BIG_N}^3, NCCL at world size 1", shape, MESH_FLAGS, compact,
                           mesh=pg, tag="[13 mesh graph]",
                           profile_windows=MESH_GRAPH_PROFILE_WINDOWS)
+        two_counts = slots()
     finally:
         gc.collect()  # the graphs that hold NCCL's trades go before its communicator
         torch.cuda.synchronize()
         dist.destroy_process_group()
     for k in launches:
-        launches[k] += got["counts"][k]
-    _require(launches["w40_overlap"] > 0, f"phase 13: launches {launches}")
+        launches[k] += got["counts"][k] + two_counts[k]
+    _require(launches["w40_overlap"] > 0 and two_counts["w40_overlap"] > 0,
+             f"phase 13: launches {launches}, C = 2 {two_counts}")
     return launches
 
 
@@ -2881,14 +2922,18 @@ def _differ_from_saved(out, path: Path) -> list[str]:
             np.ascontiguousarray(saved[k]).view(np.uint8))]
 
 
-def _rank_phase(rank: int, world: int, port: int, save_to: Path | None = None) -> int:
+def _rank_phase(rank: int, world: int, port: int, save_to: Path | None = None,
+                per: int = 1) -> int:
     """One rank of ``--mesh-processes``: phase 11 (a)'s input at each of CARDS_GRIDS through
-    `run_simulation` on a mesh of one shard a process (NCCL, card ``rank``): 13 windows
-    and a tail eager and with graphs in turns (`_turns`; rank 0 holds the graph run to
-    the eager one bit for bit), then phase 11 (a)'s run of 2 windows and the tail, which
-    rank 0 holds to the same run on its card alone (the check's tolerances are read at
-    that length, module docstring phase 11). With ``save_to`` (``--mesh-cards``) only
-    that last run at BIG_N, whose output rank 0 saves there (`_save_outputs`)."""
+    `run_simulation` on a mesh of ``per`` shards a process (NCCL, cards rank·per ..
+    rank·per + per - 1). With one card a process: 13 windows and a tail eager and with
+    graphs in turns (`_turns`; rank 0 holds the graph run to the eager one bit for bit),
+    then phase 11 (a)'s run of 2 windows and the tail, which rank 0 holds to the same run
+    on its card alone (the check's tolerances are read at that length, module docstring
+    phase 11); with ``save_to`` (``--mesh-cards``) only that last run at BIG_N, whose
+    output rank 0 saves there (`_save_outputs`). With several (``--cards-per-process``):
+    each grid as `_cards_cell` and one trade (`_cards_trade`), then that last run, saved
+    by rank 0 where ``save_to`` is given."""
     import dataclasses
 
     import torch
@@ -2897,16 +2942,33 @@ def _rank_phase(rank: int, world: int, port: int, save_to: Path | None = None) -
     from kwave_tpu_torch.parallel import make_mesh
     from kwave_tpu_torch.parallel.distributed import initialize
 
-    initialize(f"localhost:{port}", world, rank, "cuda")
+    initialize(f"localhost:{port}", world, rank, "cuda", cards=per)
     try:
-        mesh = make_mesh()
-        _require(mesh.graph_devices == (torch.device("cuda", rank),),
+        mesh = make_mesh(world * per)
+        _require(mesh.graph_devices == tuple(torch.device("cuda", rank * per + k)
+                                             for k in range(per)),
                  f"{mesh}: graphs on {mesh.graph_devices}")
-        if save_to is not None:
+        if per > 1:
+            _, smi = device_phase()
+            launches = 0
+            for n in CARDS_GRIDS:
+                res = _cards_cell(n, mesh, smi)
+                launches += res["counts"][True]["w40_overlap"]
+                del res
+                torch.cuda.empty_cache()
+                ms, cross = _cards_trade(mesh, n)
+                print(f"[cards x {per}] {n}^3: one z-for-y trade over the {mesh.size} "
+                      f"shards {ms:.4f} ms (replayed; rank {rank}), {cross / 1e6:.1f} MB "
+                      f"across cards, {cross / ms / 1e6:.1f} GB/s", flush=True)
+                torch.cuda.empty_cache()
+            print(f"[cards x {per}] rank {rank}: K1a (w40_overlap) launches in the graph "
+                  f"runs {launches}", flush=True)
+            _require(launches > 0, f"rank {rank}: no K1a launch")
+        if save_to is not None or per > 1:
             data = _input(MESH_WINDOWS * O_SIZE + MESH_TAIL, BIG_N)
             out, _, _, _ = _run(MESH_FLAGS, MESH_WINDOWS, MESH_TAIL, data=data, mesh=mesh,
                                 compact_operators=True)
-            if rank == 0:
+            if rank == 0 and save_to is not None:
                 _save_outputs(out, save_to)
             mesh.comm.barrier()
             return 0
@@ -2965,9 +3027,9 @@ CARDS_SECONDS = 1500  # --mesh-processes: the ranks' time, all grids
 
 def _spawn_ranks(world: int, *extra: str) -> list[int]:
     """``world`` processes of this script as the ranks of one NCCL group (``--mesh-rank
-    R``, one card each, with ``extra`` arguments): every rank's output is printed, and
-    any rank's failure ends the other ranks at once (they would wait in a collective for
-    NCCL's timeout). Returns their exit codes."""
+    R``, one card each unless ``extra`` holds ``--cards-per-process``): every rank's
+    output is printed, and any rank's failure ends the other ranks at once (they would
+    wait in a collective for NCCL's timeout). Returns their exit codes."""
     import tempfile
 
     port = _free_port()
@@ -2995,17 +3057,50 @@ def _spawn_ranks(world: int, *extra: str) -> list[int]:
     return [p.returncode for p in procs]
 
 
-def cards_phase(world: int) -> int:
-    """``--mesh-processes N``: phase 11 (a) as N processes over NCCL, one card each (the
-    kernels built once first; `_spawn_ranks`)."""
+def cards_phase(world: int, per: int = 1) -> int:
+    """``--mesh-processes N [--cards-per-process C]``: phase 11 (a) as N processes over
+    NCCL, C cards each (the kernels built once first; `_spawn_ranks`). With C > 1 each
+    rank reads every grid as `_cards_cell` and one trade, and saves the 37-step run at
+    BIG_N; then N·C processes of one card save the same run (``--save-outputs``), and
+    this process holds both, bit for bit, to the in-process mesh over the N·C cards
+    (``--devices N·C``) and to N·C shards of cuda:0."""
+    import tempfile
+
     import torch
 
+    from kwave_tpu_torch import cli, params
+
     name, smi = device_phase()
-    have = torch.cuda.device_count()
-    _require(have >= world, f"--mesh-processes {world} needs {world} cards; {have} present")
+    need, have = world * per, torch.cuda.device_count()
+    _require(have >= need, f"--mesh-processes {world} x {per} cards needs {need} cards; "
+             f"{have} present")
     build_phase()
-    codes = _spawn_ranks(world)
-    _require(all(rc == 0 for rc in codes), f"ranks exited {codes}")
+    if per == 1:
+        codes = _spawn_ranks(world)
+        _require(all(rc == 0 for rc in codes), f"ranks exited {codes}")
+    else:
+        tmp = Path(tempfile.mkdtemp())
+        saved = {f"{world} processes x {per} cards": tmp / "cards.npz",
+                 f"{need} processes": tmp / "ranks.npz"}
+        for (what, path), ranks, extra in zip(saved.items(), (world, need),
+                                              (("--cards-per-process", str(per)), ())):
+            codes = _spawn_ranks(ranks, *extra, "--save-outputs", str(path))
+            _require(all(rc == 0 for rc in codes), f"{what}: ranks exited {codes}")
+        parser = params.build_parser()
+        cards = cli.mesh_from_args(parser, parser.parse_args(
+            ["-i", "-", "-o", "-", "--devices", str(need)]), torch.device("cuda"))
+        data = _input(MESH_WINDOWS * O_SIZE + MESH_TAIL, BIG_N)
+        compact = dict(compact_operators=True)
+        out, _, steps, _ = _run(MESH_FLAGS, MESH_WINDOWS, MESH_TAIL, data=data, mesh=cards,
+                                **compact)
+        shards, _, _, _ = _run(MESH_FLAGS, MESH_WINDOWS, MESH_TAIL, data=data,
+                               mesh=_mesh(need), **compact)
+        differ = {what: _differ_from_saved(out, path) for what, path in saved.items()}
+        differ[f"{need} shards of cuda:0"] = _same_bits(out, shards)
+        print(f"[cards x {per}] {BIG_N}^3, {steps} steps: --devices {need} in one process "
+              f"against " + "; ".join(f"{k}: differ in {v}" for k, v in differ.items()),
+              flush=True)
+        _require(not any(differ.values()), f"{world} x {per} cards: {differ}")
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),
@@ -3136,17 +3231,16 @@ def cards_probe(n_cards: int) -> dict:
 
 
 def _cards_cell(grid: int, mesh, smi: str) -> dict:
-    """One grid of ``--mesh-cards``: phase 11 (a)'s input at grid^3, GRAPH_WINDOWS
+    """One grid of ``--mesh-cards`` (and of ``--cards-per-process``, on each rank): phase
+    11 (a)'s input at grid^3, GRAPH_WINDOWS
     windows and a tail, eager and with graphs in turns on ``mesh`` (`_turns`): bit for
     bit, launches equal; prints warm and simulation-phase ms/step, device ms/step of a
     replayed window (CUDA events on card 0, where the graph over the cards ends), the
     idle share each way against it, capture + instantiate per key and the peak memory a
-    card. Returns the turns' results."""
+    card of this process. Returns the turns' results."""
     res = _turns(_input(GRAPH_WINDOWS * O_SIZE + GRAPH_TAIL, grid), mesh)
-    n = len(mesh.devices)
     differ = _same_bits(res["outs"][False], res["outs"][True])
-    _require(not differ, f"{grid}^3 on {n} cards in one process: graphs differ from "
-             f"eager in {differ}")
+    _require(not differ, f"{grid}^3 on {mesh}: graphs differ from eager in {differ}")
     graphs = res["window"].graphs
     device, _ = _replay_ms(graphs, profile=False)
     idle = {g: 1 - device / float(np.mean(res["warm"][g])) for g in (False, True)}
@@ -3156,8 +3250,9 @@ def _cards_cell(grid: int, mesh, smi: str) -> dict:
           f"steps, {' '.join(MESH_FLAGS)}, {mesh}: graphs == eager bit for bit, launches "
           f"equal ({ {k: v for k, v in res['counts'][True].items() if v} }); windows "
           f"{res['acts']}; warm ms/step eager {res['warm'][False]}, graph "
-          f"{res['warm'][True]}; simulation phase ms/step eager {res['sim'][False]}, graph "
-          f"{res['sim'][True]}; device ms/step of a replayed window (events) {device:.4f}; "
+          f"{res['warm'][True]}; simulation phase ms/step eager {res['sim'].get(False)}, "
+          f"graph {res['sim'].get(True)} (the writer's alone); device ms/step of a replayed "
+          f"window (events) {device:.4f}; "
           f"idle eager {idle[False]:.1%}, graph {idle[True]:.1%}; capture + instantiate "
           f"per key {capture} s; peak GiB allocated a card eager {peak[False]}, graph "
           f"{peak[True]}; card {smi}", flush=True)
@@ -3165,10 +3260,11 @@ def _cards_cell(grid: int, mesh, smi: str) -> dict:
 
 
 def _cards_trade(mesh, n: int, reps: int = 10) -> tuple[float, float]:
-    """One z-for-y trade of an n^3 spectrum over the in-process mesh's cards: (device
-    ms, from a graph of a round trip, z for y and back, captured with `graphs.Graphs` and
-    replayed ``reps`` times between CUDA events on card 0, where the graph ends; the
-    bytes that cross between cards in one trade)."""
+    """One z-for-y trade of an n^3 spectrum over the mesh's cards (this process's, and
+    the other ranks' over NCCL): (device ms, from a graph of a round trip, z for y and
+    back, captured with `graphs.Graphs` and replayed ``reps`` times between CUDA events
+    on this process's first card, where the graph ends; the bytes that cross between the
+    shards in one trade)."""
     import torch
 
     from kwave_tpu_torch.graphs import Graphs
@@ -3192,7 +3288,7 @@ def _cards_trade(mesh, n: int, reps: int = 10) -> tuple[float, float]:
             graphs.replay("trade", graphs.static, 0)
         end.record()
         torch.cuda.synchronize()
-    s = len(mesh.devices)
+    s = mesh.size
     return start.elapsed_time(end) / (2 * reps), xk.numel() * xk.element_size() * (s - 1) / s
 
 
@@ -3324,6 +3420,10 @@ def main(argv: list[str]) -> int:
     parser.add_argument("--mesh-processes", type=int, default=0, metavar="N",
                         help="instead of the phases: phase 11 (a) as N processes over "
                              "NCCL, one card each (needs N cards)")
+    parser.add_argument("--cards-per-process", type=int, default=1, metavar="C",
+                        help="with --mesh-processes N: each process drives C cards (needs "
+                             "N x C cards), held to N x C processes, --devices N x C and "
+                             "N x C shards of cuda:0")
     parser.add_argument("--mesh-cards", type=int, default=0, metavar="N",
                         help="instead of the phases: the in-process mesh over N cards "
                              "(--devices N), eager and as one CUDA graph across them "
@@ -3350,9 +3450,10 @@ def main(argv: list[str]) -> int:
     if args.main_path_readings:
         return readings_phase(args.main_path_readings, tree, args.main_path_windows)
     if args.mesh_rank is not None:
-        return _rank_phase(args.mesh_rank, args.mesh_processes, args.port, args.save_outputs)
+        return _rank_phase(args.mesh_rank, args.mesh_processes, args.port, args.save_outputs,
+                           args.cards_per_process)
     if args.mesh_processes:
-        return cards_phase(args.mesh_processes)
+        return cards_phase(args.mesh_processes, args.cards_per_process)
     if args.mesh_cards:
         return mesh_cards_phase(args.mesh_cards)
 

@@ -6,8 +6,9 @@ The device comes from ``KWAVE_TPU_TORCH_DEVICE`` (``cuda`` by default, ``cpu`` f
 tests); asking for CUDA where it is not available raises.
 
 On a mesh: ``--devices N`` z-shards the run over N cards of this process (N shards on the
-CPU); ``--coordinator HOST:PORT --num_processes N --process_id R`` (or ``--distributed``
-under torchrun) runs one shard a process, over NCCL on the card or gloo on the CPU.
+CPU); ``--coordinator HOST:PORT --num_processes P --process_id R`` (or ``--distributed``
+under torchrun) runs P processes, each with ``--devices`` / P shards (one without
+``--devices``) on as many of its host's cards over NCCL, or CPU shards over gloo.
 Process 0 alone writes the output file.
 """
 
@@ -71,32 +72,42 @@ def main(argv=None) -> int:
 def mesh_from_args(parser, args, device: torch.device):
     """The run's mesh from the mesh flags (None: one device), as `kwave_tpu.cli` builds
     it: a process group first when one is asked for (``--num_processes`` needs
-    ``--coordinator`` and ``--process_id``), whose mesh spans every rank (``--devices``,
-    when given, must equal the world size); else ``--devices N`` shards in this process,
-    on N cards, or N times the CPU."""
+    ``--coordinator`` and ``--process_id``), whose mesh spans every rank: ``--devices``
+    counts every process's devices, a multiple of the P processes (P by default), and
+    each process takes ``--devices`` / P of them (its cards, `initialize`'s ``cards``,
+    or that many CPU shards); else ``--devices N`` shards in this process, on N cards,
+    or N times the CPU."""
     import torch.distributed as dist
 
     from kwave_tpu_torch.parallel import make_mesh
     from kwave_tpu_torch.parallel.distributed import initialize
 
+    world = None  # the process group's size, known before it starts
     if args.num_processes is not None:
         if args.num_processes > 1 and (args.coordinator is None or args.process_id is None):
             parser.error("--num_processes requires --coordinator HOST:PORT and "
                          "--process_id R (or use bare --distributed under torchrun)")
         if args.coordinator is not None:
-            initialize(args.coordinator, args.num_processes, args.process_id, device)
+            world = args.num_processes
     elif args.distributed:
-        initialize(device=device)
-    if dist.is_initialized() and dist.get_world_size() > 1:
+        world = int(os.environ["WORLD_SIZE"])
+    if dist.is_initialized():  # a group the caller started
         world = dist.get_world_size()
-        if args.devices is not None and args.devices != world:
-            parser.error(f"--devices {args.devices} under a multi-process launch must equal "
-                         f"the number of processes ({world}): one shard a process")
-        return make_mesh()
-    if args.devices is not None and args.devices > 1:
-        return make_mesh(args.devices, devices=[device] * args.devices
-                         if device.type == "cpu" else None)
-    return None
+    n = args.devices if args.devices is not None else world or 1
+    if world is not None and n % world:
+        parser.error(f"--devices {n} under a multi-process launch must equal the global "
+                     f"device count: the {world} processes' local devices, the same "
+                     f"number each, so a multiple of {world}")
+    local = n // world if world is not None else n
+    if world is not None and not dist.is_initialized():
+        if args.num_processes is not None:
+            initialize(args.coordinator, args.num_processes, args.process_id, device,
+                       cards=local)
+        else:
+            initialize(device=device, cards=local)
+    if n == 1:
+        return None
+    return make_mesh(n, devices=[device] * local if device.type == "cpu" else None)
 
 
 def _run(args, device: torch.device, mesh) -> int:

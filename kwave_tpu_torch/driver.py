@@ -18,10 +18,11 @@ spectral transform is the pencil FFT; each shard samples and encodes the sensors
 own slab (the codec state is per sensor), and process 0 alone assembles the emissions in
 the mask's order (`parallel.distributed.WriterGather`) and writes the file. Where this
 process's shards lie on CUDA cards (`parallel.Mesh.graph_devices`: S shards in one
-process, on one card or on several, or one shard a rank over NCCL) the windows and the
-lead-in are CUDA graphs as on one card, each holding every shard's steps and the pencil
-FFT's trades (peer copies inside the one graph where the shards lie on several cards); a
-mesh on the CPU or under gloo runs its windows eagerly.
+process, on one card or on several, or C shards a rank over NCCL) the windows and the
+lead-in are CUDA graphs as on one card, each holding this process's shards' steps and the
+pencil FFT's trades (peer copies inside the one graph where the shards lie on several
+cards, and NCCL's all-to-alls, one a card, across processes); a mesh on the CPU or under
+gloo runs its windows eagerly.
 
 Covered: the lead-in before sampling starts (-s), the t==0 initial-pressure peel, the
 trailing partial window, the tiny-record lastStep rule, the auto no-overlap rule,
@@ -960,7 +961,7 @@ def run_simulation(data: InputData, run: RunConfig, output,
             )
             if multiproc and run.checkpoint_file is not None:
                 # every process stops at the same window: the first to reach its
-                # wall-time interval decides
+                # wall-time interval decides (one flag a process, not one a shard)
                 flag = torch.tensor([float(stop)], device=mesh.devices[0])
                 stop = bool(mesh.comm.all_reduce([flag], "max")[0].item())
             if stop:

@@ -23,8 +23,9 @@ again at every replay, so that the counters go on counting launches on the devic
 On a mesh whose shards in this process lie on CUDA cards (`parallel.Mesh.graph_devices`)
 the carried state is the flat list of every shard's tensors, and a graph holds the S
 shards' steps with the pencil FFT's trades: tensor copies in one process (peer copies
-where the shards lie on several cards, all in the one graph), or NCCL's all-to-all
-across processes. Then every rank must capture and replay the same keys in
+where the shards lie on several cards, all in the one graph), and across processes one
+NCCL all-to-all a card of this process (`parallel.comm.ProcessGroup`, each on its
+card's capturing stream). Then every rank must capture and replay the same keys in
 the same order, since a rank that replays while another runs eagerly (or captures alone)
 leaves its trades unmatched; the plans are pure functions of the run's configuration, and
 `check_plans_agree` holds them equal once a run, on the host.
@@ -92,8 +93,9 @@ class Graphs:
 
     Over several cards one graph holds them all: the capture begins on a side stream of
     the first card, each other card's side stream joins it by an event (and is that
-    card's current stream while the body runs, so its shards' ops and the peer copies
-    of the trades land in the graph, ordered by the copies' own events), and joins back
+    card's current stream while the body runs, so its shards' ops, the peer copies of
+    the trades and an NCCL all-to-all on its buffer land in the graph, ordered by their
+    own events), and joins back
     before the capture ends. The first card's allocations during a capture come from
     the graphs' private pool, each other card's from a `torch.cuda.MemPool` of its own
     that lives as long as this object, so that no eager allocation reuses the graphs'

@@ -5,8 +5,8 @@ The reference is strictly single-GPU (Readme.md:12). Here the solver fields are 
 over z into slabs (one a shard), every 3D transform is a pencil FFT whose transposes trade
 z for y between the shards, and the codec runs on each shard's own sensors; process 0
 writes the file. The shards live in one process (`make_mesh(n)`, or the same device listed
-n times) or one a rank of a `torch.distributed` process group
-(`parallel.distributed.initialize`, then `make_mesh()`).
+n times) or C a rank of a `torch.distributed` process group of P ranks
+(`parallel.distributed.initialize(..., cards=C)`, then `make_mesh(P * C)`).
 """
 
 from kwave_tpu_torch.parallel.mesh import (

@@ -1,7 +1,8 @@
 """Multi-process orchestration: process init, the sensor-block sharded encode, and the
 gathers to the writer (port of `kwave_tpu.parallel.distributed`).
 
-- `initialize` starts `torch.distributed` (NCCL for a CUDA run, gloo for a CPU run).
+- `initialize` starts `torch.distributed` (NCCL for a CUDA run, each rank on C of its
+  host's cards, `local_cards`; gloo for a CPU run).
 - `encode_sharded`: the codec's data parallelism. Sensors are split over the mesh and each
   shard encodes its block on its own device (the codec state is per sensor), with no
   communication.
@@ -33,15 +34,43 @@ from kwave_tpu_torch.parallel.mesh import Mesh, codec_sharding
 from kwave_tpu_torch.parallel.sharded import Sharded, shard_map
 
 
+def local_cards(local_rank: int, cards: int, visible: int) -> list[int]:
+    """The cards (indices among the ``visible`` ones) that a process of local rank
+    ``local_rank`` takes when each process drives ``cards`` of them: every card it sees
+    where it sees exactly that many (``CUDA_VISIBLE_DEVICES`` set a process), else cards
+    ``local_rank * cards`` to ``local_rank * cards + cards - 1``. Refuses where those are
+    not there."""
+    if cards < 1:
+        raise ValueError(f"a process takes at least one card; asked for {cards}")
+    if visible == cards:
+        return list(range(cards))
+    first = local_rank * cards
+    if first + cards > visible:
+        raise RuntimeError(f"local rank {local_rank} takes {cards} card(s) a process "
+                           f"(cards {first}..{first + cards - 1}), but this process sees "
+                           f"{visible}")
+    return list(range(first, first + cards))
+
+
 def initialize(coordinator: Optional[str] = None, num_processes: Optional[int] = None,
-               process_id: Optional[int] = None, device: torch.device | str = "cuda") -> int:
+               process_id: Optional[int] = None, device: torch.device | str = "cuda",
+               cards: int = 1) -> int:
     """Join the process group; returns this process's rank.
 
     With ``num_processes`` the group is ``tcp://coordinator`` of that many ranks, this one
     ``process_id``; without it, torchrun's environment (``env://``: RANK, WORLD_SIZE,
-    MASTER_ADDR, MASTER_PORT). The backend is NCCL when ``device`` is a CUDA device (each
-    rank takes card LOCAL_RANK, or its rank modulo the cards present) and gloo for the CPU;
-    nothing falls back from one to the other."""
+    MASTER_ADDR, MASTER_PORT). The backend is NCCL when ``device`` is a CUDA device and
+    gloo for the CPU; nothing falls back from one to the other.
+
+    Over NCCL the rank drives ``cards`` cards (C, the mesh's shards a rank), chosen by
+    `local_cards` for its local rank (LOCAL_RANK, else its rank modulo the processes a
+    host's cards make room for), and the first of them becomes the current card, which
+    `parallel.mesh.make_mesh` reads. With one card the default group is bound to it, so
+    that NCCL's communicator is made here and not at the run's first trade. With C > 1
+    the trades go over one group a card (`parallel.comm.ProcessGroup`), each bound to
+    its card when it is made; PyTorch refuses a group bound to another card than the
+    default group's, so the default group stays unbound and a barrier on the first card
+    makes its communicator here instead."""
     import torch.distributed as dist
 
     device = torch.device(device)
@@ -60,13 +89,17 @@ def initialize(coordinator: Optional[str] = None, num_processes: Optional[int] =
         rank, world, init = int(process_id), int(num_processes), f"tcp://{coordinator}"
     else:
         rank, world, init = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]), "env://"
-    bound = {}
+    bound, first = {}, None
     if backend == "nccl":
-        local = int(os.environ.get("LOCAL_RANK", rank % torch.cuda.device_count()))
-        torch.cuda.set_device(local)
-        # NCCL's communicator is made here, not at the run's first trade
-        bound = {"device_id": torch.device("cuda", local)}
+        visible = torch.cuda.device_count()
+        local = int(os.environ.get("LOCAL_RANK", rank % max(visible // cards, 1)))
+        first = torch.device("cuda", local_cards(local, cards, visible)[0])
+        torch.cuda.set_device(first)
+        if cards == 1:
+            bound = {"device_id": first}
     dist.init_process_group(backend, init_method=init, rank=rank, world_size=world, **bound)
+    if first is not None and not bound:
+        dist.barrier(device_ids=[first.index])
     return dist.get_rank()
 
 

@@ -2,8 +2,8 @@
 `kwave_tpu.parallel.mesh`).
 
 - A `Mesh` is the ordered list of this process's shards' devices plus a communicator
-  (`parallel.comm`): all S shards in one process (`InProcess`), or one shard a rank of a
-  `torch.distributed` process group (`ProcessGroup`).
+  (`parallel.comm`): all S shards in one process (`InProcess`), or C shards on each of
+  the P ranks of a `torch.distributed` process group (`ProcessGroup`, S = P·C).
 - Solver fields ``[nz, ny, nx]`` are split over z (the leading, non-reduced axis) into S
   slabs; spectral arrays live y-sharded (`parallel.fft`); codec sensor blocks split the
   sensor axis. Per-axis vectors and static scalars replicate, one tensor per device.
@@ -44,8 +44,9 @@ class Mesh:
         its lead-in are captured as CUDA graphs (`kwave_tpu_torch.graphs`): every shard
         on a CUDA card, trading by tensor copies (`InProcess`: on one card, or across
         several, whose peer copies the one graph then holds) or over NCCL (a
-        `ProcessGroup` of one shard a rank). Empty for a mesh on the CPU and under gloo,
-        whose windows run eagerly."""
+        `ProcessGroup`: the graph holds the rank's C shards, their peer copies and one
+        NCCL all-to-all a card). Empty for a mesh on the CPU and under gloo, whose windows
+        run eagerly."""
         if any(d.type != "cuda" for d in self.devices):
             return ()
         if isinstance(self.comm, InProcess) or getattr(self.comm, "backend", None) == "nccl":
@@ -53,35 +54,57 @@ class Mesh:
         return ()
 
     def __str__(self) -> str:
-        kind = "in one process" if isinstance(self.comm, InProcess) else \
-            f"{self.comm.n_processes} processes"
-        return f"{self.size} shards ({kind}) on {', '.join(map(str, self.devices))}"
+        where = ", ".join(map(str, self.devices))
+        if isinstance(self.comm, InProcess):
+            return f"{self.size} shards (in one process) on {where}"
+        p = self.comm.n_processes
+        return (f"{self.size} shards ({p} process{'es' if p > 1 else ''} x "
+                f"{len(self.devices)}; rank {self.comm.rank}'s on {where})")
 
 
 def make_mesh(n_devices: Optional[int] = None,
               devices: Optional[Sequence[torch.device | str]] = None) -> Mesh:
     """A 1-axis mesh of ``n_devices`` shards.
 
-    Under an initialized `torch.distributed` process group the mesh is one shard a rank
-    (``n_devices``, when given, must equal the world size) on this rank's device: the
-    current card for NCCL, the CPU for gloo. Otherwise all shards live in this process, on
-    ``devices`` when given (a device may be listed more than once: its shards then share
-    it) or on ``cuda:0`` .. ``cuda:n-1``, which must exist; nothing falls back to the CPU
-    or stacks shards on one card unasked."""
+    Under an initialized `torch.distributed` process group of P ranks the mesh spans
+    every rank, as the JAX package's spans every process's local devices
+    (`kwave_tpu/parallel/mesh.py:29-35`): rank r holds shards r·C .. r·C + C - 1 on C
+    devices of its own, ``devices`` when given (a device may be listed more than once),
+    else C = ``n_devices`` / P (1 by default; ``n_devices`` must be a multiple of P) on
+    the current card and the C - 1 after it for NCCL (those that
+    `parallel.distributed.initialize(..., cards=C)` took), or C times the CPU for gloo.
+    Otherwise all shards live in this process, on ``devices`` when given or on
+    ``cuda:0`` .. ``cuda:n-1``, which must exist; nothing falls back to the CPU or stacks
+    shards on one card unasked."""
     import torch.distributed as dist
 
-    in_group = dist.is_available() and dist.is_initialized()
-    if in_group and (dist.get_world_size() > 1
-                     or (devices is None and n_devices in (None, 1))):
-        world = dist.get_world_size()
-        if n_devices is not None and n_devices != world:
-            raise ValueError(f"a mesh of {n_devices} shards under a process group of "
-                             f"{world} ranks: one shard a rank")
-        if dist.get_backend() == "nccl":
-            device = torch.device("cuda", torch.cuda.current_device())
+    if dist.is_available() and dist.is_initialized():
+        world, rank = dist.get_world_size(), dist.get_rank()
+        kind = "cuda" if dist.get_backend() == "nccl" else "cpu"
+        if devices is not None:
+            devices = [torch.device(d) for d in devices]
+            if n_devices is not None and n_devices != world * len(devices):
+                raise ValueError(f"a mesh of {n_devices} shards under a process group of "
+                                 f"{world} ranks with {len(devices)} devices a rank")
         else:
-            device = torch.device("cpu")
-        return Mesh([device], ProcessGroup(), world, [dist.get_rank()])
+            n = world if n_devices is None else n_devices
+            if n < world or n % world:
+                raise ValueError(f"a mesh of {n} shards under a process group of {world} "
+                                 f"ranks: each rank takes the same number of shards")
+            if kind == "cuda":
+                first = torch.cuda.current_device()
+                if first + n // world > torch.cuda.device_count():
+                    raise RuntimeError(f"{n // world} cards a rank from cuda:{first}; "
+                                       f"{torch.cuda.device_count()} present")
+                devices = [torch.device("cuda", first + k) for k in range(n // world)]
+            else:
+                devices = [torch.device("cpu")] * (n // world)
+        if any(d.type != kind for d in devices):
+            raise ValueError(f"a {dist.get_backend()} process group trades {kind} "
+                             f"tensors; shards listed on {', '.join(map(str, devices))}")
+        c = len(devices)
+        return Mesh(devices, ProcessGroup(devices), world * c,
+                    [rank * c + k for k in range(c)])
     if devices is not None:
         devices = [torch.device(d) for d in devices]
         if n_devices is not None and n_devices != len(devices):

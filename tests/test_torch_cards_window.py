@@ -33,7 +33,7 @@ from kwave_tpu_torch.parallel.comm import InProcess, ProcessGroup
 from kwave_tpu_torch.parallel.mesh import split_points
 from kwave_tpu_torch.solver.step import graph_devices, source_phase
 from test_torch_dist_step import _datasets, _hold, _port_input
-from torch_helpers import one_torch_thread  # noqa: F401 (an autouse fixture)
+from torch_helpers import EagerCards, one_torch_thread  # noqa: F401 (an autouse fixture)
 
 S, O, LEAD, WINDOWS, TAIL = 4, 8, 25, 6, 3
 FIELDS = ("p", "ux_sgx", "uy_sgy", "uz_sgz", "rho_x", "rho_y", "rho_z")
@@ -159,41 +159,6 @@ def test_a_time_index_a_shard_gives_the_integer_bits(case):
 # ---------------------------------------------------------------------------
 # (c) run_simulation through the real Graphs, its CUDA steps replaced
 # ---------------------------------------------------------------------------
-
-def _copy_into(dst, src):
-    """``src``'s tensors written into ``dst``'s (the same structure), as a replay
-    rewrites a graph's outputs."""
-    if isinstance(dst, torch.Tensor):
-        dst.copy_(src)
-    elif isinstance(dst, dict):
-        for k in dst:
-            _copy_into(dst[k], src[k])
-    elif isinstance(dst, (tuple, list)):
-        for a, b in zip(dst, src):
-            _copy_into(a, b)
-
-
-class EagerCards(graphs.Graphs):
-    """`graphs.Graphs` with its CUDA steps replaced and all else its own (the static
-    buffers, the time index a shard, the counters): no memory pools; `_record` runs the
-    program once, as the capture's recording pass, and keeps it; `_launch` notes every
-    shard's time index, runs the program eagerly and writes what it returns into the
-    recorded outputs."""
-
-    launches: list = []
-
-    def _memory(self):
-        self._recorded = {}
-
-    def _record(self, program):
-        extra = program()
-        self._recorded[program] = extra
-        return program, extra
-
-    def _launch(self, program):
-        EagerCards.launches.append([int(t) for t in self._times])
-        _copy_into(self._recorded[program], program())
-
 
 class FailingCapture(EagerCards):
     def _record(self, program):

@@ -1583,3 +1583,123 @@ def test_cards_graph_of_a_pencil_program_keeps_its_memory_apart(n):
     assert all(torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
                for a, b in zip(state, want))
     assert all(bool((w == k + 1).all()) for k, w in enumerate(witness))
+
+
+# ---------------------------------------------------------------------------
+# Several shards a process under a process group over NCCL (``--num_processes P
+# --devices P*C``): the rank's C shards, their copies into one buffer a slot and one NCCL
+# all-to-all a slot group, in one CUDA graph a window. Each test skips unless the machine
+# has the cards it names.
+# ---------------------------------------------------------------------------
+
+def _nccl_group(world=1, rank=0, port=None, cards=1):
+    """`initialize` over NCCL on a free local port (rank 0 picks it)."""
+    import socket
+
+    from kwave_tpu_torch.parallel.distributed import initialize
+
+    if port is None:
+        probe = socket.socket()
+        probe.bind(("localhost", 0))
+        port = probe.getsockname()[1]
+        probe.close()
+    initialize(f"localhost:{port}", world, rank, "cuda", cards=cards)
+
+
+def _end_group():
+    import gc
+
+    import torch.distributed as dist
+
+    gc.collect()  # the runs' graphs go before the communicators they hold
+    torch.cuda.synchronize()
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", MESH_GRAPH_FLAGS, ids=MESH_GRAPH_IDS)
+def test_mesh_graph_windows_over_nccl_with_two_shards_a_rank_of_one_card(flags):
+    """The four window-encode variants at world size 1 over NCCL with 2 shards of cuda:0
+    (C = 2: one slot group a shard, each split from the default group on the same card):
+    graphs equal eager bit for bit with equal launches, the variant's kernel once a
+    window and for the tail on each shard, and both equal 2 shards of cuda:0 in one
+    process."""
+    from kwave_tpu_torch.parallel import make_mesh
+    from kwave_tpu_torch.parallel.comm import ProcessGroup
+
+    require_cuda()
+    flags = flags + ["--p_max_all", "--p_final"]
+    data = _graph_input((24, 24, 24), 8 * GRAPH_O + 3)
+    one_process, _, _, _ = _graph_run(data, flags, True, mesh=_cuda_mesh(2))
+    _nccl_group()
+    try:
+        mesh = make_mesh(2, devices=["cuda:0"] * 2)
+        assert isinstance(mesh.comm, ProcessGroup) and mesh.comm.local == 2
+        assert mesh.shard_ids == [0, 1] and mesh.size == 2
+        assert mesh.graph_devices == (torch.device("cuda", 0),) * 2
+        _, launches = _hold_graphs_to_eager(data, flags, min_replays=5, mesh=mesh)
+        assert launches[MESH_GRAPH_IDS[MESH_GRAPH_FLAGS.index(flags[:-2])]] == 2 * 9
+        got, _, _, _ = _graph_run(data, flags, True, mesh=mesh)
+        _same_outputs(one_process, got)
+    finally:
+        _end_group()
+
+
+def _two_by_two_rank(rank: int, port: int, out: str) -> int:
+    """One of the two ranks of `test_cards_graph_two_processes_of_two_cards` (in a
+    process of its own): 2 cards, graphs held to eager; rank 0 saves the graph run."""
+    from chip_smoke import _save_outputs
+    from kwave_tpu_torch.parallel import make_mesh
+
+    _nccl_group(2, rank, port, cards=2)
+    try:
+        mesh = make_mesh(4)
+        assert mesh.shard_ids == [2 * rank, 2 * rank + 1], mesh
+        assert mesh.graph_devices == (torch.device("cuda", 2 * rank),
+                                      torch.device("cuda", 2 * rank + 1)), mesh
+        data = _graph_input((24, 24, 24), 8 * GRAPH_O + 3)
+        _, launches = _hold_graphs_to_eager(data, CARDS_FLAGS, min_replays=5, mesh=mesh)
+        assert launches["w40_overlap"] == 2 * 9, launches
+        got, _, _, _ = _graph_run(data, CARDS_FLAGS, True, mesh=mesh)
+        if rank == 0:
+            _save_outputs(got, out)
+        mesh.comm.barrier()
+    finally:
+        _end_group()
+    return 0
+
+
+@pytest.mark.cuda
+def test_cards_graph_two_processes_of_two_cards(tmp_path):
+    """2 processes x 2 cards over NCCL (each slot group bound to its card as it is made):
+    each rank's graph run equals its eager run, and rank 0's file equals 4 cards in one
+    process and 4 shards of cuda:0 bit for bit."""
+    import os
+    import subprocess
+    import sys
+
+    from chip_smoke import _differ_from_saved, _free_port
+
+    require_cuda()
+    if torch.cuda.device_count() < 4:
+        pytest.skip(f"needs 4 cards; {torch.cuda.device_count()} present")
+    here = os.path.dirname(os.path.abspath(__file__))
+    port, out = _free_port(), str(tmp_path / "two_by_two.npz")
+    code = ("import sys; sys.path[:0] = [{!r}, {!r}]; import test_torch_cuda as t; "
+            "sys.exit(t._two_by_two_rank({}, {}, {!r}))")
+    procs = [subprocess.Popen([sys.executable, "-c", code.format(here, os.path.dirname(here),
+                                                                 r, port, out)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert all(p.returncode == 0 for p in procs), [log[-3000:] for log in logs]
+    data = _graph_input((24, 24, 24), 8 * GRAPH_O + 3)
+    for mesh in (_cards_mesh(4), _cuda_mesh(4)):
+        got, _, _, _ = _graph_run(data, CARDS_FLAGS, True, mesh=mesh)
+        assert not _differ_from_saved(got, out), (mesh, _differ_from_saved(got, out))

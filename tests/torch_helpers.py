@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from kwave_tpu_torch.basis import CompressionBasis
+from kwave_tpu_torch.graphs import Graphs
 
 
 def dyadic_basis(o=8, harmonics=2) -> CompressionBasis:
@@ -81,3 +82,38 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
+
+
+def _copy_into(dst, src):
+    """``src``'s tensors written into ``dst``'s (the same structure), as a replay
+    rewrites a graph's outputs."""
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+    elif isinstance(dst, dict):
+        for k in dst:
+            _copy_into(dst[k], src[k])
+    elif isinstance(dst, (tuple, list)):
+        for a, b in zip(dst, src):
+            _copy_into(a, b)
+
+
+class EagerCards(Graphs):
+    """`graphs.Graphs` with its CUDA steps replaced and all else its own (the static
+    buffers, the time index a shard, the counters): no memory pools; `_record` runs the
+    program once, as the capture's recording pass, and keeps it; `_launch` notes every
+    shard's time index, runs the program eagerly and writes what it returns into the
+    recorded outputs."""
+
+    launches: list = []
+
+    def _memory(self):
+        self._recorded = {}
+
+    def _record(self, program):
+        extra = program()
+        self._recorded[program] = extra
+        return program, extra
+
+    def _launch(self, program):
+        EagerCards.launches.append([int(t) for t in self._times])
+        _copy_into(self._recorded[program], program())
