@@ -6,8 +6,8 @@ the codec round trip, the whole-record exact encode, the 256^3, 192^3, 220^3, 23
 251^3 simulations and a 6 x 1152 x 1152 slab with the fused z stage (K7's radix, mixed,
 Bluestein and column kernels; the dense one, which no run takes, timed beside them), a run in checkpoint legs with the intensity and Q-term outputs, the
 acceptance sweep's inputs on the card against the port on the CPU, the mesh
-(`kwave_tpu_torch.parallel`) on the one card, and the windows replayed as CUDA graphs on
-one card and on the mesh.
+(`kwave_tpu_torch.parallel`) on the one card, the windows replayed as CUDA graphs on
+one card and on the mesh, and the CLI on HDF5 files through the port's own codec.
 
     python3 chip_smoke.py
 
@@ -27,7 +27,7 @@ the final ok line):
 4. main path: `driver.run_simulation` on a 128^3 heterogeneous absorbing medium with a
    p0 source, period 16, a few windows plus a tail, as ``--p_raw --p_c --40-bit_complex``
    and then as three shorter runs that take the other three variants. The output goes
-   to an in-memory group (this run does not need h5py). Checks: each variant launched
+   to an in-memory group (phase 14 runs the same input through files). Checks: each variant launched
    once per window-encode call, Nc == steps // o, the p_c bytes equal the oracle's
    encoding of p_raw on the first 256 sensors and decode to within 1e-3 of the series
    peak, no NaN. Prints ms/step.
@@ -175,6 +175,19 @@ the final ok line):
    the default group), eager and with graphs in turns, bit for bit to 2 shards of cuda:0
    in one process, its K1a launches printed. The `kernels` line's
    ``launches_mesh_graph_path`` is the phase's count of each window kernel.
+14. the file edge (`kwave_tpu_torch.io.h5file`, the port's own HDF5 reader and writer):
+   phase 4's input written by the port's `write_input_file`, then `cli.main(["-i", in,
+   "-o", out, "--p_raw", "--p_c", "--40-bit_complex", "--period", "16"])` at 8 windows
+   and at 64, a 5-step tail each; the 8-window run again as a ``python -m
+   kwave_tpu_torch.cli`` process, in two legs through ``--checkpoint_file`` (5 windows,
+   then 3 and the tail) and with ``-c 4``; and the other three variants at 3 windows.
+   Each output read back through the codec. Checks: every dataset bit for bit the
+   in-memory run of the same input (``-c 4``: the values, and deflate at level 4 on p
+   and p_c), the 64-window p_c the oracle's encoding of its p, each variant's kernel
+   launched once a window-encode call. Prints simulation-phase ms/step on files and in
+   memory, the seconds spent in the codec's writes and ``close()``, the file sizes and
+   MB/s over the codec's seconds, with the card's name and power limit; the `kernels`
+   line's ``launches_file_path`` is the phase's count of each window kernel.
 Then one JSON line with every kernel's numbers (its time beside its bound: the larger of
 its bytes over 3.35 TB/s and its fp32 operations over 67 TFLOP/s; for the 40-bit kernels
 also ``issue_ms``, the machine instructions that this run's build spends on their steps,
@@ -3386,6 +3399,194 @@ def mesh_cards_phase(n: int) -> int:
     return 0
 
 
+FILE_FLAGS = ["--p_raw", "--p_c", "--40-bit_complex"]
+FILE_WINDOWS = (8, 64)  # phase 14: the CLI on files, phase 4's run and one 8 x as long
+FILE_TAIL = 5
+FILE_LEG_WINDOWS = 5  # the two-leg file run: a checkpoint after 5 of the 8 windows
+FILE_LEVEL = 4  # the -c run's deflate level
+FILE_SECONDS = 600  # the subprocess run's time limit
+
+
+class _CodecClock:
+    """Seconds spent inside the HDF5 codec's writes (``Dataset.__setitem__``,
+    ``Group.create_dataset``) and ``File.close`` while it is installed; a call inside
+    another (create_dataset's data) counts once."""
+
+    def __init__(self):
+        from kwave_tpu_torch.io import h5file
+
+        self.seconds = {"writes": 0.0, "close": 0.0}
+        self._depth = 0
+        self._saved = [(cls, name, getattr(cls, name), kind) for cls, name, kind in (
+            (h5file.Dataset, "__setitem__", "writes"),
+            (h5file.Group, "create_dataset", "writes"),
+            (h5file.File, "close", "close"))]
+
+    def _timed(self, fn, kind):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            self._depth += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self._depth -= 1
+                if not self._depth:
+                    self.seconds[kind] += time.perf_counter() - t0
+        return call
+
+    def __enter__(self):
+        for cls, name, fn, kind in self._saved:
+            setattr(cls, name, self._timed(fn, kind))
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, fn, _ in self._saved:
+            setattr(cls, name, fn)
+
+
+def _same_bytes(a: np.ndarray, b: np.ndarray) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(
+        np.ascontiguousarray(a).view(np.uint8), np.ascontiguousarray(b).view(np.uint8))
+
+
+def _file_datasets(path) -> dict:
+    """Every dataset of an output file read back through the port's codec, with its
+    chunks and compression, and the file's simulation-phase seconds."""
+    from kwave_tpu_torch.io import h5file
+
+    with h5file.File(path, "r") as f:
+        sim = float(f.attrs["simulation_phase_execution_time"])
+        return {name: (f[name][...], f[name].chunks, f[name].compression,
+                       f[name].compression_opts) for name in f.keys()}, sim
+
+
+def _hold_file_to_memory(path, mem, what: str) -> float:
+    """The output file at ``path`` holds ``mem``'s (an in-memory run of the same input)
+    datasets bit for bit; returns the file's simulation-phase seconds."""
+    got, sim = _file_datasets(path)
+    _require(set(got) == set(mem.items), f"{what}: datasets {sorted(got)} != "
+             f"{sorted(mem.items)}")
+    differ = [k for k, (a, *_) in got.items() if not _same_bytes(a, mem[k].data)]
+    _require(not differ, f"{what}: {differ} differ from the in-memory run's bits")
+    return sim
+
+
+def file_phase(smi, device: str = "cuda") -> dict:
+    """Phase 14: the CLI on files. Phase 4's input written by the port's
+    `write_input_file`, run by `cli.main` (-i in.h5 -o out.h5) at 8 and at 64 windows and
+    a 5-step tail, once more at 8 as a ``python -m kwave_tpu_torch.cli`` process, in two
+    legs through ``--checkpoint_file``, with ``-c 4``, and in the other three variants at
+    3 windows; every output read back through the codec and held bit for bit to the
+    in-memory run of the same input (values alone for ``-c``). Returns the window
+    kernels' launches on the file path."""
+    import os
+    import tempfile
+
+    from kwave_tpu_torch import cli
+    from kwave_tpu_torch.io.input_file import read_input_file, write_input_file
+    from kwave_tpu_torch.ops import encode_window as ew
+
+    period = ["--period", str(O_SIZE)]
+    launches = dict.fromkeys(ew.LAUNCHES, 0)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build", prefix="file_phase_") as tmp:
+        def cli_run(inp, out, flags, windows, variant="w40_overlap", tail=FILE_TAIL):
+            """cli.main on files; its window kernel launched once a window-encode call."""
+            before = dict(ew.LAUNCHES)
+            _sync()
+            t0 = time.perf_counter()
+            with _CodecClock() as clock:
+                _require(cli.main(["-i", inp, "-o", out, *period, *flags]) == 0,
+                         f"cli.main {flags} returned non-zero")
+            _sync()
+            secs = time.perf_counter() - t0
+            delta = {k: ew.LAUNCHES[k] - before[k] for k in ew.LAUNCHES}
+            calls = windows + (1 if tail else 0)
+            want = {k: (calls if k == variant else 0) for k in ew.LAUNCHES}
+            _require(delta == want, f"{flags}: launches {delta}, expected {want}")
+            for k, n in delta.items():
+                launches[k] += n
+            return secs, clock.seconds
+
+        for windows in FILE_WINDOWS:
+            steps = windows * O_SIZE + FILE_TAIL
+            inp, out = os.path.join(tmp, f"in_{windows}.h5"), os.path.join(tmp, f"out_{windows}.h5")
+            t0 = time.perf_counter()
+            write_input_file(inp, _input(steps))
+            in_write = time.perf_counter() - t0
+            data = read_input_file(inp)
+            mem, mem_secs, _, _ = _run(FILE_FLAGS, windows, FILE_TAIL, data=data, device=device)
+            secs, codec = cli_run(inp, out, FILE_FLAGS, windows)
+            sim = _hold_file_to_memory(out, mem, f"{windows}-window file run")
+            _check_run(mem, FILE_FLAGS, steps)
+            size = os.path.getsize(out)
+            codec_s = codec["writes"] + codec["close"]
+            print(f"[14 files] {windows} windows + {FILE_TAIL} ({steps} steps), "
+                  f"{' '.join(FILE_FLAGS)}: file == in-memory run bit for bit (p, p_c); "
+                  f"simulation phase {sim / steps * 1e3:.4f} ms/step on files, "
+                  f"{float(mem.attrs['simulation_phase_execution_time']) / steps * 1e3:.4f} "
+                  f"in memory; cli.main {secs:.3f} s ({mem_secs:.3f} s in memory through "
+                  f"run_simulation); codec writes {codec['writes']:.4f} s, close "
+                  f"{codec['close']:.4f} s; output {size} bytes, "
+                  f"{size / codec_s / 1e6:.1f} MB/s over the codec's time; input "
+                  f"{os.path.getsize(inp)} bytes written in {in_write:.3f} s; w40_overlap "
+                  f"launched {steps // O_SIZE + 1}x; {smi}", flush=True)
+            if windows != FILE_WINDOWS[0]:
+                continue
+            # the same run as a process of its own
+            env = dict(os.environ, KWAVE_TPU_TORCH_DEVICE=device)
+            sub = os.path.join(tmp, "out_subprocess.h5")
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "kwave_tpu_torch.cli", "-i", inp,
+                                   "-o", sub, *period, *FILE_FLAGS], cwd=ROOT, env=env,
+                                  capture_output=True, text=True, timeout=FILE_SECONDS)
+            _require(proc.returncode == 0, f"python -m kwave_tpu_torch.cli failed: "
+                     f"{proc.stderr[-2000:]}")
+            sub_secs = time.perf_counter() - t0
+            _hold_file_to_memory(sub, mem, "python -m kwave_tpu_torch.cli")
+            # two legs through a checkpoint file
+            legs = os.path.join(tmp, "out_legs.h5")
+            ckpt = ["--checkpoint_file", os.path.join(tmp, "ckpt.h5"),
+                    "--checkpoint_timesteps", str(FILE_LEG_WINDOWS * O_SIZE)]
+            leg_secs = [cli_run(inp, legs, FILE_FLAGS + ckpt, FILE_LEG_WINDOWS, tail=0)[0],
+                        cli_run(inp, legs, FILE_FLAGS + ckpt, windows - FILE_LEG_WINDOWS)[0]]
+            _hold_file_to_memory(legs, mem, "the two-leg file run")
+            # deflated at -c 4: the same values, the dataset's filter as asked
+            gz = os.path.join(tmp, "out_gzip.h5")
+            gz_secs, gz_codec = cli_run(inp, gz, FILE_FLAGS + ["-c", str(FILE_LEVEL)],
+                                        windows)
+            deflated, _ = _file_datasets(gz)
+            _require(all(deflated[k][2:] == ("gzip", FILE_LEVEL) for k in ("p", "p_c")),
+                     f"-c {FILE_LEVEL}: {[(k, v[1:]) for k, v in deflated.items()]}")
+            _require(all(_same_bytes(deflated[k][0], mem[k].data) for k in ("p", "p_c")),
+                     f"-c {FILE_LEVEL}: values differ from the in-memory run")
+            print(f"[14 files] python -m kwave_tpu_torch.cli {sub_secs:.2f} s (a process "
+                  f"of its own: start, read, run, write) == in-memory run bit for bit; two "
+                  f"legs ({FILE_LEG_WINDOWS} windows, then {windows - FILE_LEG_WINDOWS} and "
+                  f"the tail) {leg_secs[0]:.3f} + {leg_secs[1]:.3f} s == one run bit for "
+                  f"bit; -c {FILE_LEVEL} {gz_secs:.3f} s, codec writes "
+                  f"{gz_codec['writes']:.4f} s, close {gz_codec['close']:.4f} s, "
+                  f"{os.path.getsize(gz)} bytes, values equal; {smi}", flush=True)
+        # the main path's other three variants through files
+        steps = 3 * O_SIZE + FILE_TAIL
+        inp = os.path.join(tmp, "in_variants.h5")
+        write_input_file(inp, _input(steps))
+        data = read_input_file(inp)
+        for flags, variant in ((["--p_raw", "--p_c", "--no_overlap"], "wfloat_no_overlap"),
+                               (["--p_raw", "--p_c", "--40-bit_complex", "--no_overlap"],
+                                "w40_no_overlap"),
+                               (["--p_raw", "--p_c"], "wfloat_overlap")):
+            out = os.path.join(tmp, f"out_{variant}.h5")
+            mem = _run(flags, 3, FILE_TAIL, data=data, device=device)[0]
+            cli_run(inp, out, flags, 3, variant)
+            _hold_file_to_memory(out, mem, f"{' '.join(flags)} file run")
+        print(f"[14 files] the other three variants (3 windows + {FILE_TAIL}) on files == "
+              f"in memory bit for bit; window kernels launched on the file path: "
+              f"{launches}", flush=True)
+    return launches
+
+
 def readings_phase(readings: int, tree: Path, windows: int = 8) -> int:
     """``--main-path-readings``: phase 4's first run (128^3, 16384 sensors, 8 windows and a
     5-step tail, 40-bit overlap; or ``windows`` windows) ``readings`` times in this
@@ -3484,7 +3685,8 @@ def main(argv: list[str]) -> int:
     mesh_launches = timed(11, mesh_phase, smi)
     graph_launches, graph_k7 = timed(12, graph_phase, smi)
     mesh_graph_launches = timed(13, mesh_graph_phase, smi)
-    print(f"[time] phases 2-13 in {time.perf_counter() - t_run:.1f} s", flush=True)
+    file_launches = timed(14, file_phase, smi)
+    print(f"[time] phases 2-14 in {time.perf_counter() - t_run:.1f} s", flush=True)
 
     rows = [dict(name=key, route="cuda", source="kwave_tpu_torch/csrc/encode_window.cu",
                  replaces=VARIANTS[key][2], launches=launches[key], **kernels[key])
@@ -3497,6 +3699,8 @@ def main(argv: list[str]) -> int:
              for key, (_, _, replaces) in SERIES_KERNELS.items()]
     for r in rows:  # the window kernels' launches in phase 12's and 13's graph runs
         r["launches_graph_path"] = graph_launches.get(r["name"], 0)
+        if r["name"] in file_launches:  # and on phase 14's file path
+            r["launches_file_path"] = file_launches[r["name"]]
         if r["name"] in mesh_graph_launches:
             r["launches_mesh_graph_path"] = mesh_graph_launches[r["name"]]
     for key, row in fused.items():  # launches: the runs of the row's kernel (phase 8)

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from kwave_tpu_torch.driver import _corners_to_indices, require_device, run_simulation
+from kwave_tpu_torch.io.h5file import File, FormatError
 from kwave_tpu_torch.io.input_file import read_input_file
 from kwave_tpu_torch.params import (
     args_to_run_config,
@@ -160,12 +161,10 @@ def _run(args, device: torch.device, mesh) -> int:
 
     if args.copy_sensor_mask and writer:
         # carry the mask into the output file (1-based on disk, as in the input format)
-        import h5py
-
         from kwave_tpu_torch.io import names as dn
         from kwave_tpu_torch.io.hdf5 import tag_dataset
 
-        with h5py.File(args.output_file, "r+") as f:
+        with File(args.output_file, "r+") as f:
             if data.sensor_mask_index is not None:
                 name, arr = dn.SENSOR_MASK_INDEX, data.sensor_mask_index[None, None, :]
             else:
@@ -182,14 +181,12 @@ def _run(args, device: torch.device, mesh) -> int:
 
 def _checkpoint_exists(path: str) -> bool:
     """A readable checkpoint file is at ``path`` (then the run continues from it)."""
-    import h5py
-
     if not os.path.exists(path):
         return False
     try:
-        with h5py.File(path, "r") as f:
+        with File(path, "r") as f:
             return "t_index" in f
-    except OSError:
+    except (OSError, FormatError):
         return False
 
 

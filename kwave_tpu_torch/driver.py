@@ -46,6 +46,7 @@ from kwave_tpu_torch import bitpack, encoder, sampling, streams
 from kwave_tpu_torch.basis import CompressionBasis, find_period, generate_basis
 from kwave_tpu_torch.graphs import Graphs, check_plans_agree, graph_actions
 from kwave_tpu_torch.io import checkpoint as ckpt_io
+from kwave_tpu_torch.io.h5file import File, FormatError
 from kwave_tpu_torch.io.input_file import InputData
 from kwave_tpu_torch.io.output_file import create_output_file
 from kwave_tpu_torch.parallel.sharded import Sharded
@@ -138,16 +139,16 @@ def detect_period(data: InputData, run: RunConfig) -> Optional[float]:
         sig = sig[sig.shape[0] // 2]
     period = float(find_period(np.asarray(sig[-500:], np.float32)))
     if from_p_source and data.source_path is not None and _rank() == 0:
-        import h5py
-
         from kwave_tpu_torch.io import names
 
         try:
-            with h5py.File(data.source_path, "r+") as f:
+            with File(data.source_path, "r+") as f:
                 f[names.P_SOURCE_INPUT].attrs["period"] = np.float32(period)
             data.cached_period = period
-        except OSError:
-            pass  # read-only input file: detection simply runs again next run
+        except (OSError, FormatError):
+            # a read-only input file, or one the codec reads but does not rewrite:
+            # detection simply runs again next run
+            pass
     return period
 
 
@@ -807,17 +808,11 @@ def run_simulation(data: InputData, run: RunConfig, output,
         f = output
     elif not is_writer:
         # another process writes the file; a resumed leg reads it here too (a shared
-        # filesystem), without the lock that the writer's r+ open takes
-        if ck is not None:
-            import h5py
-
-            f = h5py.File(os.fspath(output), "r", locking=False)
-        else:
-            f = None
+        # filesystem): the writer's r+ session only appends until it closes, so this
+        # view stays the one the last leg left
+        f = File(output, "r") if ck is not None else None
     elif ck is not None:
-        import h5py
-
-        f = h5py.File(os.fspath(output), "r+")
+        f = File(output, "r+")
     else:
         f = create_output_file(os.fspath(output))
     try:

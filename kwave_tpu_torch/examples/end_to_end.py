@@ -5,8 +5,8 @@ stream back to time series, and verify it against the raw recording.
     python -m kwave_tpu_torch.examples.end_to_end [workdir]
 
 The device comes from ``KWAVE_TPU_TORCH_DEVICE`` (``cuda`` by default, ``cpu`` for the
-tests). Needs ``h5py`` for the files. The decode runs on the same device: on CUDA it is
-one launch of the synthesis kernel (`kwave_tpu_torch.ops.fastpath`).
+tests). The files are read and written by the port's own HDF5 codec. The decode runs on
+the same device: on CUDA it is one launch of the synthesis kernel (`kwave_tpu_torch.ops.fastpath`).
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ import torch
 from kwave_tpu_torch import decoder
 from kwave_tpu_torch.basis import generate_basis
 from kwave_tpu_torch.driver import RunConfig, run_simulation
+from kwave_tpu_torch.io.h5file import File
 from kwave_tpu_torch.io.input_file import InputData, read_input_file, write_input_file
 from kwave_tpu_torch.solver import Grid, Medium
 
@@ -30,8 +31,6 @@ GATE = 0.05  # relative error of the steady-state half, as examples/end_to_end.p
 
 
 def main(workdir: str | None = None, device: torch.device | str | None = None) -> int:
-    import h5py
-
     if device is None:
         from kwave_tpu_torch.cli import device_from_env
 
@@ -78,7 +77,7 @@ def main(workdir: str | None = None, device: torch.device | str | None = None) -
     print("datasets written:", {k: tuple(v) for k, v in summary.items()})
 
     # -- 3. Read the output and decode the compressed stream -----------------------
-    with h5py.File(out) as f:
+    with File(out, "r") as f:
         raw = np.asarray(f["p"])[0]  # [Nt, Nsens]
         pc = np.asarray(f["p_c"])[0]  # [Nc, mSize] coefficient frames
         attrs = dict(f["p_c"].attrs)

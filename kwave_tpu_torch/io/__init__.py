@@ -1,8 +1,9 @@
 """HDF5 I/O of the port: jax-free copies of `kwave_tpu.io`'s input, output and checkpoint
 file contract (same dataset names, dtypes, chunking, ``c_*`` attributes and file header).
 
-``h5py`` is imported only where a file on disk is opened, so every reader and writer also
-works on an open group-like object (the subset of the h5py group API they use)."""
+Files on disk are read and written by the port's own HDF5 codec (`io.h5file`, numpy and
+the standard library); every reader and writer also works on an open group-like object
+(the subset of h5py's group API that `io.h5file` implements)."""
 
 from kwave_tpu_torch.io import names
 from kwave_tpu_torch.io.checkpoint import read_checkpoint, write_checkpoint

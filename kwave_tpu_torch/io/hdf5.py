@@ -6,8 +6,8 @@
   `data_type` ("float"|"long") and `domain_type` ("real"|"complex") attributes.
 - File header: root-group string attributes (Hdf5FileHeader.cpp:62-88).
 
-Every function takes an open group-like object; only `open_group`, given a path,
-imports h5py.
+Every function takes an open group-like object; only `open_group`, given a path, opens
+a file, with the port's own HDF5 codec (`kwave_tpu_torch.io.h5file`).
 """
 
 from __future__ import annotations
@@ -21,19 +21,18 @@ from typing import Optional
 import numpy as np
 
 from kwave_tpu_torch.io import names
+from kwave_tpu_torch.io.h5file import File
 
 CREATED_BY = "kwave_tpu_torch v0.1"
 
 
 @contextlib.contextmanager
 def open_group(target, mode: str):
-    """``target`` as an open group. A path is opened with h5py in ``mode`` and closed on
-    exit; an open group-like object is passed through and stays the caller's. Mode "w"
-    empties such an object first, as it truncates a file."""
+    """``target`` as an open group. A path is opened as an HDF5 `File` in ``mode`` and
+    closed on exit; an open group-like object is passed through and stays the caller's.
+    Mode "w" empties such an object first, as it truncates a file."""
     if isinstance(target, (str, os.PathLike)):
-        import h5py
-
-        with h5py.File(os.fspath(target), mode) as f:
+        with File(target, mode) as f:
             yield f
         return
     if mode == "w":
@@ -45,7 +44,7 @@ def open_group(target, mode: str):
 
 def is_group(obj) -> bool:
     """A group (per-cuboid layout) rather than a dataset, by what it can do: works on
-    h5py objects and on in-memory stand-ins alike."""
+    file objects and on in-memory stand-ins alike."""
     return hasattr(obj, "keys")
 
 

@@ -23,6 +23,7 @@ from typing import Optional
 import numpy as np
 
 from kwave_tpu_torch.io import names
+from kwave_tpu_torch.io.h5file import File
 from kwave_tpu_torch.io.hdf5 import (
     create_dataset,
     read_scalar,
@@ -104,10 +105,8 @@ def _signal_to_file(sig: np.ndarray, many: bool) -> np.ndarray:
 
 
 def write_input_file(path: str, data: InputData) -> None:
-    import h5py
-
     grid, medium = data.grid, data.medium
-    with h5py.File(path, "w") as f:
+    with File(path, "w") as f:
         write_file_header(f, names.FILE_TYPE_INPUT)
         # grid scalars
         write_scalar(f, names.NX, grid.nx)
@@ -241,9 +240,7 @@ def _signal_from_file(arr: np.ndarray, many: bool) -> np.ndarray:
 def read_input_file(path: str) -> InputData:
     """Load an input file into solver-native conventions (the
     `loadInputData`, KSpaceFirstOrderSolver.cpp:159-257)."""
-    import h5py
-
-    with h5py.File(path, "r") as f:
+    with File(path, "r") as f:
         validate_file_header(f, names.FILE_TYPE_INPUT, path)
         nx, ny, nz = (read_scalar(f, n) for n in (names.NX, names.NY, names.NZ))
         is3d = nz > 1

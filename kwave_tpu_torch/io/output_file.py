@@ -21,6 +21,7 @@ from typing import Optional
 import numpy as np
 
 from kwave_tpu_torch.io import names
+from kwave_tpu_torch.io.h5file import File
 from kwave_tpu_torch.io.hdf5 import create_dataset, write_attr, write_file_header
 
 CHUNK_4MB = 1048576  # floats (kChunkSize4MB, BaseOutputStream.h:289)
@@ -61,9 +62,7 @@ class CompressionAttrs:
 
 def create_output_file(path: str):
     """Open ``path`` for writing as an HDF5 output file with the reference header."""
-    import h5py
-
-    f = h5py.File(path, "w")
+    f = File(path, "w")
     write_file_header(f, names.FILE_TYPE_OUTPUT)
     return f
 
@@ -147,8 +146,8 @@ def create_cuboid_group(
 
 
 def write_frame(ds, row: int, data) -> None:
-    """One row at compressed / sampled step ``row`` of a stream's dataset (an h5py dataset
-    or any object with its ``shape`` and item assignment): the (1, steps, mSize) layout
+    """One row at compressed / sampled step ``row`` of a stream's dataset (a file's
+    dataset or any object with its ``shape`` and item assignment): the (1, steps, mSize) layout
     of an index mask, or a cuboid's 4D one (IndexOutputStream::flushBufferToFile,
     IndexOutputStream.cpp:583-591)."""
     if len(ds.shape) == 3:

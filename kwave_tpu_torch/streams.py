@@ -477,8 +477,8 @@ def split_states(states: dict[str, Any], specs: list[StreamSpec], sensors, mesh
 class StreamWriter:
     """Owns the output-file datasets for a stream set; flushes emissions as they arrive.
 
-    ``h5file`` is an open h5py file or any object with the subset of its group API used
-    here (``create_dataset``, ``create_group``, item access, ``attrs.create``). Dataset
+    ``h5file`` is an open `io.h5file.File` or any object with the subset of its group API
+    used here (``create_dataset``, ``create_group``, item access, ``attrs.create``). Dataset
     sizing per IndexOutputStream::create (IndexOutputStream.cpp:87-171).
 
     ``cuboid_shapes`` [(cx, cy, cz), ...] switches raw/compressed/aggregate streams to
