@@ -31,7 +31,7 @@ from kwave_tpu_torch.params import (
     refused_fft_flags,
     unported_flags,
 )
-from kwave_tpu_torch.utils.observability import Logger
+from kwave_tpu_torch.utils.observability import Logger, PhaseTimers
 
 VERSION = "kspaceFirstOrder-Torch v0.1 (kwave_tpu_torch; port of kwave_tpu)"
 DEVICE_ENV = "KWAVE_TPU_TORCH_DEVICE"
@@ -113,8 +113,11 @@ def mesh_from_args(parser, args, device: torch.device):
 
 def _run(args, device: torch.device, mesh) -> int:
     writer = mesh is None or mesh.is_writer
-    t0 = time.time()
+    t0 = time.perf_counter()
+    timers = PhaseTimers()  # the data load's; run_simulation times the other phases
+    timers.start("data_load")
     data = read_input_file(args.input_file)
+    load_s = timers.stop("data_load")
 
     if args.post:
         if not writer:
@@ -134,14 +137,13 @@ def _run(args, device: torch.device, mesh) -> int:
                     want_q_term=q_term, from_coeffs=from_coeffs,
                     block_size=args.block_size, device=device,
                 )
-        print(f"[kwave_tpu_torch] post-processing done in {time.time() - t0:.2f}s")
+        print(f"[kwave_tpu_torch] post-processing done in {time.perf_counter() - t0:.2f}s")
         return 0
 
     if args.benchmark is not None:
         # --benchmark truncates Nt (Parameters.cpp:130-133)
         data.grid = dataclasses.replace(data.grid, nt=min(args.benchmark, data.grid.nt))
     run = args_to_run_config(args, dt=data.grid.dt)
-    load_s = time.time() - t0
     run.data_load_seconds = load_s
     if not any(run.flags.values()) and not (
         args.I_avg or args.I_avg_c or args.Q_term or args.Q_term_c
@@ -150,14 +152,14 @@ def _run(args, device: torch.device, mesh) -> int:
         # but only when no output of any kind (intensity, Q term) was asked for
         run.flags["p_raw"] = True
 
-    t1 = time.time()
+    t1 = time.perf_counter()
     summary = run_simulation(
         data, run, args.output_file, device=device,
         resume_from=args.checkpoint_file
         if args.checkpoint_file and _checkpoint_exists(args.checkpoint_file) else None,
         mesh=mesh,
     )
-    sim_s = time.time() - t1
+    sim_s = time.perf_counter() - t1
 
     if args.copy_sensor_mask and writer:
         # carry the mask into the output file (1-based on disk, as in the input format)

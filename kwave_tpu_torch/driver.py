@@ -65,6 +65,7 @@ from kwave_tpu_torch.solver.step import (
     LOCAL_FFT,
     FftOps,
     chunk_keys,
+    graph_devices as state_graph_devices,
     make_simulate_fn,
     source_phase,
     state_tensors,
@@ -75,6 +76,7 @@ from kwave_tpu_torch.utils.observability import (
     Logger,
     PhaseTimers,
     read_cumulated_times,
+    span,
     write_run_info,
 )
 
@@ -397,13 +399,14 @@ class _Window:
             self._check_counters(states, t0)
             action = "replay" if key in self.graphs else "capture" if capture else "eager"
         self.actions.append((t0, action))
-        if action == "replay":
-            new_sim, new_states, emissions = self._replay(key, sim_state, states, t0)
-        else:
-            new_sim, new_states, emissions = _run_window(
-                self.r, sim_state, states, t0, self.steps, self.emit, self.peel_p0)
-            if action == "capture":
-                self._capture(key, sim_state, states)
+        with span(f"kwave.window.{action}"):
+            if action == "replay":
+                new_sim, new_states, emissions = self._replay(key, sim_state, states, t0)
+            else:
+                new_sim, new_states, emissions = _run_window(
+                    self.r, sim_state, states, t0, self.steps, self.emit, self.peel_p0)
+                if action == "capture":
+                    self._capture(key, sim_state, states)
         if one:
             return new_sim, new_states[0], emissions[0]
         return new_sim, new_states, emissions
@@ -702,7 +705,8 @@ def run_simulation(data: InputData, run: RunConfig, output,
     if mesh is not None:
         from kwave_tpu_torch.parallel import pencil_fft, shard_operators
 
-        ops = shard_operators(ops, grid.dim, mesh, grid=grid)
+        with span("kwave.operators"):
+            ops = shard_operators(ops, grid.dim, mesh, grid=grid)
         fft = pencil_fft(mesh, grid.nx)
         if run.fuse_z:
             # as in kwave_tpu: only the single-device run builds the fused z stage
@@ -732,7 +736,8 @@ def run_simulation(data: InputData, run: RunConfig, output,
         transducer_source_flag=data.transducer_source_flag,
         sampling_start_index=run.sampling_start,
     )
-    src = _sources(data, device, mesh)
+    with span("kwave.sources"):
+        src = _sources(data, device, mesh)
 
     cuboid_shapes = None
     if data.sensor_mask_index is not None:
@@ -814,7 +819,8 @@ def run_simulation(data: InputData, run: RunConfig, output,
     elif ck is not None:
         f = File(output, "r+")
     else:
-        f = create_output_file(os.fspath(output))
+        with span("kwave.output_create"):
+            f = create_output_file(os.fspath(output))
     try:
         writer = None
         if ck is not None:
@@ -880,11 +886,11 @@ def run_simulation(data: InputData, run: RunConfig, output,
         # lead-in: steps before sampling starts (the reference skips storage until
         # t >= s, KSpaceFirstOrderSolver.cpp:1060-1068), in runs of o steps that replay
         # CUDA graphs on one card, or on a mesh whose shards here lie on cards
-        graph_devices = (device if device.type == "cuda" else None) if mesh is None \
+        graph_devices = state_graph_devices(sim_state) if mesh is None \
             else mesh.graph_devices or None
         graphs_on = graph_devices is not None and run.cuda_graphs
         if run.sampling_start > t0:
-            t_lead, lead_from = _time.time(), t0
+            t_lead, lead_from = _time.perf_counter(), t0
             if peel_pending:  # t == 0
                 sim_state = add_initial_pressure(sim_state, ops, src.p0, spectral_multi,
                                                  fft)
@@ -898,23 +904,21 @@ def run_simulation(data: InputData, run: RunConfig, output,
                                         spectral_multi=spectral_multi, fft=fft,
                                         graph_steps=o if graphs_on else None)
                 sim_state, _ = lead(sim_state, lead_from)
-            n_lead, dt_lead = run.sampling_start - t0, _time.time() - t_lead
-            for _ in range(n_lead):
-                timers.add_iteration(dt_lead / n_lead, sampled=False)
+            timers.add_iterations(_time.perf_counter() - t_lead, run.sampling_start - t0,
+                                  sampled=False)
         t = max(t0, run.sampling_start)
 
         if basis is not None and sampled_done % o and t < grid.nt:
             # a leg resumed inside a window: step by step up to the window's boundary
             # (or the end of the record), where the one frame of that window comes out
             steps = min(o - sampled_done % o, grid.nt - t)
-            t_it = _time.time()
+            t_it = _time.perf_counter()
             sim_state, stream_states, emissions = _run_window(
                 r, sim_state, stream_states, t, steps,
                 emit=steps == o - sampled_done % o, peel_p0=False, stepwise=True
             )
             flush(emissions)
-            for _ in range(steps):
-                timers.add_iteration((_time.time() - t_it) / steps, sampled=True)
+            timers.add_iterations(_time.perf_counter() - t_it, steps, sampled=True)
             t += steps
 
         n_windows = (grid.nt - t) // o
@@ -935,7 +939,7 @@ def run_simulation(data: InputData, run: RunConfig, output,
         interrupted = False
         pending = None  # one-window-delayed flush
         for w in range(n_windows):
-            t_it = _time.time()
+            t_it = _time.perf_counter()
             capture = w < len(plan) and plan[w][2] == "capture"
             sim_state, stream_states, emissions = windows[0 if peel_pending else 1](
                 sim_state, stream_states, t, capture)
@@ -943,9 +947,7 @@ def run_simulation(data: InputData, run: RunConfig, output,
             if pending is not None:
                 flush(pending)
             pending = emissions
-            dt_it = _time.time() - t_it
-            for _ in range(o):
-                timers.add_iteration(dt_it / o, sampled=True)
+            timers.add_iterations(_time.perf_counter() - t_it, o, sampled=True)
             t += o
             Logger.progress(t - t0, grid.nt - t0, wall0, run.progress_interval)
             stop = run.checkpoint_file is not None and t < grid.nt and (
@@ -1002,10 +1004,11 @@ def run_simulation(data: InputData, run: RunConfig, output,
         # no frame is emitted here
         rem = grid.nt - t
         if rem > 0:
-            sim_state, stream_states, tail = _run_window(
-                r, sim_state, stream_states, t, rem, emit=False, peel_p0=peel_pending
-            )
-            flush(tail)  # raw rows; `c` entries are None
+            with span("kwave.tail"):
+                sim_state, stream_states, tail = _run_window(
+                    r, sim_state, stream_states, t, rem, emit=False, peel_p0=peel_pending
+                )
+                flush(tail)  # raw rows; `c` entries are None
             t += rem
 
         # tiny-record lastStep rule (IndexOutputStream.cpp:454-456): when the whole

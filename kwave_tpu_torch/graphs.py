@@ -41,6 +41,7 @@ import torch
 
 from kwave_tpu_torch.ops import encode_series, encode_window, fastpath, zfuse
 from kwave_tpu_torch.parallel.sharded import Sharded
+from kwave_tpu_torch.utils.observability import span
 
 
 def _counters() -> tuple[dict[str, int], ...]:
@@ -150,7 +151,8 @@ class Graphs:
 
         start = time.perf_counter()
         try:
-            graph, extra = self._record(program)
+            with span("kwave.graph.capture"):
+                graph, extra = self._record(program)
             self.capture_seconds[key] = time.perf_counter() - start
         finally:
             deltas = []
@@ -194,7 +196,8 @@ class Graphs:
                 s.copy_(x)
         for t_dev in self._times:
             t_dev.fill_(int(t))
-        self._launch(graph)
+        with span("kwave.graph.launch"):
+            self._launch(graph)
         for counts, delta in zip(_counters(), deltas):
             for k, n in delta.items():
                 counts[k] += n

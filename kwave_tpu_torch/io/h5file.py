@@ -52,6 +52,8 @@ from typing import Optional
 
 import numpy as np
 
+from kwave_tpu_torch.utils.observability import span
+
 __all__ = ["AttributeManager", "Dataset", "File", "FormatError", "Group"]
 
 SIGNATURE = b"\x89HDF\r\n\x1a\n"
@@ -1097,6 +1099,10 @@ class Dataset(_Node):
     # -- writing -------------------------------------------------------------
 
     def __setitem__(self, key, value) -> None:
+        with span("kwave.h5.write"):
+            self._setitem(key, value)
+
+    def _setitem(self, key, value) -> None:
         self._writable()
         sel = _selection(key, self._shape)
         counts = tuple(c for _, c, _, _ in sel)
@@ -1337,11 +1343,12 @@ class File(Group):
             return
         try:
             if self._write:
-                for ds in list(self._partial):
-                    ds._flush_partial()
-                self._partial.clear()
-                if self._changed:
-                    self._commit_file()
+                with span("kwave.h5.write"):
+                    for ds in list(self._partial):
+                        ds._flush_partial()
+                    self._partial.clear()
+                    if self._changed:
+                        self._commit_file()
         finally:
             os.close(self._store.fd)
             self._store = None

@@ -33,6 +33,7 @@ from kwave_tpu_torch.io.hdf5 import (
     write_scalar,
 )
 from kwave_tpu_torch.solver.operators import Grid, Medium
+from kwave_tpu_torch.utils.observability import span
 
 
 @dataclasses.dataclass
@@ -240,7 +241,7 @@ def _signal_from_file(arr: np.ndarray, many: bool) -> np.ndarray:
 def read_input_file(path: str) -> InputData:
     """Load an input file into solver-native conventions (the
     `loadInputData`, KSpaceFirstOrderSolver.cpp:159-257)."""
-    with File(path, "r") as f:
+    with span("kwave.input.read"), File(path, "r") as f:
         validate_file_header(f, names.FILE_TYPE_INPUT, path)
         nx, ny, nz = (read_scalar(f, n) for n in (names.NX, names.NY, names.NZ))
         is3d = nz > 1

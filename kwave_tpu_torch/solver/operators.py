@@ -18,6 +18,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from kwave_tpu_torch.utils.observability import span
+
 
 @dataclasses.dataclass(frozen=True)
 class Grid:
@@ -238,6 +240,26 @@ def make_operators(
     absorb_nabla1/2) and the c0-derived media fields (c2, absorb_tau/eta) out: the step
     rebuilds them on the device from the per-axis k^2 vectors and c0. The results agree
     to fp32 rounding."""
+    with span("kwave.operators"):
+        with span("kwave.operators.build"):
+            host, c_ref = _host_operators(grid, medium, pml_size, pml_alpha, absorbing,
+                                          need_source_kappa, need_shift, nonuniform,
+                                          compact)
+        with span("kwave.operators.to_device"):
+            return Operators(
+                **{k: None if v is None else torch.as_tensor(np.asarray(v)).to(device)
+                   for k, v in host.items()},
+                dt=float(grid.dt),
+                c_ref_dt_2=float(c_ref * grid.dt / 2.0),
+                alpha_power=float(medium.alpha_power),
+            )
+
+
+def _host_operators(grid: Grid, medium: Medium, pml_size, pml_alpha, absorbing: bool,
+                    need_source_kappa: bool, need_shift: bool, nonuniform: Optional[dict],
+                    compact: bool) -> tuple[dict[str, Any], float]:
+    """`make_operators`' arrays on the host (None where the run needs none), by field
+    name, and the reference sound speed."""
     c0 = np.asarray(medium.c0, np.float64)
     c_ref = float(medium.c_ref) if medium.c_ref is not None else float(c0.max())
     dim = grid.dim
@@ -344,10 +366,4 @@ def make_operators(
         k2_x=k2_x, k2_y=k2_y, k2_z=k2_z,
         c0=c0.astype(np.float32) if compact else None, alpha2=alpha2,
     )
-    return Operators(
-        **{k: None if v is None else torch.as_tensor(np.asarray(v)).to(device)
-           for k, v in host.items()},
-        dt=float(grid.dt),
-        c_ref_dt_2=float(c_ref * grid.dt / 2.0),
-        alpha_power=float(medium.alpha_power),
-    )
+    return host, c_ref

@@ -36,6 +36,7 @@ from kwave_tpu_torch.io.output_file import (
     create_field_dataset,
     create_raw_dataset,
 )
+from kwave_tpu_torch.utils.observability import span
 
 # Sources a stream can sample (OutputStreamContainer.cpp:84-266).
 SOURCES = (
@@ -504,64 +505,65 @@ class StreamWriter:
         reopen: bool = False,
         rows_done: int = 0,
     ):
-        self.specs = {s.name: s for s in specs}
-        self.basis = basis
-        self.n_sensors = n_sensors
-        self.cuboid_shapes = cuboid_shapes
-        o = basis.o_size if basis is not None else 1
-        self.rows = {
-            s.name: (rows_done if s.op == "raw" else rows_done // o) if reopen else 0
-            for s in specs
-        }
-        self.datasets = {}
-        self.groups: set[str] = set()  # streams written as per-cuboid groups
-        if reopen:
-            self.datasets = {s.name: h5file[s.name] for s in specs if s.save}
-            self.groups = {name for name, ds in self.datasets.items() if is_group(ds)}
-            return
-        for s in specs:
-            if not s.save:
-                continue
-            attrs = None
-            if s.op == "c":
-                attrs = CompressionAttrs(
-                    harmonics=basis.harmonics, period=basis.period, mos=basis.mos,
-                    shift=s.shifted_basis, complex_size=s.complex_size(),
-                    max_exp=s.e_const(),
-                )
-            if s.op in ("raw", "c") and cuboid_shapes is not None:
-                self.datasets[s.name] = create_cuboid_group(
-                    h5file, s.name, cuboid_shapes, sampled_steps, attrs=attrs,
-                    compression_level=compression_level,
-                )
-                self.groups.add(s.name)
-            elif s.op == "raw":
-                self.datasets[s.name] = create_raw_dataset(
-                    h5file, s.name, n_sensors, sampled_steps, compression_level
-                )
-            elif s.op == "c":
-                self.datasets[s.name] = create_compressed_dataset(
-                    h5file, s.name, n_sensors, sampled_steps, attrs, compression_level
-                )
-            elif s.op in ("rms", "max", "min", "iavg_c"):
-                if cuboid_shapes is not None:
+        with span("kwave.output_create"):
+            self.specs = {s.name: s for s in specs}
+            self.basis = basis
+            self.n_sensors = n_sensors
+            self.cuboid_shapes = cuboid_shapes
+            o = basis.o_size if basis is not None else 1
+            self.rows = {
+                s.name: (rows_done if s.op == "raw" else rows_done // o) if reopen else 0
+                for s in specs
+            }
+            self.datasets = {}
+            self.groups: set[str] = set()  # streams written as per-cuboid groups
+            if reopen:
+                self.datasets = {s.name: h5file[s.name] for s in specs if s.save}
+                self.groups = {name for name, ds in self.datasets.items() if is_group(ds)}
+                return
+            for s in specs:
+                if not s.save:
+                    continue
+                attrs = None
+                if s.op == "c":
+                    attrs = CompressionAttrs(
+                        harmonics=basis.harmonics, period=basis.period, mos=basis.mos,
+                        shift=s.shifted_basis, complex_size=s.complex_size(),
+                        max_exp=s.e_const(),
+                    )
+                if s.op in ("raw", "c") and cuboid_shapes is not None:
                     self.datasets[s.name] = create_cuboid_group(
-                        h5file, s.name, cuboid_shapes, 1,
+                        h5file, s.name, cuboid_shapes, sampled_steps, attrs=attrs,
                         compression_level=compression_level,
                     )
                     self.groups.add(s.name)
-                else:
-                    self.datasets[s.name] = create_aggregate_dataset(
-                        h5file, s.name, n_sensors, compression_level
+                elif s.op == "raw":
+                    self.datasets[s.name] = create_raw_dataset(
+                        h5file, s.name, n_sensors, sampled_steps, compression_level
                     )
-            elif s.op in ("max_all", "min_all", "final"):
-                if field_shape is None:
-                    raise ValueError(
-                        f"stream {s.name!r} needs the grid field shape for its dataset"
+                elif s.op == "c":
+                    self.datasets[s.name] = create_compressed_dataset(
+                        h5file, s.name, n_sensors, sampled_steps, attrs, compression_level
                     )
-                self.datasets[s.name] = create_field_dataset(
-                    h5file, s.name, field_shape, compression_level
-                )
+                elif s.op in ("rms", "max", "min", "iavg_c"):
+                    if cuboid_shapes is not None:
+                        self.datasets[s.name] = create_cuboid_group(
+                            h5file, s.name, cuboid_shapes, 1,
+                            compression_level=compression_level,
+                        )
+                        self.groups.add(s.name)
+                    else:
+                        self.datasets[s.name] = create_aggregate_dataset(
+                            h5file, s.name, n_sensors, compression_level
+                        )
+                elif s.op in ("max_all", "min_all", "final"):
+                    if field_shape is None:
+                        raise ValueError(
+                            f"stream {s.name!r} needs the grid field shape for its dataset"
+                        )
+                    self.datasets[s.name] = create_field_dataset(
+                        h5file, s.name, field_shape, compression_level
+                    )
 
     def _write_cuboid_rows(self, grp, rows: np.ndarray, row0: int, values_per_pt):
         """Split linearized rows [n_rows, Npts*vpp] into per-cuboid 4D blocks."""
@@ -595,51 +597,63 @@ class StreamWriter:
             off_pts += npts
 
     def flush_emissions(self, emissions: dict[str, Any]) -> None:
-        """Write raw rows / one coefficient frame per compressed stream."""
-        for name, data in emissions.items():
-            if data is None:
-                continue
-            spec = self.specs[name]
-            if not spec.save:  # hidden dependency stream (doNotSave)
-                continue
-            ds = self.datasets[name]
-            if spec.op == "raw":
-                rows = _host(data)
+        """Write raw rows / one coefficient frame per compressed stream: every stream's
+        values to the host first (which waits for the device), then the writes."""
+        with span("kwave.flush.to_host"):
+            # a hidden dependency stream (doNotSave) is not written
+            host = {name: self._to_host(self.specs[name], data)
+                    for name, data in emissions.items() if data is not None
+                    and self.specs[name].save and self.specs[name].op in ("raw", "c")}
+        with span("kwave.flush.write"):
+            for name, data in host.items():
+                self._write_emission(name, data)
+
+    def _to_host(self, spec: StreamSpec, data) -> np.ndarray:
+        """A stream's emission as the host array that `_write_emission` writes: raw rows,
+        a 40-bit frame's 5*N*H bytes or a float frame's reference layout."""
+        if spec.op == "raw":
+            return _host(data)
+        if spec.mode40:
+            # emissions arrive as device-packed wire words; the payload is 5*N*H B
+            return bitpack.frame_wire_bytes(data, self.n_sensors * self.basis.harmonics)
+        return encoder.frames_to_flat_float(*data)
+
+    def _write_emission(self, name: str, data: np.ndarray) -> None:
+        spec, ds = self.specs[name], self.datasets[name]
+        if spec.op == "raw":
+            rows = data
+            if name in self.groups:
+                self._write_cuboid_rows(ds, rows, self.rows[name], 1)
+                self.rows[name] += rows.shape[0]
+                return
+            n = min(rows.shape[0], ds.shape[1] - self.rows[name])
+            if n > 0:
+                ds[0, self.rows[name] : self.rows[name] + n, :] = rows[:n]
+                self.rows[name] += n
+        elif spec.op == "c":
+            if spec.mode40:
+                flat = data
                 if name in self.groups:
-                    self._write_cuboid_rows(ds, rows, self.rows[name], 1)
-                    self.rows[name] += rows.shape[0]
-                    continue
-                n = min(rows.shape[0], ds.shape[1] - self.rows[name])
-                if n > 0:
-                    ds[0, self.rows[name] : self.rows[name] + n, :] = rows[:n]
-                    self.rows[name] += n
-            elif spec.op == "c":
-                if spec.mode40:
-                    # emissions arrive as device-packed wire words; the payload is 5*N*H B
-                    flat = bitpack.frame_wire_bytes(
-                        data, self.n_sensors * self.basis.harmonics
-                    )
-                    if name in self.groups:
-                        self._write_cuboid_40b(ds, flat, self.rows[name])
-                        self.rows[name] += 1
-                        continue
-                    if self.rows[name] >= ds.shape[1]:
-                        continue
-                    row = np.zeros(ds.shape[2], np.float32)
-                    row.view(np.uint8)[: flat.size] = flat
-                    ds[0, self.rows[name], :] = row
+                    self._write_cuboid_40b(ds, flat, self.rows[name])
                     self.rows[name] += 1
-                else:
-                    row = encoder.frames_to_flat_float(*data)
-                    if name in self.groups:
-                        self._write_cuboid_rows(ds, row.reshape(1, -1), self.rows[name],
-                                                2 * self.basis.harmonics)
-                        self.rows[name] += 1
-                        continue
-                    if self.rows[name] >= ds.shape[1]:
-                        continue
-                    ds[0, self.rows[name], :] = row.reshape(-1)
+                    return
+                if self.rows[name] >= ds.shape[1]:
+                    return
+                row = np.zeros(ds.shape[2], np.float32)
+                row.view(np.uint8)[: flat.size] = flat
+                ds[0, self.rows[name], :] = row
+                self.rows[name] += 1
+            else:
+                row = data
+                if name in self.groups:
+                    self._write_cuboid_rows(ds, row.reshape(1, -1), self.rows[name],
+                                            2 * self.basis.harmonics)
                     self.rows[name] += 1
+                    return
+                if self.rows[name] >= ds.shape[1]:
+                    return
+                ds[0, self.rows[name], :] = row.reshape(-1)
+                self.rows[name] += 1
 
     def flush_aggregates(self, finals: dict[str, np.ndarray]) -> None:
         for name, data in finals.items():

@@ -2,8 +2,12 @@
 `kwave_tpu.utils.observability`).
 
 - `Logger`: 3 verbosity levels (Logger/Logger.h:57-126).
-- `PhaseTimers`: wall-clock phase timing (Utils/TimeMeasure.h:54-140), split into
-  sampling vs non-sampling iteration buckets (printStatistics :2742-2780).
+- `span`: a `torch.profiler.record_function` range where a profiler is recording, else
+  a shared null context: the program's host work on the clock of the profiler's device
+  trace, at the cost of one flag check when no profiler runs.
+- `PhaseTimers`: wall-clock phase timing (Utils/TimeMeasure.h:54-140), each phase also a
+  `span` named ``kwave.<phase>``, split into sampling vs non-sampling iteration buckets
+  (printStatistics :2742-2780).
 - `write_run_info`: the output-file attribute block the reference writes per run
   (writeOutputDataInfo, KSpaceFirstOrderSolver.cpp:1100-1169); phase times are cumulated
   over checkpoint legs (`read_cumulated_times` + `PhaseTimers.restore_cumulated`).
@@ -11,12 +15,24 @@
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import time
 from typing import Optional
 
 import torch
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that marks ``name`` on the host timeline of a recording `torch.profiler`
+    (a ``user_annotation`` event, on the clock of its device events); without a
+    profiler, a shared null context, so that a span costs one flag check."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 class Logger:
@@ -48,12 +64,14 @@ class Logger:
 
 
 class PhaseTimers:
-    """Named phase stopwatches (TimeMeasure.h:126-140)."""
+    """Named phase stopwatches (TimeMeasure.h:126-140) on `time.perf_counter`; a running
+    phase is also the span ``kwave.<phase>``."""
 
     PHASES = ("data_load", "preprocessing", "simulation", "postprocessing", "total")
 
     def __init__(self):
         self._start: dict[str, float] = {}
+        self._spans: dict[str, contextlib.AbstractContextManager] = {}
         self._elapsed: dict[str, float] = {p: 0.0 for p in self.PHASES}
         self._cumulated: dict[str, float] = {p: 0.0 for p in self.PHASES}
         self.sampling_time = 0.0
@@ -62,10 +80,13 @@ class PhaseTimers:
         self.non_sampling_iters = 0
 
     def start(self, phase: str) -> None:
-        self._start[phase] = time.time()
+        self._spans[phase] = span(f"kwave.{phase}")
+        self._spans[phase].__enter__()
+        self._start[phase] = time.perf_counter()
 
     def stop(self, phase: str) -> float:
-        dt = time.time() - self._start.pop(phase)
+        dt = time.perf_counter() - self._start.pop(phase)
+        self._spans.pop(phase).__exit__(None, None, None)
         self._elapsed[phase] += dt
         return dt
 
@@ -85,13 +106,14 @@ class PhaseTimers:
             if k in self._cumulated:
                 self._cumulated[k] = float(v)
 
-    def add_iteration(self, seconds: float, sampled: bool) -> None:
+    def add_iterations(self, seconds: float, count: int, sampled: bool) -> None:
+        """``count`` time steps that took ``seconds`` together."""
         if sampled:
             self.sampling_time += seconds
-            self.sampling_iters += 1
+            self.sampling_iters += count
         else:
             self.non_sampling_time += seconds
-            self.non_sampling_iters += 1
+            self.non_sampling_iters += count
 
 
 def _peak_rss_mb() -> Optional[float]:

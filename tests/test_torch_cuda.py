@@ -1222,6 +1222,35 @@ def test_graph_windows_equal_eager_windows(flags):
 
 
 @pytest.mark.cuda
+def test_spans_count_the_windows_captures_and_replays_on_the_card():
+    """Under the profiler, with graphs on: `kwave.graph.capture` and `kwave.window.capture`
+    once a capture (2, as in the benchmark's jobs), `kwave.window.replay` and
+    `kwave.graph.launch` once a replay, as `driver.plan_windows` says."""
+    import collections
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from kwave_tpu_torch import driver, solver
+
+    require_cuda()
+    data = _graph_input((24, 24, 24), 8 * GRAPH_O + 3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, _, acts, _ = _graph_run(data, ["--p_raw", "--p_c", "--40-bit_complex"], True)
+    plan = driver.plan_windows(solver.SolverConfig(), GRAPH_O, 0, 8)
+    assert acts == [(t, a) for t, _, a in plan]
+    want = collections.Counter(a for *_, a in plan)
+    assert want["capture"] == 2 and want["replay"] == 5
+    # the host's spans; the profiler mirrors those that hold kernels on the device's
+    # timeline under the same names
+    got = collections.Counter(e.name for e in prof.events() if e.name.startswith("kwave.")
+                              and e.device_type == torch.autograd.DeviceType.CPU)
+    for action in ("eager", "capture", "replay"):
+        assert got[f"kwave.window.{action}"] == want[action], (action, got)
+    assert got["kwave.graph.capture"] == want["capture"]
+    assert got["kwave.graph.launch"] == want["replay"]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape,kernel", [((32, 24, 24), "radix"), ((24, 24, 24), "mixed"),
                                           ((46, 16, 16), "mixed"),  # 23 x 2: generic pass
                                           ((53, 16, 16), "bluestein"),
