@@ -1,5 +1,5 @@
 """k-space pseudospectral fluid solver in PyTorch (port of `kwave_tpu.solver`): operators
-built once on the host (`make_operators`), one pure `step` per timestep, and the main
+built once a run on its device (`make_operators`), one pure `step` per timestep, and the main
 loop `simulate` as a host loop over it."""
 
 from kwave_tpu_torch.solver.operators import Grid, Medium, Operators, make_operators

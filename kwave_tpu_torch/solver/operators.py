@@ -1,10 +1,13 @@
 """Spectral / PML / absorption operators for the k-space solver (port of
 `kwave_tpu.solver.operators`).
 
-The operators are generated once on the host in float64 NumPy with the reference's
-formulas (`preProcessing`, KSpaceFirstOrderSolver.cpp:784-861) and cast to float32 /
-complex64 tensors on the run's device. Spectral arrays use the rfft-reduced last (x) axis
-of size nx//2+1. Scalar (homogeneous) media stay 0-d tensors and broadcast.
+The operators are built once a run, on the run's device, with the reference's formulas
+(`preProcessing`, KSpaceFirstOrderSolver.cpp:784-861): the medium's arrays go to the
+device as the host holds them, the full-grid and spectral arrays are computed there in
+float64 torch and cast to float32, and the per-axis vectors (wavenumbers, derivative
+shifts, PML profiles) come from float64 NumPy on the host. Spectral arrays use the
+rfft-reduced last (x) axis of size nx//2+1. Scalar (homogeneous) media stay 0-d tensors
+and broadcast.
 
 Fields are ``[nz, ny, nx]`` (``[ny, nx]`` in 2D), x fastest, as in the reference.
 """
@@ -19,6 +22,13 @@ import numpy as np
 import torch
 
 from kwave_tpu_torch.utils.observability import span
+
+# `make_operators` calls by the type of the device that built them ("cuda", "cpu")
+BUILDS: dict[str, int] = {}
+
+
+def reset_build_counts() -> None:
+    BUILDS.clear()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,52 +131,99 @@ def _k_components(n: int, d: float) -> np.ndarray:
     return 2.0 * np.pi / d * (0.5 - np.abs(0.5 - i / n))
 
 
-def _k_grid(grid: Grid) -> np.ndarray:
-    """|k| over the reduced spectral grid, float64."""
-    kx = _k_components(grid.nx, grid.dx)[: grid.nx // 2 + 1]
-    ky = _k_components(grid.ny, grid.dy)
+def _k2_axes(grid: Grid) -> tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
+    """Squared wavenumbers of each axis, float64 on the host: x rfft-reduced, y, and z
+    (None in 2D)."""
+    kx2 = _k_components(grid.nx, grid.dx)[: grid.nx // 2 + 1] ** 2
+    ky2 = _k_components(grid.ny, grid.dy) ** 2
+    kz2 = _k_components(grid.nz, grid.dz) ** 2 if grid.dim == 3 else None
+    return kx2, ky2, kz2
+
+
+# the largest block that the CUDA caching allocator serves from its pool of small blocks
+_SMALL_BLOCK = 1 << 20
+
+
+def _spectral(grid: Grid, device, fn) -> torch.Tensor:
+    """``fn(|k|)`` over the reduced spectral grid, float32 on ``device``: ``fn`` takes
+    |k| in float64 and may change it, and runs on a slab of leading-axis planes at a
+    time. A slab's float64 temporaries fit the caching allocator's small blocks, so the
+    build leaves no freed float64 spectral array in its pool of large blocks: a float32
+    field of the grid placed there later would count the array's extra bytes
+    (nz * ny * 8) in the run's peak memory."""
+    kx2, ky2, kz2 = (None if v is None else torch.from_numpy(v).to(device)
+                     for v in _k2_axes(grid))
     if grid.dim == 2:
-        return np.sqrt(kx[None, :] ** 2 + ky[:, None] ** 2)
-    kz = _k_components(grid.nz, grid.dz)
-    return np.sqrt(
-        kx[None, None, :] ** 2 + ky[None, :, None] ** 2 + kz[:, None, None] ** 2
-    )
+        base, lead = kx2[None, :], ky2[:, None]
+    else:
+        base, lead = kx2[None, None, :] + ky2[None, :, None], kz2[:, None, None]
+    shape = (lead.shape[0],) + tuple(base.shape[1:])
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    rows = max(1, _SMALL_BLOCK // (8 * math.prod(shape[1:])))
+    for r in range(0, shape[0], rows):
+        out[r:r + rows] = fn((base + lead[r:r + rows]).sqrt_())
+    return out
 
 
-def make_kappa(grid: Grid, c_ref: float) -> np.ndarray:
+def _power(e: float, device):
+    """``x -> x ** e`` on float64 ``x`` as NumPy's ``**`` computes it: a square root at
+    e = 0.5, its general power otherwise. The exponent is a tensor on ``device``, which
+    keeps torch's scalar special cases (rsqrt at -0.5, reciprocals, cubes) out."""
+    if e == 0.5:
+        return torch.sqrt
+    exponent = torch.tensor(float(e), dtype=torch.float64, device=device)
+    return lambda x: torch.pow(x, exponent)
+
+
+def make_kappa(grid: Grid, c_ref: float, device="cpu") -> torch.Tensor:
     """sinc k-space correction, 1 at k=0 (generateKappa :2404-2452)."""
-    arg = (c_ref * grid.dt / 2.0) * _k_grid(grid)
-    with np.errstate(invalid="ignore"):
-        kap = np.where(arg == 0.0, 1.0, np.sin(arg) / np.where(arg == 0, 1.0, arg))
-    return kap.astype(np.float32)
+
+    def kappa(k):
+        arg = k.mul_(c_ref * grid.dt / 2.0)
+        zero = arg == 0.0
+        return torch.sin(arg).div_(arg.masked_fill_(zero, 1.0)).masked_fill_(zero, 1.0)
+
+    return _spectral(grid, device, kappa)
 
 
-def make_source_kappa(grid: Grid, c_ref: float) -> np.ndarray:
+def make_source_kappa(grid: Grid, c_ref: float, device="cpu") -> torch.Tensor:
     """cos(c_ref*dt*k/2) for additive-source correction (generateSourceKappa :2460-2506)."""
-    return np.cos((c_ref * grid.dt / 2.0) * _k_grid(grid)).astype(np.float32)
+    return _spectral(grid, device, lambda k: k.mul_(c_ref * grid.dt / 2.0).cos_())
 
 
-def make_absorb_nablas(grid: Grid, alpha_power: float):
+def make_absorb_nablas(grid: Grid, alpha_power: float, device="cpu"):
     """|k|^(y-2), |k|^(y-1) with inf -> 0 (generateKappaAndNablas :2568-2576)."""
-    k = _k_grid(grid)
-    with np.errstate(divide="ignore"):
-        n1 = k ** (alpha_power - 2.0)
-        n2 = k ** (alpha_power - 1.0)
-    n1[~np.isfinite(n1)] = 0.0
-    n2[~np.isfinite(n2)] = 0.0
-    return n1.astype(np.float32), n2.astype(np.float32)
+
+    def nabla(e):
+        power = _power(e, device)
+
+        def fn(k):
+            n = power(k)
+            return n.masked_fill_(~torch.isfinite(n), 0.0)
+        return fn
+
+    return tuple(_spectral(grid, device, nabla(e))
+                 for e in (alpha_power - 2.0, alpha_power - 1.0))
 
 
-def make_tau_eta(alpha_coeff, c0, alpha_power: float):
-    """Power-law absorption tau/eta (generateTauAndEta :2587-2652)."""
+def _alpha2(alpha_coeff: torch.Tensor, alpha_power: float) -> torch.Tensor:
+    """2 * alpha_coeff * alpha_np in float64, the prefactor of tau and eta, with
+    alpha_np = 100 * (1e-6 / (2*pi))^y / (20 * log10(e))."""
     alpha_np = (100.0 * (1.0e-6 / (2.0 * np.pi)) ** alpha_power) / (
         20.0 * math.log10(math.e)
     )
-    a2 = 2.0 * np.asarray(alpha_coeff, np.float64) * alpha_np
-    c = np.asarray(c0, np.float64)
-    tau = (-a2) * c ** (alpha_power - 1.0)
-    eta = a2 * (c**alpha_power) * math.tan(math.pi / 2.0 * alpha_power)
-    return tau.astype(np.float32), eta.astype(np.float32)
+    return alpha_coeff.double().mul(2.0).mul_(alpha_np)
+
+
+def make_tau_eta(alpha_coeff: torch.Tensor, c0: torch.Tensor, alpha_power: float):
+    """Power-law absorption tau/eta (generateTauAndEta :2587-2652) from ``alpha_coeff``
+    and ``c0``, 0-d or full tensors on the run's device."""
+    a2 = _alpha2(alpha_coeff, alpha_power)
+    c = c0.double()
+    tau = torch.mul(_power(alpha_power - 1.0, c.device)(c), a2).neg_().float()
+    eta = torch.mul(_power(alpha_power, c.device)(c), a2)
+    eta.mul_(math.tan(math.pi / 2.0 * alpha_power))
+    return tau, eta.float()
 
 
 def _signed_k(n: int, d: float, reduced: bool) -> np.ndarray:
@@ -211,13 +268,22 @@ def make_pml(n: int, size: int, alpha_max: float, c_ref: float, d: float, dt: fl
     return pml.astype(np.float32)
 
 
-def _stagger(rho: np.ndarray, axis: int) -> np.ndarray:
-    """Half-grid-forward linear interpolation with edge replication."""
-    fwd = np.roll(rho, -1, axis=axis)
-    idx = [slice(None)] * rho.ndim
-    idx[axis] = -1
-    fwd[tuple(idx)] = np.take(rho, -1, axis=axis)
-    return 0.5 * (rho + fwd)
+def _stagger(rho: torch.Tensor, axis: int) -> torch.Tensor:
+    """Half-grid-forward linear interpolation with edge replication, in float64 (float32
+    in and out)."""
+    n = rho.shape[axis]
+    fwd = torch.cat([rho.narrow(axis, 1, n - 1), rho.narrow(axis, n - 1, 1)], axis)
+    return fwd.double().add_(rho).mul_(0.5).float()
+
+
+def _upload(x, device, dtype=None) -> torch.Tensor:
+    """A host input on ``device``, as ``dtype`` or else as the host holds it: float32
+    stays float32, anything else goes as float64, so that the float64 formulas read the
+    host's value."""
+    a = np.asarray(x)
+    if dtype is None:
+        dtype = np.float32 if a.dtype == np.float32 else np.float64
+    return torch.from_numpy(np.asarray(a, dtype, order="C")).to(device)
 
 
 def make_operators(
@@ -233,137 +299,121 @@ def make_operators(
     compact: bool = False,
 ) -> Operators:
     """Build the full operator set for one simulation (reference preProcessing,
-    KSpaceFirstOrderSolver.cpp:784-861): float64 NumPy on the host, then float32 /
-    complex64 tensors on ``device``.
+    KSpaceFirstOrderSolver.cpp:784-861) on ``device``: the medium's arrays go there
+    first, and the full-grid and spectral arrays are computed there in float64 and cast
+    to float32 (complex64 for the per-axis spectral vectors, made on the host).
 
     ``compact=True`` leaves the radially symmetric spectral arrays (kappa, source_kappa,
     absorb_nabla1/2) and the c0-derived media fields (c2, absorb_tau/eta) out: the step
     rebuilds them on the device from the per-axis k^2 vectors and c0. The results agree
     to fp32 rounding."""
+    device = torch.device(device)
     with span("kwave.operators"):
-        with span("kwave.operators.build"):
-            host, c_ref = _host_operators(grid, medium, pml_size, pml_alpha, absorbing,
-                                          need_source_kappa, need_shift, nonuniform,
-                                          compact)
         with span("kwave.operators.to_device"):
-            return Operators(
-                **{k: None if v is None else torch.as_tensor(np.asarray(v)).to(device)
-                   for k, v in host.items()},
-                dt=float(grid.dt),
-                c_ref_dt_2=float(c_ref * grid.dt / 2.0),
-                alpha_power=float(medium.alpha_power),
-            )
+            inputs = _inputs(grid, medium, absorbing, nonuniform, device)
+        with span("kwave.operators.build"):
+            fields, c_ref = _build(grid, medium, inputs, pml_size, pml_alpha, absorbing,
+                                   need_source_kappa, need_shift, compact, device)
+        BUILDS[device.type] = BUILDS.get(device.type, 0) + 1
+        return Operators(**fields, dt=float(grid.dt),
+                         c_ref_dt_2=float(c_ref * grid.dt / 2.0),
+                         alpha_power=float(medium.alpha_power))
 
 
-def _host_operators(grid: Grid, medium: Medium, pml_size, pml_alpha, absorbing: bool,
-                    need_source_kappa: bool, need_shift: bool, nonuniform: Optional[dict],
-                    compact: bool) -> tuple[dict[str, Any], float]:
-    """`make_operators`' arrays on the host (None where the run needs none), by field
-    name, and the reference sound speed."""
-    c0 = np.asarray(medium.c0, np.float64)
+def _inputs(grid: Grid, medium: Medium, absorbing: bool, nonuniform: Optional[dict],
+            device: torch.device) -> dict[str, Optional[torch.Tensor]]:
+    """The medium's host inputs on ``device``, each once (None where absent): c0 and
+    alpha_coeff as the host holds them, rho0, the rho0_sg*, bona and the stretch maps as
+    float32 (the maps reshaped to their axis)."""
+    f32 = np.float32
+    up = {
+        "c0": _upload(medium.c0, device),
+        "rho0": _upload(medium.rho0, device, f32),
+        "alpha_coeff": _upload(medium.alpha_coeff, device) if absorbing else None,
+        "bona": None if medium.bona is None else _upload(medium.bona, device, f32),
+    }
+    for name in ("rho0_sgx", "rho0_sgy", "rho0_sgz"):
+        given = getattr(medium, name)
+        up[name] = None if given is None else _upload(given, device, f32)
+    sizes = {"x": grid.nx, "y": grid.ny, "z": grid.nz}
+    for a in "xyz" if nonuniform else ():
+        for name in (f"d{a}ud{a}n", f"d{a}ud{a}n_sg{a}"):
+            v = nonuniform.get(name)
+            if v is not None and (a != "z" or grid.dim == 3):
+                up[name] = _upload(np.asarray(v, f32).reshape(sizes[a]), device)
+    return up
+
+
+def _build(grid: Grid, medium: Medium, up: dict, pml_size, pml_alpha, absorbing: bool,
+           need_source_kappa: bool, need_shift: bool, compact: bool,
+           device: torch.device) -> tuple[dict[str, Any], float]:
+    """`make_operators`' arrays on ``device`` (None where the run needs none), by field
+    name, and the reference sound speed. One float64 array at a time: each temporary is
+    gone before the next array starts."""
+    c0 = up["c0"]
     c_ref = float(medium.c_ref) if medium.c_ref is not None else float(c0.max())
     dim = grid.dim
 
-    kappa = nabla1 = nabla2 = tau = eta = None
-    k2_x = k2_y = k2_z = alpha2 = None
-    if compact:
-        k2_x = (_k_components(grid.nx, grid.dx)[: grid.nx // 2 + 1] ** 2).astype(np.float32)
-        k2_y = (_k_components(grid.ny, grid.dy) ** 2).astype(np.float32)
-        if dim == 3:
-            k2_z = (_k_components(grid.nz, grid.dz) ** 2).astype(np.float32)
-        if absorbing:
-            alpha_np = (100.0 * (1.0e-6 / (2.0 * np.pi)) ** medium.alpha_power) / (
-                20.0 * math.log10(math.e)
-            )
-            alpha2 = np.asarray(
-                2.0 * np.asarray(medium.alpha_coeff, np.float64) * alpha_np, np.float32
-            )
-    else:
-        kappa = make_kappa(grid, c_ref)
-        if absorbing:
-            nabla1, nabla2 = make_absorb_nablas(grid, medium.alpha_power)
-            tau, eta = make_tau_eta(medium.alpha_coeff, medium.c0, medium.alpha_power)
+    def vec(v, dtype=None):
+        return None if v is None else torch.from_numpy(np.asarray(v, dtype)).to(device)
 
-    ddx_pos, ddx_neg = make_ddk_shift(grid.nx, grid.dx, reduced=True)
-    ddy_pos, ddy_neg = make_ddk_shift(grid.ny, grid.dy, reduced=False)
-    ddz_pos = ddz_neg = None
+    out: dict[str, Any] = {f.name: None for f in dataclasses.fields(Operators)
+                           if f.name not in ("dt", "c_ref_dt_2", "alpha_power")}
+    if compact:
+        for name, k2 in zip(("k2_x", "k2_y", "k2_z"), _k2_axes(grid)):
+            out[name] = vec(k2, np.float32)
+        if absorbing:
+            out["alpha2"] = _alpha2(up["alpha_coeff"], medium.alpha_power).float()
+        out["c0"] = c0.float()
+    else:
+        out["kappa"] = make_kappa(grid, c_ref, device)
+        if absorbing:
+            out["absorb_nabla1"], out["absorb_nabla2"] = make_absorb_nablas(
+                grid, medium.alpha_power, device)
+            out["absorb_tau"], out["absorb_eta"] = make_tau_eta(
+                up["alpha_coeff"], c0, medium.alpha_power)
+        c = c0.double()
+        out["c2"] = torch.mul(c, c).float()
+        del c
+        if need_source_kappa:
+            out["source_kappa"] = make_source_kappa(grid, c_ref, device)
+
+    out["ddx_pos"], out["ddx_neg"] = map(vec, make_ddk_shift(grid.nx, grid.dx, True))
+    out["ddy_pos"], out["ddy_neg"] = map(vec, make_ddk_shift(grid.ny, grid.dy, False))
     if dim == 3:
-        ddz_pos, ddz_neg = make_ddk_shift(grid.nz, grid.dz, reduced=False)
+        out["ddz_pos"], out["ddz_neg"] = map(vec, make_ddk_shift(grid.nz, grid.dz, False))
 
     psz = tuple(pml_size) + (0,) * (3 - len(tuple(pml_size)))
     pal = tuple(pml_alpha) + (0.0,) * (3 - len(tuple(pml_alpha)))
-    pml = {
-        "pml_x": make_pml(grid.nx, psz[0], pal[0], c_ref, grid.dx, grid.dt, False),
-        "pml_y": make_pml(grid.ny, psz[1], pal[1], c_ref, grid.dy, grid.dt, False),
-        "pml_x_sgx": make_pml(grid.nx, psz[0], pal[0], c_ref, grid.dx, grid.dt, True),
-        "pml_y_sgy": make_pml(grid.ny, psz[1], pal[1], c_ref, grid.dy, grid.dt, True),
-        "pml_z": None,
-        "pml_z_sgz": None,
-    }
-    if dim == 3:
-        pml["pml_z"] = make_pml(grid.nz, psz[2], pal[2], c_ref, grid.dz, grid.dt, False)
-        pml["pml_z_sgz"] = make_pml(grid.nz, psz[2], pal[2], c_ref, grid.dz, grid.dt, True)
+    for i, (a, n, d) in enumerate(zip("xyz"[:dim], (grid.nx, grid.ny, grid.nz),
+                                      (grid.dx, grid.dy, grid.dz))):
+        out[f"pml_{a}"] = vec(make_pml(n, psz[i], pal[i], c_ref, d, grid.dt, False))
+        out[f"pml_{a}_sg{a}"] = vec(make_pml(n, psz[i], pal[i], c_ref, d, grid.dt, True))
 
-    rho0 = np.asarray(medium.rho0, np.float32)
+    # dt / rho0_sg in float32, the staggered densities interpolated in float64 where the
+    # input gives none; the staggered stretch maps fold in (generateInitialDenisty
+    # :2685-2694). Axis order [z, y, x] (or [y, x] in 2D): x is the last axis.
+    rho0 = up["rho0"]
+    dt = torch.tensor(np.float32(grid.dt), device=device)
+    for a, axis, bshape in (("x", dim - 1, (1,) * (dim - 1) + (grid.nx,)),
+                            ("y", dim - 2, (1,) * (dim - 2) + (grid.ny, 1)),
+                            ("z", 0, (grid.nz, 1, 1)))[:dim]:
+        sg = up[f"rho0_sg{a}"]
+        if sg is None:
+            sg = rho0 if rho0.ndim == 0 else _stagger(rho0, axis)
+        dt_rho0 = torch.div(dt, sg)
+        del sg
+        stretch = up.get(f"d{a}ud{a}n_sg{a}")
+        if stretch is not None:
+            dt_rho0 = dt_rho0 * stretch.reshape(bshape)
+        out[f"dt_rho0_sg{a}"] = dt_rho0
+        out[f"d{a}ud{a}n"] = up.get(f"d{a}ud{a}n")
 
-    def sg(given, axis):
-        if given is not None:
-            return np.asarray(given, np.float32)
-        if rho0.ndim == 0:
-            return rho0
-        return _stagger(rho0.astype(np.float64), axis).astype(np.float32)
-
-    # axis order [z, y, x] (or [y, x] in 2D): x is the last axis
-    ax_x, ax_y, ax_z = (dim - 1, dim - 2, 0)
-    dt = np.float32(grid.dt)
-    dt_rho0_sgx = (dt / sg(medium.rho0_sgx, ax_x)).astype(np.float32)
-    dt_rho0_sgy = (dt / sg(medium.rho0_sgy, ax_y)).astype(np.float32)
-    dt_rho0_sgz = (dt / sg(medium.rho0_sgz, ax_z)).astype(np.float32) if dim == 3 else None
-
-    dxudxn = dyudyn = dzudzn = None
-    if nonuniform:
-        # staggered stretch maps fold into dt/rho0_sg (generateInitialDenisty :2685-2694);
-        # regular maps scale the velocity gradients
-        def vec(name, n):
-            v = nonuniform.get(name)
-            return None if v is None else np.asarray(v, np.float32).reshape(n)
-
-        sgx = vec("dxudxn_sgx", grid.nx)
-        sgy = vec("dyudyn_sgy", grid.ny)
-        sgz = vec("dzudzn_sgz", grid.nz) if dim == 3 else None
-        bx = (1,) * (dim - 1) + (grid.nx,)
-        by = (1,) * (dim - 2) + (grid.ny,) + (1,)
-        if sgx is not None:
-            dt_rho0_sgx = (dt_rho0_sgx * sgx.reshape(bx)).astype(np.float32)
-        if sgy is not None:
-            dt_rho0_sgy = (dt_rho0_sgy * sgy.reshape(by)).astype(np.float32)
-        if dim == 3 and sgz is not None:
-            dt_rho0_sgz = (dt_rho0_sgz * sgz.reshape(grid.nz, 1, 1)).astype(np.float32)
-        dxudxn = vec("dxudxn", grid.nx)
-        dyudyn = vec("dyudyn", grid.ny)
-        dzudzn = vec("dzudzn", grid.nz) if dim == 3 else None
-
-    host = dict(
-        kappa=kappa,
-        ddx_pos=ddx_pos, ddx_neg=ddx_neg,
-        ddy_pos=ddy_pos, ddy_neg=ddy_neg,
-        ddz_pos=ddz_pos, ddz_neg=ddz_neg,
-        **pml,
-        dt_rho0_sgx=dt_rho0_sgx, dt_rho0_sgy=dt_rho0_sgy, dt_rho0_sgz=dt_rho0_sgz,
-        rho0=rho0,
-        c2=None if compact else (c0 * c0).astype(np.float32),
-        bona=None if medium.bona is None else np.asarray(medium.bona, np.float32),
-        absorb_nabla1=nabla1, absorb_nabla2=nabla2,
-        absorb_tau=tau, absorb_eta=eta,
-        source_kappa=(make_source_kappa(grid, c_ref)
-                      if need_source_kappa and not compact else None),
+    out["rho0"] = rho0
+    out["bona"] = up["bona"]
+    if need_shift:
         # each shift is a 1D rfft along its own axis, so all three are rfft-reduced
-        shift_x_neg=make_shift_neg(grid.nx, grid.dx, True) if need_shift else None,
-        shift_y_neg=make_shift_neg(grid.ny, grid.dy, True) if need_shift else None,
-        shift_z_neg=(make_shift_neg(grid.nz, grid.dz, True)
-                     if need_shift and dim == 3 else None),
-        dxudxn=dxudxn, dyudyn=dyudyn, dzudzn=dzudzn,
-        k2_x=k2_x, k2_y=k2_y, k2_z=k2_z,
-        c0=c0.astype(np.float32) if compact else None, alpha2=alpha2,
-    )
-    return host, c_ref
+        for a, n, d in zip("xyz"[:dim], (grid.nx, grid.ny, grid.nz),
+                           (grid.dx, grid.dy, grid.dz)):
+            out[f"shift_{a}_neg"] = vec(make_shift_neg(n, d, True))
+    return out, c_ref

@@ -1000,6 +1000,68 @@ def test_fused_step_on_the_card_matches_unfused():
     assert float((out[1] - out[0]).abs().max()) <= 2e-4 * float(out[0].abs().max())
 
 
+@pytest.mark.cuda
+def test_operators_built_on_the_card_match_the_cpu_build():
+    """The benchmark cell's build (128^3, heterogeneous c0 and rho0, absorbing, PML 10) on
+    the card against the same build on the CPU: the per-axis vectors (made on the host)
+    equal, every full-grid and spectral array within 1 float32 ulp (float64 sin, pow and
+    their kin differ by an ulp or two between the card's and the CPU's libraries, which
+    the cast to float32 hides nearly everywhere), and the build's peak memory below that
+    of one eager step that follows it."""
+    import dataclasses
+
+    from kwave_tpu_torch import solver
+    from kwave_tpu_torch.solver import operators
+
+    dev = require_cuda()
+    n = 128
+    dt = float(np.float32(0.3 * 1e-4 / 1600.0))
+    grid = solver.Grid(nx=n, ny=n, nz=n, dx=1e-4, dy=1e-4, dz=1e-4, dt=dt, nt=8)
+    rng = np.random.default_rng(128)
+    medium = solver.Medium(c0=(1500.0 + 100.0 * rng.random(grid.shape)).astype(np.float32),
+                           rho0=(1000.0 + 50.0 * rng.random(grid.shape)).astype(np.float32),
+                           alpha_coeff=0.75, alpha_power=1.5)
+    args = (grid, medium, (10, 10, 10), (2.0,) * 3)
+    cpu = solver.make_operators(*args, absorbing=True, device="cpu")
+    builds = operators.BUILDS.get("cuda", 0)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    card = solver.make_operators(*args, absorbing=True, device=dev)
+    torch.cuda.synchronize(dev)
+    build_peak = torch.cuda.max_memory_allocated(dev)
+    assert operators.BUILDS["cuda"] == builds + 1
+
+    differ = {}
+    for f in dataclasses.fields(card):
+        a, b = getattr(card, f.name), getattr(cpu, f.name)
+        if not isinstance(a, torch.Tensor):
+            assert a == b, f.name
+            continue
+        assert a.device.type == "cuda" and a.dtype == b.dtype and a.shape == b.shape, f.name
+        a = a.cpu()
+        if a.ndim <= 1:
+            assert torch.equal(a, b), f.name
+            continue
+        ia, ib = (x.view(torch.int32).long() for x in (a, b))
+        # the float32 order as integers: one ulp apart is 1 apart, across zero too
+        ia, ib = (torch.where(x < 0, -(x & 0x7FFFFFFF), x) for x in (ia, ib))
+        ulps = (ia - ib).abs()
+        differ[f.name] = int((ulps > 0).sum())
+        assert int(ulps.max()) <= 1, f"{f.name}: {int(ulps.max())} ulps"
+    print(f"elements that differ by 1 ulp, card vs CPU: {differ}")
+
+    p0 = torch.zeros(grid.shape, device=dev)
+    p0[n // 2, n // 2, n // 2] = 1e5
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = solver.add_initial_pressure(solver.init_state(grid, dev), card, p0)
+    state = solver.step(state, 1, card, solver.Sources(), solver.SolverConfig(absorbing=True))
+    torch.cuda.synchronize(dev)
+    step_peak = torch.cuda.max_memory_allocated(dev)
+    print(f"peak memory: build {build_peak / 2**20:.1f} MiB, with one eager step "
+          f"{step_peak / 2**20:.1f} MiB")
+    assert build_peak < step_peak
+
+
 @pytest.mark.parametrize("n", [96, 101, 128])
 def test_postproc_spectral_ops_on_the_card_match_the_cpu(n):
     """The half-step time shift and the Q term's derivative multiply the Nyquist bin (even

@@ -52,12 +52,81 @@ def _jax_ops(kw, medium, pml):
                                   absorbing=True, need_source_kappa=True, need_shift=True)
 
 
-@pytest.mark.parametrize("dim", [2, 3])
-def test_operators_match_the_jax_package(dim):
+def _medium_case(dim, *, compact=False, scalar=False, given_sg=False, stretched=False,
+                 fields=False, float64=False, alpha_power=1.5, lossless=False):
+    """The build's inputs for one branch of `make_operators`: the test's heterogeneous
+    medium, or scalar c0 / rho0, given rho0_sg*, nonuniform stretch maps, a
+    heterogeneous alpha_coeff and bona, float64 host arrays, another power law, or no
+    absorption; 2D or 3D, full or compact. Returns (grid kwargs, medium kwargs, pml,
+    make_operators kwargs)."""
     kw, medium, pml, _, _ = _setup(dim, nonlinear=True)
+    shape = (kw["ny"], kw["nx"]) if dim == 2 else (kw["nz"], kw["ny"], kw["nx"])
+    rng = np.random.default_rng(100 + dim)
+    medium["alpha_power"] = alpha_power
+    if scalar:
+        medium.update(c0=1512.5, rho0=1021.25)
+    if given_sg:
+        for a in "xyz"[:dim]:
+            medium[f"rho0_sg{a}"] = (1000.0 + 50.0 * rng.random(shape)).astype(np.float32)
+    if fields:
+        medium["alpha_coeff"] = (0.5 + rng.random(shape)).astype(np.float32)
+        medium["bona"] = (5.0 + rng.random(shape)).astype(np.float32)
+    if float64:
+        medium.update(c0=medium["c0"].astype(np.float64) + 1e-9 * rng.random(shape),
+                      alpha_coeff=np.float64(0.7512345678))
+    options = dict(absorbing=not lossless, need_source_kappa=not lossless,
+                   need_shift=not lossless, compact=compact)
+    if stretched:
+        maps = {}
+        for a, n in zip("xyz", (kw["nx"], kw["ny"], kw["nz"])):
+            maps[f"d{a}ud{a}n"] = (1.0 + 0.1 * rng.random(n)).astype(np.float32)
+            maps[f"d{a}ud{a}n_sg{a}"] = (1.0 + 0.1 * rng.random(n)).astype(np.float32)
+        options["nonuniform"] = maps
+    return kw, medium, pml, options
+
+
+OPERATOR_CASES = {
+    "2": dict(dim=2),
+    "3": dict(dim=3),
+    "2-compact": dict(dim=2, compact=True),
+    "3-compact": dict(dim=3, compact=True),
+    "2-scalar": dict(dim=2, scalar=True),
+    "3-scalar": dict(dim=3, scalar=True),
+    "3-scalar-compact": dict(dim=3, scalar=True, compact=True),
+    "2-given-sg": dict(dim=2, given_sg=True),
+    "3-given-sg": dict(dim=3, given_sg=True),
+    "2-stretched": dict(dim=2, stretched=True),
+    "3-stretched": dict(dim=3, stretched=True),
+    "3-stretched-scalar": dict(dim=3, stretched=True, scalar=True),
+    "3-stretched-compact": dict(dim=3, stretched=True, compact=True),
+    "3-alpha-and-bona-fields": dict(dim=3, fields=True),
+    "3-alpha-field-compact": dict(dim=3, fields=True, compact=True),
+    "3-float64-host": dict(dim=3, float64=True),
+    "3-power-1.2": dict(dim=3, alpha_power=1.2),
+    "3-power-2": dict(dim=3, alpha_power=2.0),
+    "3-lossless": dict(dim=3, lossless=True),
+    # the spectral arrays in slabs of 5 planes (the last one short) instead of one
+    "2-slabs": dict(dim=2, slab_planes=5),
+    "3-slabs": dict(dim=3, slab_planes=5),
+}
+
+
+@pytest.mark.parametrize("case", list(OPERATOR_CASES))
+def test_operators_match_the_jax_package(case, monkeypatch):
+    """Every field of the build, on each of its branches, bit for bit against the JAX
+    package's float64 NumPy build."""
+    from kwave_tpu_torch.solver import operators
+
+    case = dict(OPERATOR_CASES[case])
+    planes = case.pop("slab_planes", None)
+    kw, medium, pml, options = _medium_case(**case)
+    if planes is not None:
+        plane = kw["nx"] // 2 + 1 if case["dim"] == 2 else kw["ny"] * (kw["nx"] // 2 + 1)
+        monkeypatch.setattr(operators, "_SMALL_BLOCK", planes * 8 * plane)
     mine = solver.make_operators(solver.Grid(**kw), solver.Medium(**medium), *pml,
-                                 absorbing=True, need_source_kappa=True, need_shift=True)
-    carried = convert.operators_from_jax(_jax_ops(kw, medium, pml))
+                                 **options)
+    carried = convert.operators_from_jax(jsolver.make_operators(
+        jsolver.Grid(**kw), jsolver.Medium(**medium), *pml, **options))
     for f in dataclasses.fields(mine):
         a, b = getattr(mine, f.name), getattr(carried, f.name)
         if not isinstance(a, torch.Tensor):  # None, or dt and the other host floats
@@ -65,6 +134,26 @@ def test_operators_match_the_jax_package(dim):
             continue
         assert a.dtype == b.dtype, f.name
         assert torch.equal(a, b), f.name
+    if case.get("compact"):
+        assert mine.kappa is None and mine.k2_x is not None
+    else:
+        assert mine.kappa is not None and mine.k2_x is None
+
+
+def test_operators_count_their_builds_by_device_type():
+    """`operators.BUILDS` counts each `make_operators` call under its device's type, and
+    `reset_build_counts` empties it."""
+    from kwave_tpu_torch.solver import operators
+
+    kw, medium, pml, options = _medium_case(2)
+    operators.reset_build_counts()
+    assert operators.BUILDS == {}
+    for device in ("cpu", torch.device("cpu")):
+        solver.make_operators(solver.Grid(**kw), solver.Medium(**medium), *pml,
+                              device=device, **options)
+    assert operators.BUILDS == {"cpu": 2}
+    operators.reset_build_counts()
+    assert operators.BUILDS == {}
 
 
 @pytest.mark.parametrize("nonlinear", [False, True])
