@@ -49,6 +49,7 @@ from kwave_tpu_torch.io import checkpoint as ckpt_io
 from kwave_tpu_torch.io.h5file import File, FormatError
 from kwave_tpu_torch.io.input_file import InputData
 from kwave_tpu_torch.io.output_file import create_output_file
+from kwave_tpu_torch.parallel.comm import TRADES
 from kwave_tpu_torch.parallel.sharded import Sharded
 from kwave_tpu_torch.sampling import sample_index
 from kwave_tpu_torch.solver import (
@@ -263,6 +264,7 @@ def _run_window(r: _Run, sim_state: SimState, stream_states: list, t0, steps: in
     rows: dict[str, list] = {w: [] for w in r.wanted}
     states = [dict(st) for st in stream_states]
     for i in range(steps):
+        TRADES.begin_step()
         if peel_p0 and i == 0:
             sim_state = add_initial_pressure(sim_state, r.ops, r.src.p0, r.spectral_multi,
                                              r.fft)
@@ -271,6 +273,7 @@ def _run_window(r: _Run, sim_state: SimState, stream_states: list, t0, steps: in
                              r.fft, phase)
         for w, v in _gather_sources(sim_state, r.ops, r.mask, r.wanted, r.fft).items():
             rows[w].append(v)
+        TRADES.end_step()
         # whole-domain extrema fold every sampled step's state (cudaSampleAll)
         for s in r.whole_domain:
             field = getattr(sim_state, s.source).reshape(-1)
@@ -523,7 +526,8 @@ class _Edge:
     """The host edge of a run: what crosses from the shards to the writer. On one device
     the values go to the writer as they are; on a mesh each value is gathered
     (`WriterGather`: point to point to process 0 when there are several processes) and
-    put in the mask's order, and only the writer gets a result (None elsewhere)."""
+    put in the mask's order, and only the writer gets a result (None elsewhere); each
+    such call on a mesh is the span ``kwave.edge``."""
 
     def __init__(self, mesh, sensors, specs, basis):
         self.mesh, self.sensors, self.specs, self.basis = mesh, sensors, specs, basis
@@ -548,6 +552,10 @@ class _Edge:
         """One window's emissions (one dict a shard) -> the writer's dict."""
         if self.mesh is None:
             return emissions[0]
+        with span("kwave.edge"):
+            return self._emissions(emissions)
+
+    def _emissions(self, emissions: list) -> Optional[dict]:
         h = self.basis.harmonics if self.basis is not None else 0
         tree = {}
         for s in self.specs:
@@ -588,29 +596,33 @@ class _Edge:
         """The stream states -> one global state dict (writer only on a mesh)."""
         if self.mesh is None:
             return states[0]
-        got = self._host(streams.state_pieces(states, self.specs, self.mesh.shard_ids))
-        return None if got is None else streams.join_states(got, self.specs, self.sensors)
+        with span("kwave.edge"):
+            got = self._host(streams.state_pieces(states, self.specs, self.mesh.shard_ids))
+            return None if got is None else streams.join_states(got, self.specs,
+                                                                self.sensors)
 
     def aggregates(self, finals: list) -> Optional[dict]:
         """Finalized aggregates (one dict a shard) -> the writer's dict."""
         if self.mesh is None:
             return finals[0]
-        whole = {s.name for s in self.specs if s.op in ("max_all", "min_all")}
-        tree = {name: self._pieces([torch.from_numpy(np.ascontiguousarray(f[name]))
-                                    for f in finals], 0 if name in whole else -1)
-                for name in finals[0]}
-        tree = self._host(tree)
-        if tree is None:
-            return None
-        return {name: v if name in whole else sampling.in_mask_order(v, self.sensors)
-                for name, v in tree.items()}
+        with span("kwave.edge"):
+            whole = {s.name for s in self.specs if s.op in ("max_all", "min_all")}
+            tree = {name: self._pieces([torch.from_numpy(np.ascontiguousarray(f[name]))
+                                        for f in finals], 0 if name in whole else -1)
+                    for name in finals[0]}
+            tree = self._host(tree)
+            if tree is None:
+                return None
+            return {name: v if name in whole else sampling.in_mask_order(v, self.sensors)
+                    for name, v in tree.items()}
 
     def fields(self, fields: dict) -> Optional[dict]:
         """Fields (z-slabs on a mesh) -> whole fields on the writer."""
         if self.mesh is None:
             return fields
-        return self._host({k: None if v is None else self._pieces(v.shards, 0)
-                           for k, v in fields.items()})
+        with span("kwave.edge"):
+            return self._host({k: None if v is None else self._pieces(v.shards, 0)
+                               for k, v in fields.items()})
 
 
 def run_simulation(data: InputData, run: RunConfig, output,
@@ -705,7 +717,7 @@ def run_simulation(data: InputData, run: RunConfig, output,
     if mesh is not None:
         from kwave_tpu_torch.parallel import pencil_fft, shard_operators
 
-        with span("kwave.operators"):
+        with span("kwave.operators.shard"):
             ops = shard_operators(ops, grid.dim, mesh, grid=grid)
         fft = pencil_fft(mesh, grid.nx)
         if run.fuse_z:

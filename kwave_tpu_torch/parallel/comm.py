@@ -17,6 +17,8 @@ destination card's current stream and before the destination's next op (in a cap
 those streams are the capture's, so the events are the graph's edges); and NCCL's
 `all_to_all_single` joins the current stream of its buffer's card (the capturing stream
 there) by events, with no wait on the host.
+
+`TRADES` counts the bytes that one step's in-process trades send between shards.
 """
 
 from __future__ import annotations
@@ -35,6 +37,48 @@ def _chunks(x: torch.Tensor, s: int, dim: int) -> list[torch.Tensor]:
     return list(torch.chunk(x, s, dim))
 
 
+class TradeCounter:
+    """A program counter of `InProcess.all_to_all`: the bytes that the trades of one
+    solver step send from one shard to another (shard i's block j, i != j), by source
+    shard i, in ``step["sent"]``, and of those, in ``step["between_cards"]``, the bytes
+    whose two shards lie on different devices (each such block is one copy over the link
+    between them).
+
+    The host counts a trade as it issues it, in an eager window and in a capture's
+    recording pass; a replayed graph issues nothing on the host and sends what its
+    capture counted. `driver._run_window` brackets each step of a window and its sensor
+    gather with `begin_step` and `end_step`: the step's counts then replace the last
+    step's (a step that traded nothing, on one device, leaves them)."""
+
+    def __init__(self):
+        self.step: dict[str, dict[int, int]] = {}
+        self._open: dict[str, dict[int, int]] = {}
+
+    def begin_step(self) -> None:
+        self._open = {}
+
+    def end_step(self) -> None:
+        if self._open:
+            self.step, self._open = self._open, {}
+
+    def _add(self, kind: str, shard: int, n: int) -> None:
+        got = self._open.setdefault(kind, {})
+        got[shard] = got.get(shard, 0) + n
+
+    def count(self, blocks: list[list[torch.Tensor]], devices: list[torch.device]) -> None:
+        """One trade: ``blocks[i][j]`` goes from shard i (on ``devices[i]``) to j."""
+        for i, row in enumerate(blocks):
+            for j, b in enumerate(row):
+                if i != j:
+                    n = b.numel() * b.element_size()
+                    self._add("sent", i, n)
+                    if devices[i] != devices[j]:
+                        self._add("between_cards", i, n)
+
+
+TRADES = TradeCounter()
+
+
 class InProcess:
     """All S shards in this process."""
 
@@ -50,6 +94,7 @@ class InProcess:
         of each shard's data."""
         s = self.size
         blocks = [_chunks(p, s, split_dim) for p in parts]
+        TRADES.count(blocks, [p.device for p in parts])
         return [torch.cat([blocks[i][j].to(parts[j].device) for i in range(s)],
                           dim=concat_dim) for j in range(s)]
 
