@@ -10,11 +10,15 @@
 
 Both take and return lists of this process's shard tensors, in shard order. A trade
 neither waits on the host nor allocates outside PyTorch's allocator, so a CUDA graph can
-hold it (`Mesh.graph_devices`): on one card `InProcess` is a `torch.cat` of views (the
-`.to` of a block to its own device is the block itself); across cards each `.to` is a
-peer copy on the source card's current stream, which PyTorch orders by events after the
-destination card's current stream and before the destination's next op (in a capture
-those streams are the capture's, so the events are the graph's edges); and NCCL's
+hold it (`Mesh.graph_devices`). `InProcess` takes one of two paths, by the parts' devices
+alone: where every shard lies on a CUDA card of its own and every ordered pair of those
+cards has peer access, each block is copied straight into its slot of the receiver's
+buffer, with the receivers' fences on a side stream a card (`_PeerTrade`); otherwise (the
+CPU, shards that share a card, cards without peer access) each block's ``.to`` goes to
+the receiver, which concatenates them with `torch.cat` (`_cat`). PyTorch issues a copy
+between cards on the source card's current stream, after an event of the destination
+card's current stream, and makes the destination's current stream wait for it; in a
+capture those streams are the capture's, so the events are the graph's edges. NCCL's
 `all_to_all_single` joins the current stream of its buffer's card (the capturing stream
 there) by events, with no wait on the host.
 
@@ -40,9 +44,10 @@ def _chunks(x: torch.Tensor, s: int, dim: int) -> list[torch.Tensor]:
 class TradeCounter:
     """A program counter of `InProcess.all_to_all`: the bytes that the trades of one
     solver step send from one shard to another (shard i's block j, i != j), by source
-    shard i, in ``step["sent"]``, and of those, in ``step["between_cards"]``, the bytes
+    shard i, in ``step["sent"]``; of those, in ``step["between_cards"]``, the bytes
     whose two shards lie on different devices (each such block is one copy over the link
-    between them).
+    between them); and in ``step["direct"]``, the bytes that the peer path (`_PeerTrade`)
+    wrote straight into a receiver's slot (the key appears only where that path ran).
 
     The host counts a trade as it issues it, in an eager window and in a capture's
     recording pass; a replayed graph issues nothing on the host and sends what its
@@ -65,8 +70,10 @@ class TradeCounter:
         got = self._open.setdefault(kind, {})
         got[shard] = got.get(shard, 0) + n
 
-    def count(self, blocks: list[list[torch.Tensor]], devices: list[torch.device]) -> None:
-        """One trade: ``blocks[i][j]`` goes from shard i (on ``devices[i]``) to j."""
+    def count(self, blocks: list[list[torch.Tensor]], devices: list[torch.device],
+              direct: bool = False) -> None:
+        """One trade: ``blocks[i][j]`` goes from shard i (on ``devices[i]``) to j, by the
+        peer path where ``direct``."""
         for i, row in enumerate(blocks):
             for j, b in enumerate(row):
                 if i != j:
@@ -74,9 +81,96 @@ class TradeCounter:
                     self._add("sent", i, n)
                     if devices[i] != devices[j]:
                         self._add("between_cards", i, n)
+                    if direct:
+                        self._add("direct", i, n)
 
 
 TRADES = TradeCounter()
+
+
+def _receiver(blocks: list[list[torch.Tensor]], j: int,
+              concat_dim: int) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    """Shard j's buffer as `torch.cat` of the blocks it gets makes it (contiguous, on
+    shard j's device), left empty, and its slot for each source shard's block."""
+    got = [row[j] for row in blocks]
+    lengths = [b.shape[concat_dim] for b in got]
+    shape = list(got[j].shape)
+    shape[concat_dim] = sum(lengths)
+    out = torch.empty(shape, dtype=got[j].dtype, device=got[j].device)
+    return out, list(torch.split(out, lengths, concat_dim))
+
+
+def _cat(blocks: list[list[torch.Tensor]], devices: list[torch.device],
+         concat_dim: int) -> list[torch.Tensor]:
+    """The trade as each receiver's `torch.cat` of its blocks, each brought over by
+    ``.to``: on any devices."""
+    return [torch.cat([row[j].to(d) for row in blocks], dim=concat_dim)
+            for j, d in enumerate(devices)]
+
+
+class _PeerTrade:
+    """The trade of S shards on S CUDA cards with peer access between every ordered pair:
+    each block copied once, straight into its slot of the receiver's buffer, with
+    PyTorch's own copy.
+
+    PyTorch fences a copy between cards both ways: the source card's current stream waits
+    for the destination card's current stream before the copy, and the destination's
+    waits for the source's after it. Made on the receivers' current streams, those fences
+    chain a trade's copies across the cards (a card's next outgoing copy waits for every
+    block it has received). Here each card j has one side stream, which forks from j's
+    current stream, copies the block j keeps and is j's current stream for the fences of
+    the blocks j receives; j's current stream joins it at the end. A card's outgoing
+    copies run one after another on its own current stream (they share its link) and wait
+    for none of its incoming ones; they go in S - 1 rounds, card i sending to i + k in
+    round k, so that each receiver takes one block a round, after its kept block, and a
+    block waits at most for the last round's block into its receiver.
+
+    The side stream's kernel (the kept block) matters in a capture: a stream's capture
+    dependencies grow with each event it waits on until a kernel lands on it, and a side
+    stream with none would make each copy depend on every earlier trade's copies in the
+    graph (edges that grow with the square of the trades, and a launch that slows with
+    them). The side streams are made once and fork from and rejoin the current streams
+    by events, so a capture across the cards (`graphs.Graphs`) holds the trade as it
+    holds any."""
+
+    def __init__(self, devices: list[torch.device]):
+        self.devices = devices
+        self.side = [torch.cuda.Stream(d) for d in devices]
+
+    def __call__(self, blocks: list[list[torch.Tensor]],
+                 concat_dim: int) -> list[torch.Tensor]:
+        s = len(self.devices)
+        main = [torch.cuda.current_stream(d) for d in self.devices]
+        bufs, slots = zip(*[_receiver(blocks, j, concat_dim) for j in range(s)])
+        for j in range(s):
+            self.side[j].wait_stream(main[j])
+            with torch.cuda.stream(self.side[j]):  # restores j's current stream on exit
+                slots[j][j].copy_(blocks[j][j])
+        for k in range(1, s):
+            for i in range(s):
+                j = (i + k) % s
+                with torch.cuda.stream(self.side[j]):
+                    slots[j][i].copy_(blocks[i][j])
+        for j in range(s):
+            main[j].wait_stream(self.side[j])
+        return list(bufs)
+
+
+def _peer_trade(devices: list[torch.device]) -> _PeerTrade | None:
+    """The peer path for shards on ``devices``, or None where it does not apply: a shard
+    off CUDA, two shards on one card, or an ordered pair of cards without peer access.
+    Peer access is enabled here by one small copy each way between every pair (PyTorch
+    enables a card's access to another at their first copy), eagerly: `run_simulation`'s
+    first window on a mesh is eager. Inside a capture the trade's own copies enable it."""
+    if any(d.type != "cuda" for d in devices) or len(set(devices)) < len(devices):
+        return None
+    pairs = [(a, b) for a in devices for b in devices if a != b]
+    if not all(torch.cuda.can_device_access_peer(a, b) for a, b in pairs):
+        return None
+    if not torch.cuda.is_current_stream_capturing():
+        for a, b in pairs:
+            torch.zeros(1, device=a).to(b)
+    return _PeerTrade(devices)
 
 
 class InProcess:
@@ -86,17 +180,25 @@ class InProcess:
 
     def __init__(self, size: int):
         self.size = size
+        self._paths: dict[tuple[torch.device, ...], _PeerTrade | None] = {}
 
     def all_to_all(self, parts: list[torch.Tensor], split_dim: int,
                    concat_dim: int) -> list[torch.Tensor]:
         """Shard i's block j (of S equal blocks along ``split_dim``) goes to shard j, which
         concatenates the blocks it gets along ``concat_dim`` in the order of i: one copy
-        of each shard's data."""
+        of each shard's data. The peer path where the parts' devices allow it (the
+        module's docstring), `_cat` elsewhere; both give the same bits."""
         s = self.size
         blocks = [_chunks(p, s, split_dim) for p in parts]
-        TRADES.count(blocks, [p.device for p in parts])
-        return [torch.cat([blocks[i][j].to(parts[j].device) for i in range(s)],
-                          dim=concat_dim) for j in range(s)]
+        devices = [p.device for p in parts]
+        key = tuple(devices)
+        if key not in self._paths:
+            self._paths[key] = _peer_trade(devices)
+        peer = self._paths[key]
+        TRADES.count(blocks, devices, direct=peer is not None)
+        if peer is None:
+            return _cat(blocks, devices, concat_dim)
+        return peer(blocks, concat_dim)
 
     def all_reduce(self, values: list[torch.Tensor], op: str) -> list[torch.Tensor]:
         """Elementwise ``op`` ("sum", "max", "min") over ``values``, this process's
@@ -159,7 +261,7 @@ class ProcessGroup:
         """`InProcess.all_to_all` over the S shards of every rank, in two exact copies. In
         this process each slot c' gathers onto its device one contiguous buffer ``[P, C,
         block]`` (stacked as ``[P·C, block]``) whose entry (r', c) is local shard c's block
-        for shard r'·C + c' (peer copies, issued as `InProcess.all_to_all` issues them);
+        for shard r'·C + c' (peer copies, one ``.to`` a block, as `_cat` issues them);
         across the processes one `all_to_all_single` a slot, on the slot's group, sends
         row r' to rank r'. What slot c' receives is in global shard order, concatenated
         along ``concat_dim``. Every rank issues the slots in the same order."""

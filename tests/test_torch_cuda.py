@@ -1676,6 +1676,77 @@ def test_cards_graph_of_a_pencil_program_keeps_its_memory_apart(n):
     assert all(bool((w == k + 1).all()) for k, w in enumerate(witness))
 
 
+# z_to_y trades [nz/S, ny, m] slabs along y into [nz, ny/S, m]; y_to_z the mirror image
+TRADE_DIMS = {"z_to_y": (1, 0), "y_to_z": (0, 1)}
+
+
+def _trade_parts(mesh, trade, layout, seed, nz=64, ny=64, m=33):
+    """Each card's complex64 part for ``trade``: contiguous, or laid out as cuFFT's inverse
+    along z returns it (strides (1, m·a, a) for a part [a, b, m]: z innermost)."""
+    s = mesh.size
+    a, b = (nz // s, ny) if trade == "z_to_y" else (nz, ny // s)
+    g = torch.Generator().manual_seed(seed)
+    parts = []
+    for d in mesh.devices:
+        if layout == "contiguous":
+            parts.append(torch.randn(a, b, m, dtype=torch.complex64, generator=g).to(d))
+        else:
+            parts.append(torch.randn(b, m, a, dtype=torch.complex64, generator=g).to(d)
+                         .permute(2, 0, 1))
+            assert parts[-1].stride() == (1, m * a, a)
+    return parts
+
+
+def _same_trade(got, want):
+    """Two trades' outputs equal bit for bit, shape, strides and device too."""
+    assert len(got) == len(want)
+    for x, y in zip(got, want):
+        assert (x.shape, x.stride(), x.device) == (y.shape, y.stride(), y.device)
+        assert torch.equal(torch.view_as_real(x).view(torch.int32),
+                           torch.view_as_real(y).view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4, 2])
+@pytest.mark.parametrize("layout", ["contiguous", "cufft_strided"])
+@pytest.mark.parametrize("trade", sorted(TRADE_DIMS))
+def test_peer_trade_equals_the_cat_trade_eager_and_replayed(trade, layout, n):
+    """`InProcess.all_to_all` on n cards with peer access takes the peer path (each block
+    copied straight into its slot of the receiver's buffer) and equals
+    `comm._cat` (each block's ``.to``, then `torch.cat`) bit for bit: eagerly, where the
+    counter's ``direct`` bytes equal its ``sent`` ones, and replayed three times from a
+    graph captured across the cards (`graphs.Graphs`), on new parts each time."""
+    from kwave_tpu_torch.graphs import Graphs
+    from kwave_tpu_torch.parallel import comm
+
+    mesh = _cards_mesh(n)
+    if not all(torch.cuda.can_device_access_peer(a, b)
+               for a in mesh.devices for b in mesh.devices if a != b):
+        pytest.skip(f"cards {mesh.devices} lack peer access between some pair")
+    split, concat = TRADE_DIMS[trade]
+
+    def cat(parts):
+        return comm._cat([comm._chunks(p, n, split) for p in parts], mesh.devices, concat)
+
+    parts = _trade_parts(mesh, trade, layout, 0)
+    comm.TRADES.begin_step()
+    got = mesh.comm.all_to_all(parts, split, concat)
+    comm.TRADES.end_step()
+    assert isinstance(mesh.comm._paths[tuple(mesh.devices)], comm._PeerTrade)
+    _same_trade(got, cat(parts))
+    step = comm.TRADES.step
+    assert step["direct"] == step["sent"] == step["between_cards"]
+    assert sum(step["sent"].values()) == (n - 1) * sum(p.numel() * 8 for p in parts) // n
+
+    graphs = Graphs(mesh.devices)
+    graphs.capture("trade", parts,
+                   lambda static, t: (static, mesh.comm.all_to_all(static, split, concat)))
+    for seed in (1, 2, 3):
+        new = _trade_parts(mesh, trade, layout, seed)
+        _, replayed = graphs.replay("trade", new, 0)
+        _same_trade(replayed, cat(new))
+
+
 # ---------------------------------------------------------------------------
 # Several shards a process under a process group over NCCL (``--num_processes P
 # --devices P*C``): the rank's C shards, their copies into one buffer a slot and one NCCL

@@ -130,6 +130,74 @@ def test_the_counter_counts_the_bytes_between_cards():
     assert counter.step == {"sent": want["sent"]}
 
 
+def test_the_counter_counts_the_peer_paths_bytes_as_direct():
+    """A trade by the peer path counts each block it sends as ``direct`` too, by source
+    shard; a trade by the cat path leaves the key out."""
+    cards = [torch.device("cuda", k) for k in range(3)]
+    blocks = [list(torch.chunk(torch.zeros(3, 6, 2), 3, 1)) for _ in cards]
+    counter = comm.TradeCounter()
+    counter.begin_step()
+    counter.count(blocks, cards, direct=True)
+    counter.end_step()
+    assert counter.step["direct"] == counter.step["sent"] == counter.step["between_cards"]
+    counter.begin_step()
+    counter.count(blocks, cards)
+    counter.end_step()
+    assert "direct" not in counter.step
+
+
+@pytest.mark.parametrize("devices", [["cpu"] * 4, ["cuda:0"] * 2,
+                                     ["cuda:0", "cuda:1", "cpu"],
+                                     ["cuda:1", "cuda:0", "cuda:1"]],
+                         ids=["cpu_mesh", "shards_of_one_card", "a_shard_off_cuda",
+                              "two_of_three_on_one_card"])
+def test_only_shards_on_cards_of_their_own_take_the_peer_path(devices):
+    """The trade's path depends on the parts' devices alone: the CPU, or two shards on one
+    card, take the cat path (decided before any CUDA call, so this runs without a card)."""
+    assert comm._peer_trade([torch.device(d) for d in devices]) is None
+
+
+def test_a_cpu_mesh_trades_by_the_cat_path():
+    """A 4-shard CPU mesh's trade is `comm._cat`'s bit for bit, and counts no ``direct``
+    bytes."""
+    mesh = make_mesh(S, devices=["cpu"] * S)
+    parts = [torch.randn(2, 8, 3, dtype=torch.complex64,
+                         generator=torch.Generator().manual_seed(k)) for k in range(S)]
+    comm.TRADES.begin_step()
+    got = mesh.comm.all_to_all(parts, 1, 0)
+    comm.TRADES.end_step()
+    assert mesh.comm._paths == {(torch.device("cpu"),) * S: None}
+    assert set(comm.TRADES.step) == {"sent"}
+    want = comm._cat([comm._chunks(p, S, 1) for p in parts], mesh.devices, 0)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "cufft_strided"])
+@pytest.mark.parametrize("split,concat", [(1, 0), (0, 1)], ids=["z_to_y", "y_to_z"])
+def test_the_peer_paths_slots_give_the_cat_paths_buffers(split, concat, layout):
+    """Each receiver's buffer of the peer path (`comm._receiver`), every block copied into
+    its slot, equals the cat path's bit for bit, shape and strides too, from contiguous
+    parts and from parts laid out as cuFFT's inverse along z returns them (z innermost):
+    the peer path's layout, rehearsed on the CPU."""
+    g = torch.Generator().manual_seed(3)
+    shape = (4, 16, 5) if split == 1 else (16, 4, 5)
+    parts = []
+    for _ in range(S):
+        x = torch.randn(*shape, dtype=torch.complex64, generator=g)
+        if layout == "cufft_strided":
+            x = torch.randn(shape[1], shape[2], shape[0], dtype=torch.complex64,
+                            generator=g).permute(2, 0, 1)
+        parts.append(x)
+    blocks = [comm._chunks(p, S, split) for p in parts]
+    want = comm._cat(blocks, [torch.device("cpu")] * S, concat)
+    for j in range(S):
+        out, slots = comm._receiver(blocks, j, concat)
+        for i in range(S):
+            slots[i].copy_(blocks[i][j])
+        assert (out.shape, out.stride()) == (want[j].shape, want[j].stride())
+        assert torch.equal(torch.view_as_real(out), torch.view_as_real(want[j]))
+
+
 def test_the_mesh_spans_appear_under_a_profiler(job):
     *_, spans, _ = job
     assert set(SPANS) <= spans
