@@ -4,7 +4,8 @@ sources in this checkout, holds each against its plain PyTorch version and the N
 oracle, then drives the port's paths: the simulation at 128^3 with 16384 index sensors,
 the codec round trip, the whole-record exact encode, the 256^3, 192^3, 220^3, 230^3 and
 251^3 simulations and a 6 x 1152 x 1152 slab with the fused z stage (K7's radix, mixed,
-Bluestein and column kernels; the dense one, which no run takes, timed beside them), a run in checkpoint legs with the intensity and Q-term outputs, the
+Bluestein and column kernels), a run in checkpoint legs with the intensity and Q-term
+outputs, the
 acceptance sweep's inputs on the card against the port on the CPU, the mesh
 (`kwave_tpu_torch.parallel`) on the one card, the windows replayed as CUDA graphs on
 one card and on the mesh, and the CLI on HDF5 files through the port's own codec.
@@ -17,13 +18,11 @@ the final ok line):
 2. build: nvcc builds csrc/*.cu into build/kwave_tpu_torch/ (timed);
 3. kernel parity: the four window-encode variants at o=16, H=1, 2 and 3, N=16384 and a
    ragged N=16384-37, both parities, the mirror on and off and a partial window of 11
-   steps, bit for bit against their plain versions on the card; for the 40-bit variants also the
-   designs the default was chosen from (one thread a sensor; the words packed at every
-   step) and the reference's loop as written, all to the same bits, and one window whose
-   values lie below, inside and above the 40-bit word's range; H=1 and 2 against
+   steps, bit for bit against their plain versions on the card; for the 40-bit variants also
+   the reference's loop as written, to the same bits, and one window whose values lie
+   below, inside and above the 40-bit word's range; H=1 and 2 against
    kwave_tpu_torch.oracle on the first 256 sensors; kernel and plain time per window from
-   CUDA events. Then ``launch_floor_us``, the device time of an empty kernel at the 40-bit
-   window kernel's grid, block and shared memory, with the card's name and power limit;
+   CUDA events;
 4. main path: `driver.run_simulation` on a 128^3 heterogeneous absorbing medium with a
    p0 source, period 16, a few windows plus a tail, as ``--p_raw --p_c --40-bit_complex``
    and then as three shorter runs that take the other three variants. The output goes
@@ -58,21 +57,18 @@ the final ok line):
    record of 13 windows (odd, no multiple of the 8 windows a thread) against the unsplit
    plain version and the window loop, and the same record cut at 3 windows a thread
    (chunks that start on odd and on even windows), bit for bit.
-8. fused z stage (path B), K7's five kernels (column: the short nz of
+8. fused z stage (path B), K7's four kernels (column: the short nz of
    `ops.zfuse.COLUMN_NZ`; radix: nz a power of two from 32; mixed: other nz with prime
    factors up to 13, or all but one prime up to `ops.zfuse.PRIME_MAX` (a generic pass);
-   Bluestein: the rest; dense: nz = 1, which no `run_simulation` reaches, since a
-   grid of one z plane is 2D and the driver fuses 3D grids alone: it is timed as the
-   kernel the FFT kernels replaced, through plans that name it, and its rows in the
-   kernels line carry the main path's count, 0, with ``timing_only``): (a) K7 at the
-   spectra of 256^3 (radix, and mixed through a plan that names it), 192^3 (mixed and
-   dense) and, with the operators of a homogeneous medium of the same recipe, 384^3
-   (mixed and dense), 320^3 and 448^3 (mixed), 176^3 and 208^3 (mixed with radix 11 / 13, and dense), 230^3 (mixed with the
-   generic pass of 23, Bluestein and dense), 251^3 (Bluestein, M = 512, and dense), 1009 x
+   Bluestein: the rest): (a) K7 at the
+   spectra of 256^3 (radix, and mixed through a plan that names it), 192^3 (mixed)
+   and, with the operators of a homogeneous medium of the same recipe, 384^3, 320^3 and
+   448^3 (mixed), 176^3 and 208^3 (mixed with radix 11 / 13), 230^3 (mixed with the
+   generic pass of 23, and Bluestein), 251^3 (Bluestein, M = 512), 1009 x
    128 x 128 (Bluestein, M = 2048; its rows name the tile width, the blocks an SM and the
    staged tables, and time `apply_bluestein_plain` too) and 4 x 256 x 256, 6 x 256 x 256
-   (column, and mixed and dense through plans that name them: the kernels nz below 8
-   took before), one op and three, against a float64 FFT (2e-6 of
+   (column, and mixed through a plan that names it: the kernel nz below 8 took before),
+   one op and three, against a float64 FFT (2e-6 of
    the peak) and the kernel's own plain version (4e-6), timed beside `apply_plain` and the
    library route ``ifft(fft(s, 0) * op, 0)``, its launches counted under the kernel that
    took them; (b) small spectra (ny = 8) at nz = 64, 128, 512 (radix), 2, 6, 8, 11, 13, 15,
@@ -189,13 +185,9 @@ the final ok line):
    MB/s over the codec's seconds, with the card's name and power limit; the `kernels`
    line's ``launches_file_path`` is the phase's count of each window kernel.
 Then one JSON line with every kernel's numbers (its time beside its bound: the larger of
-its bytes over 3.35 TB/s and its fp32 operations over 67 TFLOP/s; for the 40-bit kernels
-also ``issue_ms``, the machine instructions that this run's build spends on their steps,
-counted from its SASS, over the card's instruction rate: a share of the time, no bound;
-``launches`` the count of the kernel's path, which must be above 0 but where the row says
-``timing_only``: a kernel no run takes, timed beside the one that replaced it, whose count
-must be 0; ``launches_graph_path`` phase 12's count, launches replayed from graphs
-included) and ``launch_floor_us``, and as the last line
+its bytes over 3.35 TB/s and its fp32 operations over 67 TFLOP/s; ``launches`` the count
+of the kernel's path, which must be above 0; ``launches_graph_path`` phase 12's count,
+launches replayed from graphs included), and as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off throughout, so every plain version on the
 card computes in full fp32.
 
@@ -275,22 +267,7 @@ INTENSITY_TOL = 1e-5  # I*_avg, I*_avg_c vs float64 numpy, of the peak
 Q_TOL = 1e-6  # Q_term[_c] vs float64 numpy, of k_max |I|max (see `_intensity_checks`)
 
 
-# Every SM starts at most 4 warp instructions (128 lanes) a clock: 132 SMs at the 1.98 GHz
-# boost clock.
-INSTR_PER_S = 128 * 132 * 1.98e9
 RAGGED = 37  # sensors short of N_SENSORS in phase 3's ragged windows
-
-
-def _issue_kernels() -> dict:
-    """LAUNCHES key -> (mangled-name fragment of the kernel the wrapper launches, lanes
-    that carry one (harmonic, sensor)) for the kernels whose steps are mostly the integer
-    requantisation of the 40-bit accumulators."""
-    from kwave_tpu_torch.ops import encode_window as ew
-
-    return {"w40_overlap": (f"w40_windowILb1ELi{ew.W40_SPLIT}EE", ew.W40_SPLIT),
-            "w40_no_overlap": ("w40_windowILb0ELi1EE", 1),
-            "series40_overlap": ("series40ILb1EE", 1),
-            "series40_no_overlap": ("series40ILb0EE", 1)}
 
 
 def _bound(n_bytes: float, flops: float) -> dict:
@@ -397,23 +374,6 @@ def build_phase():
     return secs
 
 
-def issue_phase() -> dict:
-    """Machine instructions per sampled step and lane of the 40-bit kernels, from the SASS
-    of the library just built (``cuobjdump`` of the CUDA toolkit). A kernel whose step loop
-    is not found is an error."""
-    from kwave_tpu_torch.ops import _build, sass_count
-
-    kernels = _issue_kernels()
-    loops = sass_count.parse_loops(sass_count.disassemble(_build.library_path()),
-                                   tuple(fragment for fragment, _ in kernels.values()))
-    counts = {key: sass_count.instructions_per_step(loops, fragment)
-              for key, (fragment, _) in kernels.items()}
-    _require(all(counts.values()), f"no step loop found in the SASS of a kernel: {counts}")
-    print(f"[2 build] machine instructions per sampled step and lane (cuobjdump -sass): "
-          f"{counts}", flush=True)
-    return counts
-
-
 def _tables(basis):
     from kwave_tpu_torch import encoder
 
@@ -509,20 +469,6 @@ def _edge_window_check(key, overlap) -> None:
                      f"!= {name}")
 
 
-def launch_floor_phase(smi) -> float:
-    """Device time of an empty kernel at the grid, block and shared memory of the main
-    path's 40-bit overlap window (o=16, H=1, N=16384): what a one-window kernel costs
-    before it does anything. No bound; it is read beside the one-window kernels' times."""
-    from kwave_tpu_torch.ops import encode_window as ew
-
-    ms, _ = _time_per_call(lambda: ew.launch_floor(O_SIZE, 1, N_SENSORS), iters=200,
-                           warmup=20)
-    print(f"[3 kernel] launch_floor_us {ms * 1e3:.3f} (an empty kernel at the 40-bit "
-          f"window's geometry: {ew.WINDOW_THREADS} threads a block, {ew.W40_SPLIT} lanes a "
-          f"sensor, o={O_SIZE} H=1 N={N_SENSORS}) on {smi}", flush=True)
-    return ms * 1e3
-
-
 def kernel_phase():
     """All four variants at the main path's shapes, against plain and oracle."""
     import torch
@@ -538,12 +484,8 @@ def kernel_phase():
         if mode40:
             extra = (MAX_EXP_P,)
             kern, plain = ew.encode_window_40b_exact, ew.encode_window_40b_exact_plain
-            # the designs the default was chosen from, and the reference's loop as written
-            others = {"words packed at every step": functools.partial(ew._kernel_40b,
-                                                                      packed=True, split=1),
-                      "unsplit plain": ew.encode_window_40b_exact_unsplit_plain}
-            if overlap:  # without overlap there is one buffer, and one thread has it
-                others["one thread a sensor"] = functools.partial(ew._kernel_40b, split=1)
+            # the reference's loop as written
+            others = {"unsplit plain": ew.encode_window_40b_exact_unsplit_plain}
         else:
             extra, others = (), {}
             kern = ew.encode_window_float_exact
@@ -553,7 +495,7 @@ def kernel_phase():
             tabs = _tables(basis)
             x = torch.from_numpy(_series(3 * O_SIZE, N_SENSORS, seed=h)).cuda()
             # (a) one window from nonzero state, per parity and mirror, a partial window,
-            # the full and a ragged N: kernel == plain, and so does every other design
+            # the full and a ragged N: kernel == plain, and so does the reference's loop
             for n in (N_SENSORS, N_SENSORS - RAGGED):
                 planes = _window_planes(mode40, overlap, h, n, seed=h)
                 for steps, parity, mirror in ((O_SIZE, 0, 0), (O_SIZE, 0, 1), (O_SIZE, 1, 0),
@@ -614,7 +556,7 @@ def kernel_phase():
         if mode40:
             _edge_window_check(key, overlap)
         results[key] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, **bound,
-                            library_ms=lib_ms, steps=O_SIZE * N_SENSORS)
+                            library_ms=lib_ms)
         print(f"[3 kernel] {key}: bit-exact vs plain (H=1,2,3; N={N_SENSORS} and "
               f"{N_SENSORS - RAGGED}; parity 0/1, mirror 0/1, a window of {O_SIZE - 5} steps"
               + (f"; also {', '.join(others)}; and a window of values below, inside and "
@@ -1007,15 +949,12 @@ SERIES_KERNELS = {
 ZFUSE_KERNELS = ("zfuse_1op", "zfuse_3op")  # LAUNCHES keys of ops.zfuse on path B
 MIXED_N = 192  # phase 8 (c): the mixed kernel's run (compact operators turn on here)
 # phase 8 (a): K7 alone at the spectra [nz, ny, nx/2 + 1] of these grids, through these
-# kernels (the dense kernel is left out at 1009: its fp32 sum's error grows with nz, 1.63e-6
-# of float64's peak at 384 against the 2e-6 bound, and a call takes milliseconds)
-K7_SPECTRA = (((384,) * 3, ("mixed", "dense")), ((320,) * 3, ("mixed",)),
-              ((448,) * 3, ("mixed",)), ((176,) * 3, ("mixed", "dense")),
-              ((208,) * 3, ("mixed", "dense")),
-              ((230,) * 3, ("mixed", "bluestein", "dense")),
-              ((251,) * 3, ("bluestein", "dense")), ((1009, 128, 128), ("bluestein",)),
-              ((4, 256, 256), ("column", "mixed", "dense")),
-              ((6, 256, 256), ("column", "mixed", "dense")))
+# kernels
+K7_SPECTRA = (((384,) * 3, ("mixed",)), ((320,) * 3, ("mixed",)),
+              ((448,) * 3, ("mixed",)), ((176,) * 3, ("mixed",)), ((208,) * 3, ("mixed",)),
+              ((230,) * 3, ("mixed", "bluestein")),
+              ((251,) * 3, ("bluestein",)), ((1009, 128, 128), ("bluestein",)),
+              ((4, 256, 256), ("column", "mixed")), ((6, 256, 256), ("column", "mixed")))
 # phase 8 (c): the runs after 256^3 and 192^3, each through the kernel kernel_for names:
 # (nz x ny x nx, the runs profiled, the runs read again after both); the thin slab 6 x
 # 1152 x 1152 (7.96 M points: compact operators by run_simulation's own rule) takes the column K7
@@ -1023,11 +962,7 @@ FUSED_GRIDS = (((220,) * 3, ("compact", "fused"), ("compact", "fused")),
                ((230,) * 3, ("fused",), ()),
                ((251,) * 3, ("compact", "fused"), ("compact", "fused")),
                ((6, 1152, 1152), ("compact", "fused"), ("compact", "fused")))
-# K7's kernels that no run_simulation takes (the dense one: nz = 1 alone, a 2D grid, which
-# the driver does not fuse): their rows in the kernels line are timings beside the path's
-# kernels and carry the path's count, 0, with "timing_only"
-TIMING_ONLY = ("dense",)
-K7_SOURCES = {"radix": "kwave_tpu_torch/csrc/zfuse.cu", "dense": "kwave_tpu_torch/csrc/zfuse.cu",
+K7_SOURCES = {"radix": "kwave_tpu_torch/csrc/zfuse.cu",
               "mixed": "kwave_tpu_torch/csrc/zfuse_mixed.cuh",
               "bluestein": "kwave_tpu_torch/csrc/zfuse_bluestein.cuh",
               "column": "kwave_tpu_torch/csrc/zfuse_column.cu"}
@@ -1214,7 +1149,7 @@ def series_phase():
                      f"by {lib_err:.1e} of the peak)")
         results[key] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                             **_bound(_nbytes(x[:k_total * o], tabs, *f0, *s0), flops),
-                            library_ms=lib_ms, steps=k_total * o * CODEC_N * CODEC_H)
+                            library_ms=lib_ms)
         del f0, s0, frames, st
         print(line + f"; device time per call: kernel {ms:.4f} ms (wall {wall:.4f} ms), "
               f"plain {plain_ms:.1f} ms (one call); bound "
@@ -1353,10 +1288,9 @@ def zfuse_kernel_phase(ops, shape: tuple[int, int, int], kernels: tuple[str, ...
                     del ref
                 del outs, plain
             specs, dds, use_kappa = _zfuse_cases(ops, n_ops)[0]
-            slow = kernel == "dense" and n > MIXED_N  # the dense DFT at 384: ~10 ms a call
             ms, wall = _time_per_call(
                 functools.partial(zfuse.apply, plan, s, specs, dds, use_kappa=use_kappa),
-                iters=2 if slow else 10, warmup=1 if slow else 2)
+                iters=10, warmup=2)
             row = dict(max_abs_err=worst, ms=ms, **others[n_ops])
             layout = ""
             if kernel == "bluestein":  # its tile, and its own plain version's time
@@ -1576,7 +1510,7 @@ def _spectrum_ops(shape: tuple[int, int, int]):
 
 def fused_phase():
     """Path B, the fused z stage: (a) K7 timed at the spectra of 256^3 (the radix kernel,
-    and the mixed one at the same nz), 192^3 (mixed and dense) and `K7_SPECTRA`; (b) the
+    and the mixed one at the same nz), 192^3 (mixed) and `K7_SPECTRA`; (b) the
     small spectra; (c) the 256^3, 192^3 and `FUSED_GRIDS` runs unfused and fused. Returns
     the K7 rows by name (each with its kernel and op count) and the launches by LAUNCHES
     key of each kernel's runs, summed."""
@@ -1593,7 +1527,7 @@ def fused_phase():
         for k, v in counts.items():
             have[k] = have.get(k, 0) + v
 
-    for n, kernels in ((BIG_N, ("radix", "mixed")), (MIXED_N, ("mixed", "dense"))):
+    for n, kernels in ((BIG_N, ("radix", "mixed")), (MIXED_N, ("mixed",))):
         t0 = time.perf_counter()
         data = _input(steps, n)
         ops = make_operators(data.grid, data.medium, data.pml_size, data.pml_alpha,
@@ -3671,9 +3605,7 @@ def main(argv: list[str]) -> int:
         return out
 
     timed("2 (build)", build_phase)
-    per_step = issue_phase()
     kernels = timed(3, kernel_phase)
-    floor_us = launch_floor_phase(smi)  # after the kernels' timing, at the same clocks
     launches, float_run = timed(4, main_path_phase)
     codec = timed(5, codec_kernel_phase)
     codec_launches = timed(6, codec_round_trip_phase, *float_run)
@@ -3705,7 +3637,7 @@ def main(argv: list[str]) -> int:
             r["launches_mesh_graph_path"] = mesh_graph_launches[r["name"]]
     for key, row in fused.items():  # launches: the runs of the row's kernel (phase 8)
         kernel, n_ops = row.pop("kernel"), row.pop("n_ops")
-        extra = {"timing_only": True} if kernel in TIMING_ONLY else {}
+        extra = {}
         if kernel in graph_k7:
             extra["launches_graph_path"] = graph_k7[kernel][f"zfuse_{n_ops}op"]
         rows.append(dict(name=key, route="cuda", source=K7_SOURCES[kernel],
@@ -3719,17 +3651,9 @@ def main(argv: list[str]) -> int:
             r["launches_acceptance_path"] = acceptance_launches[r["name"]]
         if mesh_launches.get(r["name"]):
             r["launches_mesh_path"] = mesh_launches[r["name"]]
-    lanes = {key: n for key, (_, n) in _issue_kernels().items()}
-    for r in rows:  # the 40-bit kernels' steps at this build's instructions per step and lane
-        count, steps = per_step.get(r["name"]), r.pop("steps", 0)
-        r["instr_per_step"] = count
-        r["issue_ms"] = None if count is None else \
-            count * lanes[r["name"]] * steps / INSTR_PER_S * 1e3
-    _require(all(r["launches"] > 0 for r in rows if not r.get("timing_only")),
+    _require(all(r["launches"] > 0 for r in rows),
              f"a kernel was never launched on its path: {rows}")
-    _require(all(r["launches"] == 0 for r in rows if r.get("timing_only")),
-             f"a kernel marked timing_only (no run takes it) ran on a path: {rows}")
-    print(json.dumps({"kernels": rows, "launch_floor_us": floor_us}), flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

@@ -38,11 +38,11 @@
 //
 // What bounds it on the H100: the float body moves (1 + 1/G) * T*N*4 B of samples and
 // the frames once, little arithmetic: memory. The 40-bit body requantises each accumulator
-// at every step, nearly all of it integer instructions (ops/sass_count.py counts them per
-// step from the built library), and spends most of its time issuing them; the accumulators
-// stay unpacked between steps and are packed once a window, when a frame is written. The
-// per-step arithmetic is encode_step.cuh's, shared with encode_window.cu, so both give the
-// same bits.
+// at every step, nearly all of it integer instructions (counted per step from the built
+// library's SASS: PERF.md section 6, "issue"), and spends most of its time issuing them;
+// the accumulators stay unpacked between steps and are packed once a window, when a frame
+// is written. The per-step arithmetic is encode_step.cuh's, shared with encode_window.cu,
+// so both give the same bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

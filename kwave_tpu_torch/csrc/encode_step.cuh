@@ -122,18 +122,6 @@ static __device__ __forceinline__ void quant40(float& re, float& im, int e) {
   im = quant40_half(bi, ei, top, over, sat);
 }
 
-// One sampled step of one 40-bit accumulator, the words kept between steps: decode, add
-// t*x, re-encode. cr/ci return the post-MAC floats. Only the sweep's baseline variant of
-// the one-window kernel takes it; every other path takes step40_one.
-static __device__ __forceinline__ void step40_packed_one(float x, float tr, float ti, int e,
-                                                         uint32_t& h, uint32_t& r,
-                                                         uint32_t& i, float& cr, float& ci) {
-  decode40(h, r, i, e, cr, ci);
-  cr = __fadd_rn(cr, __fmul_rn(tr, x));
-  ci = __fadd_rn(ci, __fmul_rn(ti, x));
-  encode40(cr, ci, e, h, r, i);
-}
-
 // One sampled step of one 40-bit accumulator, held as the floats q that its words decode
 // to: add t*x, requantise. cr/ci return the post-MAC floats, which encode40 packs into the
 // accumulator's words when they are needed (after the last step of a window) and which the
@@ -158,14 +146,6 @@ static __device__ __forceinline__ void step40_aliased(float x, float t1r, float 
   qr = cr;
   qi = ci;
   quant40(qr, qi, e);
-}
-
-// First frame: buf2 = encode(c2 + c1) of the saving step's floats
-// (IndexOutputStream.cpp:429-435).
-static __device__ __forceinline__ void mirror40(float c1r, float c1i, float c2r, float c2i,
-                                                int e, uint32_t& h2, uint32_t& r2,
-                                                uint32_t& i2) {
-  encode40(__fadd_rn(c2r, c1r), __fadd_rn(c2i, c1i), e, h2, r2, i2);
 }
 
 // One sampled step of one float accumulator.

@@ -32,10 +32,10 @@
 // frame. A thread issues the loads of a whole window (kWindowBatch samples, and the next
 // batch before it works on this one) before its first multiply-add, with 32-bit offsets;
 // the table is staged four loads a thread at a time; blocks are small, so a window of
-// 16384 sensors covers the card. A thread sums R of the 2H coefficient rows and
-// blockIdx.y walks the rows: the wrapper takes R >= 2H, all rows in one thread, because
-// with the rows spread over the grid every sample is loaded 2H / R times, and on the
-// H100 that costs more than the wider launch brings (`kwave_tpu_torch.sweeps`).
+// 16384 sensors covers the card. A thread sums all 2H coefficient rows (R >= 2H, the
+// least instantiated R that holds them): with the rows spread over the grid every sample
+// would be loaded 2H / R times, and on the H100 that cost more than the wider launch
+// brought (PERF.md section 6, K6).
 //
 // Decode: x[k*o + r] = sum_j tab[r, j] * [F[k]; F[k+1]]_j with tab [o, 4H] =
 // [bE_re[o:] | bE_im[o:] | bE_re[:o] | bE_im[:o]] (the o/2 normalisation is folded into
@@ -64,6 +64,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWindowsPerThread = 8;  // KB
 constexpr int kWindowBatch = 16;      // samples a thread of project_window loads ahead
+constexpr int kWindowThreads = 64;    // project_window's block
 
 __device__ __forceinline__ void load_table(float* stab, const float* __restrict__ tab,
                                            int count) {
@@ -142,8 +143,7 @@ __device__ __forceinline__ void load_window_batch(float (&xs)[kWindowBatch],
   }
 }
 
-// One window: thread (n, blockIdx.y) sums columns j of tab_lo (P1) and of tab_hi (P2) for
-// its R coefficient rows j = blockIdx.y * R + r.
+// One window: thread n sums columns j < H2 of tab_lo (P1) and of tab_hi (P2), R >= H2.
 template <int R>
 __global__ void project_window(const float* __restrict__ chunk,
                                const float* __restrict__ tab_lo,
@@ -151,8 +151,7 @@ __global__ void project_window(const float* __restrict__ chunk,
                                const float* __restrict__ p1_in, float* __restrict__ frame,
                                float* __restrict__ p1_out, int o, int H2, int N,
                                int first_window) {
-  extern __shared__ float stab[];  // [o, 2R]: these rows' columns of tab_lo, then of tab_hi
-  const int j0 = blockIdx.y * R;
+  extern __shared__ float stab[];  // [o, 2R]: the columns of tab_lo, then of tab_hi
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   const int nn = min(n, N - 1);
   const float* x = chunk + nn;
@@ -161,7 +160,7 @@ __global__ void project_window(const float* __restrict__ chunk,
   float prev[R];
 #pragma unroll
   for (int r = 0; r < R; ++r)
-    prev[r] = !first_window && j0 + r < H2 ? p1_in[(size_t)(j0 + r) * N + nn] : 0.f;
+    prev[r] = !first_window && r < H2 ? p1_in[(size_t)r * N + nn] : 0.f;
   // four table loads a thread in flight before the first store: one round trip for a
   // table of up to 4 * blockDim.x entries
   for (int i0 = threadIdx.x; i0 < o * 2 * R; i0 += 4 * blockDim.x) {
@@ -169,7 +168,7 @@ __global__ void project_window(const float* __restrict__ chunk,
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const int i = i0 + k * blockDim.x;
-      const int u = i / (2 * R), c = i % (2 * R), j = j0 + c % R;
+      const int u = i / (2 * R), c = i % (2 * R), j = c % R;
       v[k] = i < o * 2 * R && j < H2 ? (c < R ? tab_lo : tab_hi)[u * H2 + j] : 0.f;
     }
 #pragma unroll
@@ -203,10 +202,10 @@ __global__ void project_window(const float* __restrict__ chunk,
   if (n >= N) return;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    if (j0 + r < H2) {
+    if (r < H2) {
       // first window: the mirror identity, the window's own P1
-      frame[(size_t)(j0 + r) * N + n] = __fadd_rn(first_window ? p1[r] : prev[r], p2[r]);
-      p1_out[(size_t)(j0 + r) * N + n] = p1[r];
+      frame[(size_t)r * N + n] = __fadd_rn(first_window ? p1[r] : prev[r], p2[r]);
+      p1_out[(size_t)r * N + n] = p1[r];
     }
   }
 }
@@ -282,25 +281,25 @@ int kw_project_frames(const float* series, const float* tab_lo, const float* tab
   return (int)cudaGetLastError();
 }
 
-// One window; `threads` is the block size and `rows` (1, 2, 4, 8 or 16) the coefficient
-// rows of the 2H that one thread sums. p1_in is not read when first_window.
+// One window; one thread sums the 2H coefficient rows of a sensor (R, the least of 2, 4,
+// 8 and 16 that holds them). p1_in is not read when first_window.
 int kw_project_window(const float* chunk, const float* tab_lo, const float* tab_hi,
                       const float* p1_in, float* frame, float* p1_out, int o, int H, int N,
-                      int first_window, int threads, int rows, void* stream) {
-  if (o < 1 || H < 1 || N < 1 || threads < 1 || threads > 1024 || rows < 1 ||
-      (long long)o * N > 2147483647LL)
+                      int first_window, void* stream) {
+  if (o < 1 || H < 1 || H > 8 || N < 1 || (long long)o * N > 2147483647LL)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((N + threads - 1) / threads, (2 * H + rows - 1) / rows);
+  const int rows = 2 * H <= 2 ? 2 : (2 * H <= 4 ? 4 : (2 * H <= 8 ? 8 : 16));
+  const dim3 grid((N + kWindowThreads - 1) / kWindowThreads);
   const size_t smem = (size_t)o * 2 * rows * sizeof(float);
-  if (grid.y > 65535 || smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (rows) {
-#define KW_CASE(r)                                                                    \
-  case r:                                                                             \
-    project_window<r><<<grid, threads, smem, s>>>(chunk, tab_lo, tab_hi, p1_in, frame, \
-                                                  p1_out, o, 2 * H, N, first_window);  \
+#define KW_CASE(r)                                                                         \
+  case r:                                                                                  \
+    project_window<r><<<grid, kWindowThreads, smem, s>>>(chunk, tab_lo, tab_hi, p1_in, frame, \
+                                                         p1_out, o, 2 * H, N, first_window);  \
     break;
-    KW_CASE(1) KW_CASE(2) KW_CASE(4) KW_CASE(8) KW_CASE(16)
+    KW_CASE(2) KW_CASE(4) KW_CASE(8) KW_CASE(16)
 #undef KW_CASE
     default:
       return (int)cudaErrorInvalidValue;

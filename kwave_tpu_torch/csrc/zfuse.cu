@@ -1,5 +1,4 @@
-// The fused z stage's dense and radix kernels (see zfuse.cuh for the function and the
-// layout).
+// The fused z stage's radix kernel (see zfuse.cuh for the function and the layout).
 //
 // zfuse_radix_kernel<R0, R1, R2> (nz = R0*R1*R2 a power of two, 8..1024): a radix FFT in
 // shared memory, 5 nz log2 nz flop a column instead of 8 nz^2, so it is bound by the
@@ -17,168 +16,10 @@
 // natural order, so there is no reordering pass; its last pass stores straight from
 // registers. One op works in place in one tile; two or three keep F in a second tile.
 // At nz = 256 that is 16 threads a column, two passes of radix 16, 34 or 66 KB a block.
-//
-// zfuse_kernel<TC> (nz = 1, and any nz through a plan that names it): the dense DFT in
-// fp32 FMAs. A block stages S for a tile of TC columns as re/im planes [nz][TC]. The
-// [nz, nz] matrix does not fit, so only the nz roots are staged and entry (k, z) is
-// roots[(k*z) mod nz], the index advanced by k per z step. A thread accumulates 8 output
-// bins x 4 columns in registers (128 FMAs per 10 shared loads), writes F to a second tile,
-// and then per operator: all threads form G = F * op into the first tile, and the same
-// contraction with the conjugate roots writes the output. It is bound by operations:
-// 16*nz^2 flop per column and op pair.
 
 #include "zfuse.cuh"
 
 namespace {
-
-constexpr int KB = 8;  // output bins per thread
-constexpr int CB = 4;  // columns per thread
-
-// acc[j][q] = sum_z roots[((k0 + j) * z) mod nz] (conjugated when INV) * a[z][col0 + q]
-template <int TC, bool INV>
-__device__ __forceinline__ void dft_bins(const float* __restrict__ a_re,
-                                         const float* __restrict__ a_im,
-                                         const float2* __restrict__ roots, int nz, int k0,
-                                         int col0, float (&acc_r)[KB][CB],
-                                         float (&acc_i)[KB][CB]) {
-  int idx[KB], kk[KB];
-#pragma unroll
-  for (int j = 0; j < KB; ++j) {
-    kk[j] = (k0 + j < nz) ? k0 + j : 0;  // bins past nz are computed as bin 0 and dropped
-    idx[j] = 0;
-#pragma unroll
-    for (int q = 0; q < CB; ++q) acc_r[j][q] = acc_i[j][q] = 0.f;
-  }
-  for (int z = 0; z < nz; ++z) {
-    const float4 sr4 = *reinterpret_cast<const float4*>(a_re + z * TC + col0);
-    const float4 si4 = *reinterpret_cast<const float4*>(a_im + z * TC + col0);
-    const float sr[CB] = {sr4.x, sr4.y, sr4.z, sr4.w};
-    const float si[CB] = {si4.x, si4.y, si4.z, si4.w};
-#pragma unroll
-    for (int j = 0; j < KB; ++j) {
-      const float2 w = roots[idx[j]];
-      const float wr = w.x, wi = INV ? -w.y : w.y;
-#pragma unroll
-      for (int q = 0; q < CB; ++q) {
-        acc_r[j][q] = fmaf(wr, sr[q], acc_r[j][q]);
-        acc_r[j][q] = fmaf(-wi, si[q], acc_r[j][q]);
-        acc_i[j][q] = fmaf(wr, si[q], acc_i[j][q]);
-        acc_i[j][q] = fmaf(wi, sr[q], acc_i[j][q]);
-      }
-      idx[j] += kk[j];
-      if (idx[j] >= nz) idx[j] -= nz;
-    }
-  }
-}
-
-template <int TC>
-__global__ void __launch_bounds__(kThreads)
-zfuse_kernel(const float2* __restrict__ S, const float2* __restrict__ roots_g,
-             const float* __restrict__ k2z, const float* __restrict__ k2y,
-             const float* __restrict__ k2x, ZOps ops, int nz, int ny, int nxr,
-             float c_ref_dt_2, int use_kappa) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  // tile A: S, then each operator's G; tile B: F; then the roots
-  float* a_re = reinterpret_cast<float*>(smem_raw);
-  float* a_im = a_re + (size_t)nz * TC;
-  float* b_re = a_im + (size_t)nz * TC;
-  float* b_im = b_re + (size_t)nz * TC;
-  float2* roots = reinterpret_cast<float2*>(b_im + (size_t)nz * TC);
-
-  const int tid = threadIdx.x;
-  const size_t C = (size_t)ny * nxr;
-  const size_t c0 = (size_t)blockIdx.x * TC;
-  constexpr int CG = TC / CB;        // column groups
-  constexpr int KG = kThreads / CG;  // bin groups per pass
-  const int col0 = (tid % CG) * CB;
-  const int kg = tid / CG;
-
-  for (int j = tid; j < nz; j += kThreads) roots[j] = roots_g[j];
-  for (int e = tid; e < nz * TC; e += kThreads) {
-    const int z = e / TC, c = e - z * TC;
-    float2 v = make_float2(0.f, 0.f);
-    if (c0 + c < C) v = S[(size_t)z * C + c0 + c];
-    a_re[e] = v.x;
-    a_im[e] = v.y;
-  }
-  __syncthreads();
-
-  float acc_r[KB][CB], acc_i[KB][CB];
-  // forward: F = DFT_z . S, into tile B
-  for (int k0 = kg * KB; k0 < nz; k0 += KG * KB) {
-    dft_bins<TC, false>(a_re, a_im, roots, nz, k0, col0, acc_r, acc_i);
-#pragma unroll
-    for (int j = 0; j < KB; ++j) {
-      if (k0 + j >= nz) break;
-#pragma unroll
-      for (int q = 0; q < CB; ++q) {
-        b_re[(k0 + j) * TC + col0 + q] = acc_r[j][q];
-        b_im[(k0 + j) * TC + col0 + q] = acc_i[j][q];
-      }
-    }
-  }
-  __syncthreads();
-
-  const float inv_nz = 1.0f / (float)nz;
-  for (int op = 0; op < ops.n_ops; ++op) {
-    // pointwise: G = F * operator(k, y, x) / nz, into tile A
-    for (int e = tid; e < nz * TC; e += kThreads) {
-      const int k = e / TC, c = e - k * TC;
-      float g_re = 0.f, g_im = 0.f;
-      if (c0 + c < C) {
-        const int y = (int)((c0 + c) / nxr);
-        const int x = (int)((c0 + c) - (size_t)y * nxr);
-        const float2 g = cmul(make_float2(b_re[e], b_im[e]),
-                              op_value(ops, op, k, y, x, k2z[k] + (k2y[y] + k2x[x]),
-                                       c_ref_dt_2, use_kappa));
-        g_re = g.x;
-        g_im = g.y;
-      }
-      a_re[e] = g_re * inv_nz;
-      a_im[e] = g_im * inv_nz;
-    }
-    __syncthreads();
-    // inverse: out = IDFT_z . G
-    float2* __restrict__ out = ops.out[op];
-    for (int k0 = kg * KB; k0 < nz; k0 += KG * KB) {
-      dft_bins<TC, true>(a_re, a_im, roots, nz, k0, col0, acc_r, acc_i);
-#pragma unroll
-      for (int j = 0; j < KB; ++j) {
-        if (k0 + j >= nz) break;
-#pragma unroll
-        for (int q = 0; q < CB; ++q) {
-          if (c0 + col0 + q < C)
-            out[(size_t)(k0 + j) * C + c0 + col0 + q] = make_float2(acc_r[j][q], acc_i[j][q]);
-        }
-      }
-    }
-    __syncthreads();  // tile A is overwritten by the next operator
-  }
-}
-
-template <int TC>
-int launch(const float2* S, const float2* roots, const float* k2z, const float* k2y,
-           const float* k2x, const ZOps& ops, int nz, int ny, int nxr, float c_ref_dt_2,
-           int use_kappa, size_t smem, cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(zfuse_kernel<TC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const size_t C = (size_t)ny * nxr;
-  const unsigned blocks = (unsigned)((C + TC - 1) / TC);
-  zfuse_kernel<TC><<<blocks, kThreads, smem, s>>>(S, roots, k2z, k2y, k2x, ops, nz, ny, nxr,
-                                                  c_ref_dt_2, use_kappa);
-  return (int)cudaGetLastError();
-}
-
-// Shared memory the kernel needs for a tile of `tc` columns.
-size_t zfuse_smem(int nz, int tc) {
-  return (size_t)nz * tc * 4 * sizeof(float) + (size_t)nz * sizeof(float2);
-}
-
-// ---------------------------------------------------------------------------
-// The radix kernel
-// ---------------------------------------------------------------------------
 
 // Columns of a tile: wide enough that every pass has a butterfly for each of the 256
 // threads, narrow enough that two tiles leave room for several blocks an SM.
@@ -361,31 +202,6 @@ extern "C" {
 
 // Each returns a cudaError (0 = cudaSuccess): of the shared-memory opt-in, or
 // cudaGetLastError() after the launch.
-
-// The dense kernel, any nz; cudaErrorInvalidValue when no tile width fits.
-int kw_zfuse(const void* spectrum, const void* roots, const float* k2z, const float* k2y,
-             const float* k2x, const void* dd0, const void* dd1, const void* dd2, void* out0,
-             void* out1, void* out2, int nz, int ny, int nxr, int n_ops, int kind0, int kind1,
-             int kind2, int axis0, int axis1, int axis2, float power0, float power1,
-             float power2, float c_ref_dt_2, int use_kappa, void* stream) {
-  if (n_ops < 1 || n_ops > kMaxOps || nz < 1) return (int)cudaErrorInvalidValue;
-  const ZOps ops = make_ops(n_ops, dd0, dd1, dd2, out0, out1, out2, kind0, kind1, kind2, axis0,
-                            axis1, axis2, power0, power1, power2);
-  const float2* S = static_cast<const float2*>(spectrum);
-  const float2* W = static_cast<const float2*>(roots);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t limit = 227 * 1024;  // what one block may opt in to on sm_90
-  if (zfuse_smem(nz, 32) <= limit)
-    return launch<32>(S, W, k2z, k2y, k2x, ops, nz, ny, nxr, c_ref_dt_2, use_kappa,
-                      zfuse_smem(nz, 32), s);
-  if (zfuse_smem(nz, 16) <= limit)
-    return launch<16>(S, W, k2z, k2y, k2x, ops, nz, ny, nxr, c_ref_dt_2, use_kappa,
-                      zfuse_smem(nz, 16), s);
-  if (zfuse_smem(nz, 8) <= limit)
-    return launch<8>(S, W, k2z, k2y, k2x, ops, nz, ny, nxr, c_ref_dt_2, use_kappa,
-                     zfuse_smem(nz, 8), s);
-  return (int)cudaErrorInvalidValue;
-}
 
 // The radix kernel, nz = r0*r1*r2 with the passes in the caller's order;
 // cudaErrorInvalidValue for a pass plan that is not built here.

@@ -1,10 +1,10 @@
 // Fused z stage of the solver's spectral multiplies for Hopper (sm_90a): z-DFT -> pointwise
 // operator built in the kernel -> z-IDFT, for up to three operators off one forward
-// transform. What its five kernels share: the operators, the butterflies in registers and
-// the mixed-radix passes in shared memory. The kernels: zfuse.cu (the dense and the radix
-// kernel), zfuse_mixed.cu (the mixed-radix kernel), zfuse_bluestein.cuh (the Bluestein
-// kernel, one source a tile width), zfuse_column.cu (the short z lengths, a column a
-// thread), each its own source so that nvcc builds them side by side.
+// transform. What its four kernels share: the operators, the butterflies in registers and
+// the mixed-radix passes in shared memory. The kernels: zfuse.cu (the radix kernel),
+// zfuse_mixed.cu (the mixed-radix kernel), zfuse_bluestein.cuh (the Bluestein kernel, one
+// source a tile width), zfuse_column.cu (the short z lengths, a column a thread), each its
+// own source so that nvcc builds them side by side.
 //
 // Replaces the TPU kernel of kwave_tpu/ops/zfuse.py (_kernel, entry apply).
 //
@@ -20,8 +20,8 @@
 // The TPU version does each contraction as a three-pass bf16 split on its matrix unit,
 // because that compiler has no fp32 matmul, and holds the [nz, nz] matrices in fast memory.
 // This card has fp32 FMAs, 227 KB of shared memory a block and far less arithmetic than
-// that unit per byte moved, so every z length but 1 takes an FFT: in shared memory, or in
-// one thread's registers where a column is short. Every kernel with a tile zero-fills the
+// that unit per byte moved, so every z length takes an FFT: in shared memory, or in one
+// thread's registers where a column is short. Every kernel with a tile zero-fills the
 // ragged last tile on load and masks it on store, and needs more than 48 KB of shared
 // memory at the larger nz, so the launchers opt in to what they ask for.
 
@@ -29,20 +29,6 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-// Two choices of the mixed kernel's design, as macros so that `python -m
-// kwave_tpu_torch.sweeps --only k7design` can build it each other way and time it beside
-// this one (the source of the defaults):
-// KW_OP_IN_PASS_MAX: the widest first inverse pass that builds the operator as it reads
-// (0: every plan takes the operator's step; 16: none does);
-// KW_RADIX_11_13: 1 for the butterflies of 11 and 13 in registers, 0 to send those primes
-// through the generic pass.
-#ifndef KW_OP_IN_PASS_MAX
-#define KW_OP_IN_PASS_MAX 7
-#endif
-#ifndef KW_RADIX_11_13
-#define KW_RADIX_11_13 1
-#endif
 
 namespace {
 
@@ -305,8 +291,10 @@ __device__ __forceinline__ float2 op_over_nz(const ZOps& ops, int op, int k, int
 // The operator of a mixed plan, which the first inverse pass multiplies by as it reads
 // (the radix kernel's way) where its radix is at most kOpInPassMax; a larger butterfly that
 // also built R multipliers would spill under the mixed kernel's register cap, so there the
-// kernel multiplies F by the operator in a step of its own before the passes.
-constexpr int kOpInPassMax = KW_OP_IN_PASS_MAX;
+// kernel multiplies F by the operator in a step of its own before the passes. Timed on an
+// H100 against 0 (every plan takes the step) and 16 (none does), each side of the fork won
+// where 7 sends it (PERF.md section 6, K7 mixed).
+constexpr int kOpInPassMax = 7;
 struct PassOp {
   const ZOps* ops;
   int op, nxr;
@@ -367,13 +355,6 @@ __device__ __forceinline__ void mixed_inverse_pass(const float2* src, float2* ds
 
 // One call of CALL(R) for the pass's radix r (uniform across the block), a radix of the
 // butterflies in registers; the generic pass is called on its own.
-#if KW_RADIX_11_13
-#define KW_CASES_11_13(CALL)  \
-  case 11: CALL(11); break;   \
-  case 13: CALL(13); break;
-#else
-#define KW_CASES_11_13(CALL)
-#endif
 #define KW_BY_RADIX(CALL)     \
   switch (r) {                \
     case 2: CALL(2); break;   \
@@ -382,13 +363,14 @@ __device__ __forceinline__ void mixed_inverse_pass(const float2* src, float2* ds
     case 5: CALL(5); break;   \
     case 7: CALL(7); break;   \
     case 8: CALL(8); break;   \
-    KW_CASES_11_13(CALL)      \
+    case 11: CALL(11); break; \
+    case 13: CALL(13); break; \
     case 16: CALL(16); break; \
   }
 
 __host__ __device__ constexpr bool in_registers(int r) {
-  return r == 2 || r == 3 || r == 4 || r == 5 || r == 7 || r == 8 || r == 16 ||
-         (KW_RADIX_11_13 && (r == 11 || r == 13));
+  return r == 2 || r == 3 || r == 4 || r == 5 || r == 7 || r == 8 || r == 11 || r == 13 ||
+         r == 16;
 }
 
 inline bool odd_prime(int p) {

@@ -86,12 +86,9 @@ int launch_tc2(const Args& a);
 
 namespace {
 
-// Blocks an SM the registers are capped for (a macro, so that `python -m
-// kwave_tpu_torch.sweeps --only k7bluestein` can time the kernel capped for two beside it).
-#ifndef KW_BLUE_BLOCKS
-#define KW_BLUE_BLOCKS 3
-#endif
-constexpr int kBlueBlocks = KW_BLUE_BLOCKS;
+// Blocks an SM the registers are capped for (ops/zfuse.py BLUESTEIN_BLOCKS, which
+// bluestein_tile reads).
+constexpr int kBlueBlocks = 3;
 constexpr int kStageFilt = 1, kStageChirp = 2, kStageK2z = 4;
 
 using kw_blue::BluePlan;

@@ -1,7 +1,7 @@
 // The fused z stage's column kernel (see zfuse.cuh for the function and the layout).
 //
 // zfuse_column_kernel<NZ> (the short z lengths of ops.zfuse.COLUMN_NZ; built for every nz
-// from 2 to 16): one thread a column. It loads the column's nz values (a warp's loads of
+// from 1 to 16): one thread a column. It loads the column's nz values (a warp's loads of
 // one z are 32 adjacent columns), transforms them in registers (the butterflies of
 // zfuse.cuh where nz is one of their radices, else two of them with the twiddles between,
 // from the plan's roots), multiplies by each op's operator at the natural bin (kappa
@@ -9,6 +9,7 @@
 // barrier. The mixed kernel's tiles keep (nz/R) x 32 of a block's 256 threads busy in a
 // pass of radix R, 32 at nz = 4, and cross two or more barriers for ~2 KB of data; here
 // every thread works from its first load. Bound by bytes: nz x (1 + ops) x 8 B a column.
+// At nz = 1 (a grid of one z plane) both transforms are the identity.
 
 #include "zfuse.cuh"
 
@@ -22,12 +23,15 @@ __host__ __device__ constexpr bool column_radix(int n) {
 }
 
 // In registers, natural order in and out: v[k] <- sum_n v[n] w^(k*n), w = exp(-/+ 2*pi*i/N)
-// (forward / inverse). N one of the butterflies' radices, or A x B of two of them: with
-// n = B*n1 + n2 and k = k1 + A*k2, a DFT of length A over n1 for each n2, the twiddle
-// w^(n2*k1) (roots[j] = exp(-2*pi*i*j/N)), a DFT of length B over n2 for each k1.
+// (forward / inverse). N = 1 (nothing to do), one of the butterflies' radices, or A x B of
+// two of them: with n = B*n1 + n2 and k = k1 + A*k2, a DFT of length A over n1 for each
+// n2, the twiddle w^(n2*k1) (roots[j] = exp(-2*pi*i*j/N)), a DFT of length B over n2 for
+// each k1.
 template <int N, bool INV>
 __device__ __forceinline__ void column_fft(float2 (&v)[N], const float2* __restrict__ roots) {
-  if constexpr (column_radix(N)) {
+  if constexpr (N == 1) {
+    return;
+  } else if constexpr (column_radix(N)) {
     fft_any<N, INV>(v);
   } else {
     constexpr int A = N % 4 == 0 ? 4 : (N % 2 == 0 ? 2 : 3);
@@ -116,8 +120,9 @@ int launch_column(const float2* S, const float2* roots, const float* k2z, const 
 
 extern "C" {
 
-// The column kernel: nz from 2 to 16 (cudaErrorInvalidValue for any other, or for n_ops
-// outside 1..3); the arguments as kw_zfuse's. Returns cudaGetLastError() after the launch.
+// The column kernel: nz from 1 to 16 (cudaErrorInvalidValue for any other, or for n_ops
+// outside 1..3); the arguments as kw_zfuse_radix's without the radices. Returns
+// cudaGetLastError() after the launch.
 int kw_zfuse_column(const void* spectrum, const void* roots, const float* k2z, const float* k2y,
                     const float* k2x, const void* dd0, const void* dd1, const void* dd2,
                     void* out0, void* out1, void* out2, int nz, int ny, int nxr, int n_ops,
@@ -134,9 +139,9 @@ int kw_zfuse_column(const void* spectrum, const void* roots, const float* k2z, c
 #define KW_COLUMN(N) \
   case N:            \
     return launch_column<N>(S, W, k2z, k2y, k2x, ops, ny, nxr, c_ref_dt_2, use_kappa, s);
-    KW_COLUMN(2) KW_COLUMN(3) KW_COLUMN(4) KW_COLUMN(5) KW_COLUMN(6) KW_COLUMN(7)
-    KW_COLUMN(8) KW_COLUMN(9) KW_COLUMN(10) KW_COLUMN(11) KW_COLUMN(12) KW_COLUMN(13)
-    KW_COLUMN(14) KW_COLUMN(15) KW_COLUMN(16)
+    KW_COLUMN(1) KW_COLUMN(2) KW_COLUMN(3) KW_COLUMN(4) KW_COLUMN(5) KW_COLUMN(6)
+    KW_COLUMN(7) KW_COLUMN(8) KW_COLUMN(9) KW_COLUMN(10) KW_COLUMN(11) KW_COLUMN(12)
+    KW_COLUMN(13) KW_COLUMN(14) KW_COLUMN(15) KW_COLUMN(16)
 #undef KW_COLUMN
   }
   return (int)cudaErrorInvalidValue;

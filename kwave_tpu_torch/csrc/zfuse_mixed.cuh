@@ -5,11 +5,11 @@
 // 2 (114 registers: the generic pass's pairs held without spilling), or 3 (80, as the
 // radix-only plans, spilling 4 B) where two or more radix passes follow the generic pass
 // and the shared memory lets three blocks share an SM (230 = 23 x 2 x 5: 0.160 against
-// 0.186 ms one op; `sweeps --only k7generic`).
+// 0.186 ms one op on an H100).
 //
 // zfuse_mixed_kernel<TC> (every nz from 17 to 1709 but the radix kernel's whose prime
 // factors are at most 13, or all but one prime from 17 to ops.zfuse.PRIME_MAX: 176, 192,
-// 230, 384, ...; the column kernel takes 2 to 16): the radix kernel's FFT with the pass plan
+// 230, 384, ...; the column kernel takes 1 to 16): the radix kernel's FFT with the pass plan
 // a runtime argument (up to seven radices from 2, 3, 4, 5, 7, 8, 11, 13, 16; the
 // power-of-two part first, then each odd factor a pass of its own; the one larger prime a
 // generic pass first), so one instantiation per tile width serves every such nz. Each pass

@@ -8,8 +8,6 @@
 - `encode_series`: the whole-record reference-exact encodes (float and 40-bit), every
   window of a record in one launch.
 - `zfuse`: the solver's fused z stage (z-DFT, operator built in the kernel, z-IDFT).
-- `sass_count`: a tool, no kernel: counts the machine instructions in the built kernels'
-  loops.
 
 Importing this package builds nothing: the kernels are compiled by `_build` at their
 first launch on a CUDA tensor."""

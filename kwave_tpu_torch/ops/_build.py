@@ -5,8 +5,6 @@ one shared library with a plain C interface, loaded with ``ctypes`` (no PyTorch 
 minutes). The library goes to ``build/kwave_tpu_torch/`` at the repository root, named by
 a hash of the sources and flags, so an unchanged tree reuses it and a changed one
 rebuilds. Nothing here runs at import time: the first launch on a CUDA tensor builds.
-``defines`` (``-D`` flags) build a variant beside it, for a sweep that times a design's
-alternatives (`kwave_tpu_torch.sweeps`); the port itself loads the library without any.
 """
 
 from __future__ import annotations
@@ -35,14 +33,10 @@ _MIXED = [_P] * 12 + [_I] * 10 + [ctypes.c_float] * 4 + [_I] * 10 + [_P]  # kw_z
 # C signatures of csrc/*.cu (pointers and the stream as void*)
 SIGNATURES = {
     # encode_window.cu
-    # chunk, tabs, 6 planes in, 6 planes out; steps, o, H, N, e, parity, mirror, overlap,
-    # threads, split, packed
-    "kw_encode_window_40b": [_P] * 14 + [_I] * 11 + [_P],
-    # chunk, tabs, 4 planes in, 4 planes out; steps, o, H, N, parity, mirror, overlap,
-    # threads
-    "kw_encode_window_float": [_P] * 10 + [_I] * 8 + [_P],
-    # steps, H, N, threads, split
-    "kw_launch_floor": [_I] * 5 + [_P],
+    # chunk, tabs, 6 planes in, 6 planes out; steps, o, H, N, e, parity, mirror, overlap
+    "kw_encode_window_40b": [_P] * 14 + [_I] * 8 + [_P],
+    # chunk, tabs, 4 planes in, 4 planes out; steps, o, H, N, parity, mirror, overlap
+    "kw_encode_window_float": [_P] * 10 + [_I] * 7 + [_P],
     # encode_series.cu
     # series, tabs, 3 frame planes, 6 state planes; K, o, H, N, e, overlap, G
     "kw_encode_series_40b": [_P] * 11 + [_I] * 7 + [_P],
@@ -51,22 +45,21 @@ SIGNATURES = {
     # fastpath.cu
     # series, tab_lo, tab_hi, frames; K, o, H, N
     "kw_project_frames": [_P] * 4 + [_I] * 4 + [_P],
-    # chunk, tab_lo, tab_hi, p1_in, frame, p1_out; o, H, N, first_window, threads, rows
-    "kw_project_window": [_P] * 6 + [_I] * 6 + [_P],
+    # chunk, tab_lo, tab_hi, p1_in, frame, p1_out; o, H, N, first_window
+    "kw_project_window": [_P] * 6 + [_I] * 4 + [_P],
     # frames, tab, x; k_total, o, H, N, n_steps
     "kw_synth_series": [_P] * 3 + [_I] * 5 + [_P],
     # zfuse.cu
     # spectrum, roots, k2z, k2y, k2x, 3 dd vectors, 3 outputs; nz, ny, nxr, n_ops, 3 kinds,
-    # 3 axes; 3 powers, c_ref_dt_2; use_kappa
-    "kw_zfuse": [_P] * 11 + [_I] * 10 + [ctypes.c_float] * 4 + [_I] + [_P],
-    # the same, then the radices of the three passes (1 for a pass that is not taken)
+    # 3 axes; 3 powers, c_ref_dt_2; use_kappa; the radices of the three passes (1 for a
+    # pass that is not taken)
     "kw_zfuse_radix": [_P] * 11 + [_I] * 10 + [ctypes.c_float] * 4 + [_I] * 4 + [_P],
     # spectrum, roots, bins, k2z, k2y, k2x, 3 dd vectors, 3 outputs; the same ints and
     # floats; use_kappa, the number of passes, seven radices (1 past the last pass) and the
     # tile width (0: the kernel's rule)
     "kw_zfuse_mixed": _MIXED,
     # the same for a plan with a generic pass, the build capped for 2 and for 3 blocks an
-    # SM (zfuse_mixed_generic*.cu; kw_zfuse_mixed picks one, a sweep may name either)
+    # SM (zfuse_mixed_generic*.cu; kw_zfuse_mixed picks one, a test may name either)
     "kw_zfuse_mixed_generic": _MIXED,
     "kw_zfuse_mixed_generic3": _MIXED,
     # the prime p: the entries of its generic pass's table
@@ -75,7 +68,7 @@ SIGNATURES = {
     # ints and floats; use_kappa, M, the number of passes, seven radices, the tile width
     # and the staged tables
     "kw_zfuse_bluestein": [_P] * 13 + [_I] * 10 + [ctypes.c_float] * 4 + [_I] * 12 + [_P],
-    # zfuse_column.cu: kw_zfuse's arguments
+    # zfuse_column.cu: kw_zfuse_radix's arguments without the radices
     "kw_zfuse_column": [_P] * 11 + [_I] * 10 + [ctypes.c_float] * 4 + [_I] + [_P],
 }
 
@@ -94,12 +87,8 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
 
 
-def _flags(defines: tuple[str, ...]) -> tuple[str, ...]:
-    return (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
-
-
-def library_path(defines: tuple[str, ...] = ()) -> Path:
-    digest = hashlib.sha256(" ".join(_flags(defines)).encode())
+def library_path() -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sorted(CSRC_DIR.glob("*.cu*")):  # the sources and the headers they share
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
@@ -117,10 +106,10 @@ def _run_all(cmds: list[list[str]]) -> None:
             raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
 
 
-def build(defines: tuple[str, ...] = ()) -> Path:
-    """Compile the sources unless a library for exactly these sources and ``defines``
-    exists: one nvcc per source, all started together, then one link."""
-    out = library_path(defines)
+def build() -> Path:
+    """Compile the sources unless a library for exactly these sources exists: one nvcc per
+    source, all started together, then one link."""
+    out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -128,7 +117,7 @@ def build(defines: tuple[str, ...] = ()) -> Path:
     # build under a temporary name and rename, so a cut build never leaves a half file
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [str(Path(tmp) / f"{src.stem}.o") for src in _sources()]
-        _run_all([[nvcc, *_flags(defines), "-c", "-o", obj, str(src)]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
                   for obj, src in zip(objs, _sources())])
         lib = str(Path(tmp) / out.name)
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
@@ -137,10 +126,9 @@ def build(defines: tuple[str, ...] = ()) -> Path:
 
 
 @functools.cache
-def load_library(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
-    """Build if needed, load once per process (and per ``defines``), and declare every C
-    signature."""
-    lib = ctypes.CDLL(str(build(defines)))
+def load_library() -> ctypes.CDLL:
+    """Build if needed, load once per process, and declare every C signature."""
+    lib = ctypes.CDLL(str(build()))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

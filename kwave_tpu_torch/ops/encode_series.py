@@ -151,7 +151,8 @@ def _check(series, tabs, o_size: int) -> None:
 def _launch(name: str, series, tabs, o_size: int, overlap: bool, dtype, per_buf: int,
             extra: tuple, chunk_windows: int | None):
     """Launch one whole-record kernel. ``chunk_windows`` other than None overrides
-    `chunk_windows_for`: for the card tests and the sweep of `kwave_tpu_torch.sweeps`."""
+    `chunk_windows_for`: for the card tests and `chip_smoke.py`, which reach chunk
+    boundaries that a record of their size would not have."""
     from kwave_tpu_torch.ops import _build
 
     lib = _build.load_library()

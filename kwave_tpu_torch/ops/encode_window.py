@@ -56,11 +56,6 @@ LAUNCHES = {
     "wfloat_projection": 0,
 }
 
-# Geometry of the window kernels: a small block, so that one window of 16384 sensors covers
-# the card's 132 SMs; with overlap, the two 40-bit buffers of a sensor on two lanes.
-WINDOW_THREADS = 64
-W40_SPLIT = 2
-
 # Exponent offsets of the 40-bit paths: 0 .. MAX_E_CONST (the reference's are 138 and 114).
 # Above it a shift count of the pack can wrap in the reference's uint8, which the kernels'
 # step between the words (quant40) leaves out; below 0 it is no exponent.
@@ -228,16 +223,11 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
 
-def _kernel_40b(chunk, tabs, planes, e_const: int, parity: int, mirror: int, overlap: bool,
-                threads: int | None = None, split: int | None = None, packed: bool = False):
-    """Launch the 40-bit window kernel on checked CUDA tensors. ``threads``, ``split`` and
-    ``packed`` other than the defaults are the variants that `kwave_tpu_torch.sweeps` and
-    the card tests compare: the block size, one lane per buffer (2) or per sensor (1), and
-    the baseline kernel that packs its words at every step."""
+def _kernel_40b(chunk, tabs, planes, e_const: int, parity: int, mirror: int, overlap: bool):
+    """Launch the 40-bit window kernel on checked CUDA tensors."""
     from kwave_tpu_torch.ops import _build
 
     lib = _build.load_library()
-    split = (W40_SPLIT if overlap else 1) if split is None else int(split)
     outs = tuple(torch.empty_like(p) for p in planes)
     ins = planes + (None,) * (6 - len(planes))
     outs6 = outs + (None,) * (6 - len(outs))
@@ -247,9 +237,7 @@ def _kernel_40b(chunk, tabs, planes, e_const: int, parity: int, mirror: int, ove
         err = lib.kw_encode_window_40b(
             chunk.data_ptr(), tabs.data_ptr(), *map(ptr, ins), *map(ptr, outs6),
             steps, tabs.shape[0] // 2, tabs.shape[1] // 4, n, int(e_const), int(parity),
-            int(bool(mirror)), int(bool(overlap)),
-            WINDOW_THREADS if threads is None else int(threads), split, int(bool(packed)),
-            torch.cuda.current_stream().cuda_stream,
+            int(bool(mirror)), int(bool(overlap)), torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "encode_window_40b_exact")
     return outs
@@ -273,25 +261,8 @@ def encode_window_40b_exact(chunk, tabs, planes, e_const: int, parity: int, mirr
     return outs
 
 
-def launch_floor(steps: int, n_harm: int, n_sensors: int, threads: int | None = None,
-                 split: int | None = None) -> None:
-    """Launch an empty kernel at the grid, block and shared memory that a 40-bit overlap
-    window of this shape gets: what a window costs before it does anything. For timing
-    (`chip_smoke.py`, `kwave_tpu_torch.sweeps`); no path of the package calls it."""
-    from kwave_tpu_torch.ops import _build
-
-    err = _build.load_library().kw_launch_floor(
-        int(steps), int(n_harm), int(n_sensors),
-        WINDOW_THREADS if threads is None else int(threads),
-        W40_SPLIT if split is None else int(split),
-        torch.cuda.current_stream().cuda_stream)
-    _raise_on(err, "launch_floor")
-
-
-def _kernel_float(chunk, tabs, planes, parity: int, mirror: int, overlap: bool,
-                  threads: int | None = None):
-    """Launch the float window kernel on checked CUDA tensors (``threads``: see
-    `_kernel_40b`)."""
+def _kernel_float(chunk, tabs, planes, parity: int, mirror: int, overlap: bool):
+    """Launch the float window kernel on checked CUDA tensors."""
     from kwave_tpu_torch.ops import _build
 
     lib = _build.load_library()
@@ -304,9 +275,7 @@ def _kernel_float(chunk, tabs, planes, parity: int, mirror: int, overlap: bool,
         err = lib.kw_encode_window_float(
             chunk.data_ptr(), tabs.data_ptr(), *map(ptr, ins), *map(ptr, outs4),
             steps, tabs.shape[0] // 2, tabs.shape[1] // 4, n, int(parity),
-            int(bool(mirror)), int(bool(overlap)),
-            WINDOW_THREADS if threads is None else int(threads),
-            torch.cuda.current_stream().cuda_stream,
+            int(bool(mirror)), int(bool(overlap)), torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "encode_window_float_exact")
     return outs

@@ -47,10 +47,6 @@ MAX_TABLE_FLOATS = 48 * 1024 // 4
 # Windows per thread (kWindowsPerThread in csrc/fastpath.cu); blocks of them on grid y.
 WINDOWS_PER_THREAD = 8
 MAX_WINDOWS = WINDOWS_PER_THREAD * 65535
-# The one-window projection kernel (K6): a small block, so that one window of 16384 sensors
-# covers the card's 132 SMs, and the row counts a thread is instantiated for.
-WINDOW_THREADS = 64
-WINDOW_ROWS = (1, 2, 4, 8, 16)
 # Every compute value of the JAX 3D entries; all of them take the one fp32 kernel here.
 COMPUTES = ("vpu", "mxu_highest", "mxu_default")
 
@@ -162,19 +158,9 @@ def launch_projection(series, tab_lo, tab_hi, o_size: int, k_frames: int):
     return frames
 
 
-def window_rows_for(h2: int) -> int:
-    """Coefficient rows of the 2H that one thread of the one-window kernel sums: all of
-    them (the least instantiated count that holds them), so that every sample is loaded
-    by one thread."""
-    return next(r for r in WINDOW_ROWS if r >= h2)
-
-
-def launch_window_projection(chunk, tab_lo, tab_hi, p1_prev, first_window: bool,
-                             threads: int | None = None, rows: int | None = None):
+def launch_window_projection(chunk, tab_lo, tab_hi, p1_prev, first_window: bool):
     """Launch the one-window projection kernel (`encode_window.encode_window_float`) on
-    contiguous CUDA tensors; ``threads`` and ``rows`` other than None override
-    `WINDOW_THREADS` and `window_rows_for` (for `kwave_tpu_torch.sweeps`). Returns
-    (frame [2H, N], p1 [2H, N])."""
+    contiguous CUDA tensors. Returns (frame [2H, N], p1 [2H, N])."""
     from kwave_tpu_torch.ops import _build
 
     (o_size, h2), n = tab_lo.shape, chunk.shape[1]
@@ -186,8 +172,6 @@ def launch_window_projection(chunk, tab_lo, tab_hi, p1_prev, first_window: bool,
             chunk.data_ptr(), tab_lo.data_ptr(), tab_hi.data_ptr(),
             None if first_window else p1_prev.data_ptr(), frame.data_ptr(), p1.data_ptr(),
             o_size, h2 // 2, n, int(bool(first_window)),
-            WINDOW_THREADS if threads is None else int(threads),
-            window_rows_for(h2) if rows is None else int(rows),
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, "project_window")

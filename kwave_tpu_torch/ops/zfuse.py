@@ -13,17 +13,17 @@ bin order, after the x/y transforms):
 - "nabla" ops multiply by ``|k|^power`` with 0 at ``k == 0`` (the absorbing-term factors);
 - ``out = IDFT_z . G`` (with the 1/nz). Up to three ops share the one forward transform.
 
-Five kernels, all CUDA C++ for sm_90a in ``kwave_tpu_torch/csrc/`` (``zfuse.cu``: radix
-and dense; ``zfuse_mixed.cuh``, in ``zfuse_mixed.cu`` and, for plans with a generic pass,
+Four kernels, all CUDA C++ for sm_90a in ``kwave_tpu_torch/csrc/`` (``zfuse.cu``: radix;
+``zfuse_mixed.cuh``, in ``zfuse_mixed.cu`` and, for plans with a generic pass,
 ``zfuse_mixed_generic.cu`` / ``zfuse_mixed_generic3.cu``; ``zfuse_bluestein.cuh``, one
 source a tile width; ``zfuse_column.cu``; what they share in ``zfuse.cuh``).
 `make_plan` chooses one by ``nz`` (`kernel_for`) and records it in the plan with its tables
 (`kernel_tables`); `apply` launches the kernel its plan names, or raises:
 
-- "column", for the short ``nz`` of `COLUMN_NZ`: one thread a column, its nz values
-  transformed in registers, multiplied by each op's operator at the natural bin and
-  transformed back, without shared memory or a barrier (built for every ``nz`` from 2 to
-  `COLUMN_MAX_NZ`; a plan may name it there).
+- "column", for the short ``nz`` of `COLUMN_NZ`, 1 to `COLUMN_MAX_NZ`: one thread a
+  column, its nz values transformed in registers (at ``nz = 1``, a grid of one z plane,
+  the transforms are the identity), multiplied by each op's operator at the natural bin
+  and transformed back, without shared memory or a barrier.
 - "radix", for ``nz`` a power of two from 32 to 1024 (built from 8; a plan may name it
   at 8 and 16): a radix FFT in shared memory, one instantiation per pass plan.
   `radix_passes` gives its passes (radix 16, 8 or 4; 256 = 16 x 16). Forward as
@@ -46,15 +46,10 @@ source a tile width; ``zfuse_column.cu``; what they share in ``zfuse.cuh``).
   positions the forward passes leave; the chirp, the filter and the operator are applied
   inside the passes, and the passes skip the half of each transform that is known to be
   zero or is not kept (`apply_bluestein_plain`, `bluestein_tile`).
-- "dense", for ``nz = 1`` (one multiply a column): the dense DFT in fp32 FMAs, the ``nz``
-  roots of unity indexed by ``(k*z) mod nz``; bound by operations (``16*nz^2`` flop per
-  column and op pair against 16 B moved). No `run_simulation` takes it: a grid of one z
-  plane is 2D, which the driver does not fuse. It stays as the timing reference the FFT
-  kernels replaced: a plan may name it at any nz (`kernel_tables`).
 
 `apply_radix_plain` is the radix and mixed kernels' passes on tensors,
 `apply_bluestein_plain` the Bluestein kernel's steps, `apply_plain` the dense sum as a
-matrix product (the plain version of the dense and the column kernels).
+matrix product (the plain version of the column kernel, and every kernel's reference).
 
 `apply` takes `apply_plain` only for tensors on the CPU. Spectra and ``dd`` vectors are
 complex64 tensors (the JAX package's re/im planes and ``[n, 128]`` / ``[8, n]`` tilings are
@@ -76,12 +71,13 @@ import torch
 LAUNCHES = {"zfuse_1op": 0, "zfuse_2op": 0, "zfuse_3op": 0}
 
 # The same launches by the kernel that took them.
-KERNEL_LAUNCHES = {"radix": 0, "mixed": 0, "bluestein": 0, "dense": 0, "column": 0}
+KERNEL_LAUNCHES = {"radix": 0, "mixed": 0, "bluestein": 0, "column": 0}
 
 MAX_OPS = 3
-# dense: two tiles of nz x 8 columns (re/im planes) and the roots must fit a block's 227 KB;
-# every z length up to it has a kernel
-MAX_NZ = (227 * 1024) // (8 * 4 * 4 + 8)
+# The longest z length the fused stage takes, every one up to it by one of the kernels:
+# the mixed kernel's limit (`MIXED_MAX_NZ`), to which the Bluestein kernel, which takes the
+# lengths the mixed one cannot factor, is held (the driver runs a longer z unfused)
+MAX_NZ = 1709
 # radix: a power of two in this range (at 1024 two tiles of nz x 8 columns are 128 KB)
 RADIX_MIN_NZ, RADIX_MAX_NZ = 8, 1024
 # mixed: the butterflies in registers of csrc/zfuse.cu, and the passes a plan may have
@@ -90,9 +86,9 @@ RADICES = (16, 8, 4, 2, 3, 5, 7, 11, 13)
 MAX_PASSES = 7
 # mixed: the primes that take the generic pass (one a plan, the first pass); a z length
 # with a larger prime factor, or two factors from 17 up, takes the Bluestein kernel.
-# PRIME_MAX is the measured crossover (`python -m kwave_tpu_torch.sweeps --only k7prime`
-# on an H100, z lengths 4p and 8p, one op and three, against the Bluestein kernel that
-# folds its pointwise steps into its passes): with the generic pass of registers and a
+# PRIME_MAX is the measured crossover (timed on an H100, PERF.md section 6, K7 mixed: z
+# lengths 4p and 8p, one op and three, against the Bluestein kernel that folds its
+# pointwise steps into its passes): with the generic pass of registers and a
 # table of roots, the generic pass is faster in all 36 cases from 17 to 47 (0.50-0.97 of
 # the Bluestein kernel's time), the Bluestein kernel in 39 of the 40 from 53 to 127 (the
 # 40th, 712 = 89 x 8 with three ops, 3.5 % slower)
@@ -103,15 +99,15 @@ PRIME_MIN, PRIME_MAX = 17, 47
 MIXED_MAX_NZ = (227 * 1024) // (2 * 8 * 8 + 8)
 # the generic pass's pairs (m, p - m) a lane holds at most (csrc/zfuse_mixed.cuh)
 GENERIC_PAIRS = 12
-KERNELS = ("radix", "mixed", "bluestein", "dense", "column")
+KERNELS = ("radix", "mixed", "bluestein", "column")
 # column: the z lengths the kernel is built for (csrc/zfuse_column.cu), and those
-# `kernel_for` sends to it: every one, since it was faster than the radix or mixed kernel
-# that took each before and than the cuFFT route at every one of them, one op and three
-# (`python -m kwave_tpu_torch.sweeps --only k7small` on an H100, spectra [nz, 256, 129]:
-# 0.0046 / 0.0058 ms at 4 against mixed 0.0187 / 0.0288; 0.0105 / 0.0148 at 16 against
-# radix 0.0192 / 0.0384)
+# `kernel_for` sends to it: every one, since from 2 it was faster than the radix or mixed
+# kernel that took each before and than the cuFFT route at every one of them, one op and
+# three (timed on an H100, PERF.md section 6, K7 column; spectra [nz, 256, 129]: 0.0046 /
+# 0.0058 ms at 4 against mixed 0.0187 / 0.0288; 0.0105 / 0.0148 at 16 against radix
+# 0.0192 / 0.0384); at 1 its transforms are the identity
 COLUMN_MAX_NZ = 16
-COLUMN_NZ = frozenset(range(2, COLUMN_MAX_NZ + 1))
+COLUMN_NZ = frozenset(range(1, COLUMN_MAX_NZ + 1))
 
 
 def reset_launch_counts() -> None:
@@ -164,7 +160,7 @@ def generic_table_size(p: int) -> int:
 
 def radix_passes(nz: int) -> tuple[int, ...] | None:
     """The radices of the FFT kernels' forward passes, first pass first, or None where
-    ``nz`` goes to the Bluestein (or, at 1, the dense) kernel, for ``nz`` from 2 to
+    ``nz`` goes to the Bluestein (or, at 1, the column) kernel, for ``nz`` from 2 to
     `MIXED_MAX_NZ`: one prime from `PRIME_MIN` to `PRIME_MAX` as a generic pass where
     ``nz`` has one (and its two tiles of 8 columns, the roots and its table fit a block:
     not at 1692 = 47 x 36 or 1705 = 31 x 55), then the power-of-two part in as few passes
@@ -185,12 +181,8 @@ def radix_takes(nz: int) -> bool:
 
 
 def kernel_for(nz: int) -> str:
-    """Which of the five kernels a spectrum of ``nz`` bins takes: "column", "radix",
-    "mixed", "bluestein" or "dense" (nz = 1, which only a direct `make_plan` /
-    `make_pipeline` reaches: `run_simulation` fuses 3D grids alone, so it never runs the
-    dense kernel)."""
-    if nz == 1:
-        return "dense"
+    """Which of the four kernels a spectrum of ``nz`` bins takes: "column", "radix",
+    "mixed" or "bluestein"."""
     if nz in COLUMN_NZ:
         return "column"
     if radix_takes(nz):
@@ -209,8 +201,8 @@ BLUESTEIN_MIN_M = 32  # two passes at least: the kernel fuses the first and the 
 # is read at every element of every convolution, the chirp at two a column, k2z at one
 # an op), with their bytes per entry and their length (M or nz)
 _STAGED = (("filt", 8, "m"), ("chirp", 8, "nz"), ("k2z", 4, "nz"))
-# The kernel's time, fitted to `python -m kwave_tpu_torch.sweeps --only k7bluestein` on an
-# H100 (80 timings at nz = 127 to 1709 over M and the tile width; 11 % rms): per column,
+# The kernel's time, fitted to timings on an H100 (PERF.md section 6, K7 Bluestein; 80 at
+# nz = 127 to 1709 over M and the tile width; 11 % rms): per column,
 # M x its weighted sweeps (`_bluestein_sweeps`) x (1 + _SWEEP_OVERHEAD / (M x TC)) (a
 # barrier's cost in tile elements) x _BLOCKS_COST[blocks an SM]. A pass's weight is its
 # radix's cost an element against a pass of radix 8.
@@ -343,9 +335,9 @@ class ZFusePlan:
     k2z: torch.Tensor  # [nz] float32
     k2y: torch.Tensor  # [ny]
     k2x: torch.Tensor  # [nxr]
-    kernel: str = "dense"  # the kernel `apply` launches: one of KERNELS
+    kernel: str  # the kernel `apply` launches: one of KERNELS
     # the FFT's passes (of nz for the radix and mixed kernels, of m for the Bluestein
-    # kernel; None for the dense kernel) and, for the radix and mixed kernels, the bin each
+    # kernel; None for the column kernel) and, for the radix and mixed kernels, the bin each
     # position holds after them (int16)
     passes: tuple[int, ...] | None = None
     bins: torch.Tensor | None = None
@@ -366,14 +358,12 @@ def _roots(n: int) -> np.ndarray:
 
 def kernel_tables(nz: int, kernel: str, device: torch.device | str = "cpu") -> dict:
     """The `ZFusePlan` fields of ``kernel`` at ``nz`` (`make_plan` takes `kernel_for`'s;
-    a caller may name another, e.g. to time the dense kernel at any nz): a ValueError where
-    the kernel does not take ``nz``."""
+    a test may name another, to hold a kernel at a length that `kernel_for` sends
+    elsewhere): a ValueError where the kernel does not take ``nz``."""
     fields = dict(kernel=kernel, passes=None, bins=None, m=None, chirp=None, filt=None,
                   m_roots=None)
-    if kernel == "dense":
-        return fields
     if kernel == "column":
-        if not 2 <= nz <= COLUMN_MAX_NZ:
+        if not 1 <= nz <= COLUMN_MAX_NZ:
             raise ValueError(f"the column kernel does not take nz={nz}")
         return fields
     if kernel in ("radix", "mixed"):
@@ -393,7 +383,7 @@ def kernel_tables(nz: int, kernel: str, device: torch.device | str = "cpu") -> d
 
 def bluestein_tables(nz: int, m: int, device: torch.device | str = "cpu") -> dict:
     """The Bluestein kernel's `ZFusePlan` fields at ``nz`` with the convolution length
-    ``m`` (`kernel_tables` takes `bluestein_length`; a sweep may take another M): an even
+    ``m`` (`kernel_tables` takes `bluestein_length`; a test may take another M): an even
     M >= 2 nz (the upper half of the first pass's inputs is then zero, and of the last
     pass's outputs unused) of two passes or more."""
     passes = _passes(m, generic=False)
@@ -572,8 +562,8 @@ def _checked_tables(plan: ZFusePlan) -> tuple:
     generic = kernel == "mixed" and passes and passes[0] >= PRIME_MIN and _is_prime(passes[0])
     ok = kernel in KERNELS
     if kernel == "column":
-        ok = 2 <= nz <= COLUMN_MAX_NZ
-    elif ok and kernel != "dense":
+        ok = 1 <= nz <= COLUMN_MAX_NZ
+    elif ok:
         ok = (n is not None and int(np.prod(passes)) == n and len(passes) <= MAX_PASSES
               and set(passes[1 if generic else 0:]) <= set(RADICES))
     if ok and kernel in ("radix", "mixed"):
@@ -588,9 +578,9 @@ def _checked_tables(plan: ZFusePlan) -> tuple:
                          f"for the bluestein kernel), the radix and mixed kernels their bin "
                          f"table, the bluestein kernel an even M >= 2 nz of two passes "
                          f"or more, the chirp, the filter and the M roots, and the column "
-                         f"kernel nz from 2 to {COLUMN_MAX_NZ}; got "
+                         f"kernel nz from 1 to {COLUMN_MAX_NZ}; got "
                          f"{kernel!r}, passes {plan.passes}, M {plan.m}")
-    if kernel in ("dense", "column"):
+    if kernel == "column":
         return ()
     if kernel == "bluestein":
         return plan.chirp, plan.filt, plan.m_roots
@@ -647,11 +637,11 @@ def apply(plan: ZFusePlan, s: torch.Tensor, ops: tuple[OpSpec, ...], dds: tuple 
 
 def _launch(lib, plan: ZFusePlan, s: torch.Tensor, ops: tuple[OpSpec, ...], dds: tuple,
             use_kappa: bool, tc: int = 0) -> list[torch.Tensor]:
-    """`apply`'s launch of the kernel the plan names from the library ``lib`` (a sweep
-    passes a variant built with ``-D`` switches, `_build.load_library(defines)`), on CUDA
+    """`apply`'s launch of the kernel the plan names from the library ``lib`` (a test
+    passes one of the mixed kernel's two generic builds as ``kw_zfuse_mixed``), on CUDA
     tensors that `apply` checked; counts nothing. ``tc``: the tile width of the Bluestein
     kernel (0: `bluestein_tile`'s) or of the mixed kernel (32, 16 or 8; 0: its own rule);
-    a sweep or a test may name another."""
+    a test may name another."""
     outs = [torch.empty_like(s) for _ in ops]
     dd_iter = iter(dds)
     dd_ptrs = [next(dd_iter).data_ptr() if op.kind == "grad" else None for op in ops]
@@ -683,11 +673,9 @@ def _launch(lib, plan: ZFusePlan, s: torch.Tensor, ops: tuple[OpSpec, ...], dds:
                                          plan.chirp.data_ptr(), plan.filt.data_ptr(),
                                          *fields, *args, plan.m, len(plan.passes), *passes,
                                          tile.tc, staged, stream)
-        elif plan.kernel == "column":
+        else:
             err = lib.kw_zfuse_column(s.data_ptr(), plan.roots.data_ptr(), *fields, *args,
                                       stream)
-        else:
-            err = lib.kw_zfuse(s.data_ptr(), plan.roots.data_ptr(), *fields, *args, stream)
     if err != 0:
         raise RuntimeError(f"zfuse.apply ({plan.kernel} kernel): CUDA launch failed with "
                            f"cudaError {err}")

@@ -177,11 +177,6 @@ def test_encode_window_float_within_1e6_of_the_frame_peak(h, n):
         assert float(np.abs(p1.numpy() - np.asarray(jp1)).max()) <= 1e-6 * peak
 
 
-@pytest.mark.parametrize("h2,want", [(2, 2), (3, 4), (4, 4), (6, 8), (16, 16)])
-def test_window_rows_for_holds_every_row_in_one_thread(h2, want):
-    assert fp.window_rows_for(h2) == want
-
-
 def test_non_contiguous_half_tables_give_the_same_frames():
     """Column slices of a joined table (not contiguous) against contiguous copies."""
     basis = generate_basis(20.0, 1, 2, normalize=True)

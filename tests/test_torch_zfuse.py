@@ -135,8 +135,9 @@ RADIX_NZ = [8, 16, 32, 64, 128, 256, 512]
 # radices 3, 5 and 7 among the passes; 11 and 13 (22, 26, 110); a generic pass (34 = 17 x 2)
 MIXED_NZ = [12, 24, 60, 100, 192, 448, 22, 26, 34, 110]
 PLAIN_TOL = 4e-6  # radix passes against the dense sum: the sum of their two bounds
-# z lengths of the column kernel held to the JAX package's kernel
-COLUMN_JAX_NZ = [4, 6, 12]
+# z lengths of the column kernel held to the JAX package's kernel (1: its transforms are
+# the identity)
+COLUMN_JAX_NZ = [1, 4, 6, 12]
 
 
 def _tiled(plan):
@@ -322,16 +323,17 @@ def test_bluestein_plans(nz):
                                 13, 17, 23, 127, 1699, 1709])
 def test_other_nz_take_the_dense_kernel(nz):
     """The z lengths that took the dense kernel before every length had an FFT (below 8, a
-    prime factor of 11 or more), and more: each takes the kernel `kernel_for` names (the
-    column kernel from 2 to 16), and only nz = 1 the dense one; the plan carries that
-    kernel's tables and none of the others'; the plain version of another kernel refuses
-    it; `apply` on the CPU takes the dense plain version and counts no launch."""
-    want = {1: "dense", 127: "bluestein", 1009: "bluestein", 1699: "bluestein",
+    prime factor of 11 or more, and 1, its last), and more: each takes the kernel
+    `kernel_for` names (the column kernel from 1 to 16); the plan carries that kernel's
+    tables and none of the others'; the plain version of another kernel refuses it;
+    `apply` on the CPU takes the dense plain version and counts no launch; no kernel list
+    names a dense kernel."""
+    want = {127: "bluestein", 1009: "bluestein", 1699: "bluestein",
             1709: "bluestein"}.get(nz, "column" if nz <= 16 else "mixed")
     assert zfuse.kernel_for(nz) == want
     s, _, plan, _ = _case(nz=nz, ny=2, nx=4, jax_plan=False)
     assert plan.kernel == want
-    assert (plan.passes is None) == (want in ("dense", "column"))
+    assert (plan.passes is None) == (want == "column")
     assert (plan.m is None) == (want != "bluestein")
     if want == "mixed":
         assert plan.passes == zfuse.radix_passes(nz)
@@ -348,7 +350,8 @@ def test_other_nz_take_the_dense_kernel(nz):
     assert zfuse.KERNEL_LAUNCHES == before
     with pytest.raises(ValueError, match="nz must be in"):
         _case(nz=zfuse.MAX_NZ + 1, ny=2, nx=4, jax_plan=False)
-    assert set(zfuse.KERNEL_LAUNCHES) == {"radix", "mixed", "bluestein", "dense", "column"}
+    assert set(zfuse.KERNEL_LAUNCHES) == set(zfuse.KERNELS) == {"radix", "mixed",
+                                                                  "bluestein", "column"}
 
 
 @pytest.mark.parametrize("n_ops,kind", [(1, "grad0"), (1, "nabla"), (3, "grad"),
@@ -397,34 +400,6 @@ def test_bluestein_tables_refuse_a_length_they_cannot_take(nz, m):
     """M below 2 nz - 1, or with a factor no pass takes (17, 127), is refused."""
     with pytest.raises(ValueError, match="no convolution length"):
         zfuse.bluestein_tables(nz, m)
-
-
-@pytest.mark.parametrize("nz,want", [(176, ("mixed", (11, 16), None)),
-                                     (208, ("mixed", (13, 16), None)),
-                                     (220, ("mixed", (11, 4, 5), None)),
-                                     (192, ("mixed", (8, 8, 3), None)),
-                                     (143, ("bluestein", (8, 4, 3, 3), 288)),
-                                     (1331, ("bluestein", (16, 8, 3, 7), 2688))])
-def test_design_sweep_plans_without_radix_11_13(nz, want):
-    """The plans the design sweep gives the build without butterflies of 11 and 13 (python
-    -m kwave_tpu_torch.sweeps --only k7design): one such prime as the generic pass, first,
-    two or more through the Bluestein kernel at the shortest M without them, and the
-    default build's own plan otherwise; each computes the same function (three grad ops
-    within 2e-6 of float64's peak)."""
-    from kwave_tpu_torch import sweeps
-
-    s, plan, _, specs, dds, ops64 = _radix_case(nz, 3, "grad", True, seed=nz, jax_plan=False)
-    default = sweeps._design_plan(plan, True)
-    assert default.kernel == "mixed" and default.passes == zfuse.radix_passes(nz)
-    other = sweeps._design_plan(plan, False)
-    assert (other.kernel, other.passes, other.m) == want
-    assert 11 not in other.passes[1:] and 13 not in other.passes[1:]
-    ddc = tuple(torch.from_numpy(d[:, 0] + 1j * d[:, 1]) for d in dds)
-    plain = zfuse.apply_bluestein_plain if other.kernel == "bluestein" else \
-        zfuse.apply_radix_plain
-    for g, op64 in zip(plain(other, torch.from_numpy(s), specs, ddc), ops64):
-        ref = _ref64(s, op64)
-        assert np.abs(g.numpy() - ref).max() <= F64_TOL * np.abs(ref).max()
 
 
 @pytest.mark.parametrize("nz", [127, 143, 251])
@@ -492,18 +467,6 @@ def test_bluestein_tile_rule():
     assert zfuse.bluestein_tile(1009, 2048, 3, tc=8).blocks == 1
 
 
-def test_a_variant_build_has_its_own_library():
-    """A build with ``-D`` switches (the design sweep's variants) is named apart from the
-    default one, so neither takes the other's library; the same switches, the same name."""
-    from kwave_tpu_torch.ops import _build
-
-    default = _build.library_path()
-    variant = _build.library_path(("KW_RADIX_11_13=0",))
-    assert variant != default and variant.parent == default.parent
-    assert _build.library_path(("KW_RADIX_11_13=0",)) == variant
-    assert _build.library_path(("KW_OP_IN_PASS_MAX=0",)) not in (default, variant)
-
-
 @pytest.mark.parametrize("nz", [22, 26, 34])
 def test_bluestein_plain_matches_the_jax_kernel(nz):
     """The Bluestein kernel's steps on tensors, through a plan that names it, against the
@@ -542,15 +505,16 @@ def test_column_plain_matches_the_jax_kernel_and_float64(nz, n_ops, kind, use_ka
         _hold(g.numpy(), np.asarray(re) + 1j * np.asarray(im), _ref64(s, op64))
 
 
-@pytest.mark.parametrize("nz", list(range(2, 18)))
+@pytest.mark.parametrize("nz", list(range(1, 18)))
 def test_short_z_lengths_take_the_column_kernel_where_it_was_measured_faster(nz):
     """Every z length from 2 to 16 takes the column kernel (COLUMN_NZ: measured faster
-    there than the radix or mixed kernel that took it before) and 17 the mixed kernel; a
-    plan may name the column kernel at any z length from 2 to COLUMN_MAX_NZ (the kernel is
-    built for each) and at no other, and the radix or mixed kernel at a column length."""
+    there than the radix or mixed kernel that took it before), 1 too (a grid of one z
+    plane: the transforms are the identity), and 17 the mixed kernel; a plan may name the
+    column kernel at any z length from 1 to COLUMN_MAX_NZ (the kernel is built for each)
+    and at no other, and the radix or mixed kernel at a column length from 2."""
     want = "column" if nz <= 16 else "mixed"
     assert zfuse.kernel_for(nz) == want and (nz in zfuse.COLUMN_NZ) == (want == "column")
-    assert zfuse.COLUMN_NZ <= set(range(2, zfuse.COLUMN_MAX_NZ + 1))
+    assert zfuse.COLUMN_NZ == set(range(1, zfuse.COLUMN_MAX_NZ + 1))
     if nz <= zfuse.COLUMN_MAX_NZ:
         assert zfuse.kernel_tables(nz, "column") == dict(
             kernel="column", passes=None, bins=None, m=None, chirp=None, filt=None,
@@ -559,20 +523,26 @@ def test_short_z_lengths_take_the_column_kernel_where_it_was_measured_faster(nz)
         with pytest.raises(ValueError, match="column kernel does not take"):
             zfuse.kernel_tables(nz, "column")
     tiled = "radix" if nz in (8, 16) else "mixed"
-    assert zfuse.kernel_tables(nz, tiled)["passes"] == zfuse.radix_passes(nz)
+    if nz == 1:  # no FFT kernel takes a length of 1
+        with pytest.raises(ValueError, match=f"{tiled} kernel does not take"):
+            zfuse.kernel_tables(nz, tiled)
+        with pytest.raises(ValueError, match="column kernel does not take"):
+            zfuse.kernel_tables(0, "column")
+    else:
+        assert zfuse.kernel_tables(nz, tiled)["passes"] == zfuse.radix_passes(nz)
 
 
 def test_apply_refuses_a_plan_without_its_fft_tables():
-    """A plan may name another kernel (chip_smoke times the dense kernel at an nz of the
-    mixed one), but an FFT kernel needs passes of its radices that multiply to its length,
-    the radix and mixed kernels the bin table, and the Bluestein kernel an even M >= 2 nz,
-    the chirp, the filter and the M roots."""
+    """A plan may name another kernel (a test holds a kernel at a length that `kernel_for`
+    sends elsewhere), but an FFT kernel needs passes of its radices that multiply to its
+    length, the radix and mixed kernels the bin table, and the Bluestein kernel an even M
+    >= 2 nz, the chirp, the filter and the M roots; a kernel that is not one of KERNELS
+    ("dense" among them) is refused."""
     s, _, plan, _ = _case(nz=24, ny=2, nx=4)
     st, nab = torch.from_numpy(s), (zfuse.OpSpec("nabla"),)
-    dense = dataclasses.replace(plan, kernel="dense", passes=None)
-    assert torch.equal(zfuse.apply(dense, st, nab)[0], zfuse.apply_plain(plan, st, nab)[0])
     for bad in (dataclasses.replace(plan, bins=None), dataclasses.replace(plan, passes=(8, 4)),
-                dataclasses.replace(dense, kernel="mixed"),
+                dataclasses.replace(plan, passes=None),
+                dataclasses.replace(plan, kernel="dense", passes=None),
                 dataclasses.replace(plan, kernel="fft"),
                 dataclasses.replace(plan, kernel="bluestein"),
                 dataclasses.replace(plan, passes=(12, 2)),
